@@ -1,0 +1,55 @@
+"""The PyTorch port stands alone: it imports with `jax` and `transfusion_tpu`
+blocked, builds and runs a small model on the CPU, and its entry points
+default to the card (raising when there is none)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+    sys.modules["jax"] = None
+    sys.modules["transfusion_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+
+    import transfusion_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        transfusion_tpu_torch.__path__, "transfusion_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    assert not any(k == "jax" or k.startswith(("jax.", "flax", "transfusion_tpu."))
+                   for k, v in sys.modules.items() if v is not None), "JAX was imported"
+
+    from transfusion_tpu_torch import Transfusion
+    cfg = dict(num_text_tokens=8, dim_latent=16, modality_default_shape=(4,),
+               pad_multiple=16,
+               transformer=dict(dim=32, depth=2, dim_head=32, heads=2, attn_impl="flash"))
+    m = Transfusion(device="cpu", **cfg)
+    toks = m.generate_text_batch([np.asarray([8, 1, 2])], max_new_tokens=3, temperature=0.0)
+    assert toks.shape == (1, 3)
+
+    if not torch.cuda.is_available():
+        try:
+            Transfusion(**cfg)
+        except RuntimeError as e:
+            assert "device='cpu'" in str(e)
+        else:
+            raise AssertionError("Transfusion() without a GPU must raise")
+    print("OK", len(names))
+    """
+)
+
+
+def test_port_imports_without_jax_and_defaults_to_cuda():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("OK")
+    assert int(r.stdout.split()[1]) >= 15  # every module of the package was imported

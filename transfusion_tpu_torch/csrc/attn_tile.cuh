@@ -1,0 +1,140 @@
+// Shared tile machinery of the port's two attention kernels
+// (flash_fwd.cu, decode_attn.cu).
+//
+// A block of 256 threads holds a tile of ROWS = 16 * RPT query rows in
+// shared memory and walks the keys/values in tiles of BK = 64 columns.
+// Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty*RPT .. ty*RPT+RPT-1
+// and, of each KV tile, the columns tx, tx+16, tx+32, tx+48; of the output
+// it owns the head dimensions tx, tx+16, ... . The 16 threads that share a
+// row group sit in one half-warp, so row max and row sum are four
+// shuffles. Scores, softmax state and the output accumulator are float32.
+//
+// Products are plain FMAs from shared memory (no tensor cores yet): the
+// tiles are padded by one float per row so the K reads of a half-warp hit
+// 16 different banks.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace attn_tile {
+
+constexpr float NEG_INF = -1e30f;  // the JAX kernels' finite "minus infinity"
+constexpr int BK = 64;             // KV tile width
+constexpr int NT = 256;            // threads per block
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T's precision, as a float
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o, 16));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o, 16);
+  return x;
+}
+
+template <int D, int RPT>
+struct Tile {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static constexpr int ROWS = 16 * RPT;
+  static constexpr int QS = D + 1;   // padded row stride of the Q and K tiles
+  static constexpr int PS = BK + 1;  // padded row stride of the P tile
+  static constexpr int DC = D / 16;  // output columns per thread
+  static constexpr size_t kFloats =
+      size_t(ROWS) * QS + size_t(BK) * QS + size_t(BK) * D + size_t(ROWS) * PS;
+
+  float* Qs;  // [ROWS][QS]
+  float* Ks;  // [BK][QS]
+  float* Vs;  // [BK][D]
+  float* Ps;  // [ROWS][PS]
+
+  __device__ explicit Tile(float* smem)
+      : Qs(smem), Ks(smem + ROWS * QS), Vs(Ks + BK * QS), Ps(Vs + BK * D) {}
+
+  // s[r][j] = Q[ty*RPT + r] . K[tx + 16 j]
+  __device__ __forceinline__ void scores(float (&s)[RPT][4], int tx, int ty) const {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * QS + d];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const float qv = Qs[(ty * RPT + r) * QS + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[r][j] = fmaf(qv, kv[j], s[r][j]);
+      }
+    }
+  }
+
+  // Online-softmax update with one tile of (already capped and masked)
+  // scores. Writes the tile's probabilities, rounded to PT, to Ps and
+  // rescales the accumulator. GUARD: a row that has seen no visible
+  // column yet (max still NEG_INF) gets p = 0 instead of exp(0) = 1.
+  template <bool GUARD, typename PT>
+  __device__ __forceinline__ void softmax_update(float (&s)[RPT][4], float (&m)[RPT],
+                                                 float (&l)[RPT], float (&acc)[RPT][DC],
+                                                 int tx, int ty) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+      mx = half_warp_max(mx);
+      const float m_new = fmaxf(m[r], mx);
+      const bool live = !GUARD || m_new > 0.5f * NEG_INF;
+      const float alpha = live ? expf(m[r] - m_new) : 1.f;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = live ? expf(s[r][j] - m_new) : 0.f;
+        psum += p;
+        Ps[(ty * RPT + r) * PS + tx + 16 * j] = round_to<PT>(p);
+      }
+      psum = half_warp_sum(psum);
+      l[r] = l[r] * alpha + psum;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
+    }
+  }
+
+  // acc[r][c] += sum_k P[ty*RPT + r][k] * V[k][tx + 16 c]
+  __device__ __forceinline__ void pv(float (&acc)[RPT][DC], int tx, int ty) const {
+#pragma unroll 4
+    for (int k = 0; k < BK; ++k) {
+      float vv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = Vs[k * D + tx + 16 * c];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const float p = Ps[(ty * RPT + r) * PS + k];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+      }
+    }
+  }
+};
+
+}  // namespace attn_tile
