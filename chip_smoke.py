@@ -9,17 +9,21 @@ Phases (any failure exits non-zero and prints no result line):
      `transfusion_tpu_torch/csrc/` (one nvcc per source, in parallel);
      print the card's name and power limit;
   2. kernels vs plain: each kernel against its plain PyTorch version on the
-     same inputs, at the serving shapes (bf16 within 2e-2, float32 within
-     1e-4), with kernel ms, plain ms, the card's bound, and the SDPA time
-     (no softcap, so a yardstick only);
+     same inputs, at synthetic shapes around the serving path's (bf16 within
+     2e-2, float32 within 1e-4 max abs error; every row's max error also
+     within 0.08 (bf16) / 1e-3 (float32) of that row's RMS), with kernel
+     ms, plain ms, the card's bound, and the SDPA time (no softcap, so a
+     yardstick only);
   3. reference: a small float32 model on the card (kernels) against the
      same weights on the CPU (plain versions): prefill logits, greedy
      tokens and sampled latents must agree;
   4. serving: the bench model at full width (dim 384, depth 8, 8x64 heads,
      bf16, seeded weights) through `generate_text_batch` (8 ragged prompts,
      128 new tokens, greedy; bf16 and int8 KV) and `sample(cache_kv=True)`
-     with CFG. Each path runs with the launch counters set to 0 and must
-     launch both kernels;
+     with CFG. Each path's warm-up captures the tensors of one prefill and
+     one decode call, and each kernel is held against its plain version on
+     them (as in phase 2). Then the path runs with the launch counters set
+     to 0 and must launch both kernels;
   5. the `kernels` line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -29,6 +33,8 @@ with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -48,6 +54,9 @@ SMALL_CFG = dict(
     transformer=dict(dim=64, depth=2, dim_head=32, heads=2, attn_impl="flash"),
 )
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# max row error over the reference row's RMS: output rounding alone gives up
+# to one bf16 ulp (2^-7 relative) of the row's largest element, ~3x its RMS
+ROW_REL_TOL = {"bfloat16": 0.08, "float32": 1e-3}
 
 
 class SmokeFailure(Exception):
@@ -89,43 +98,91 @@ def bound_ms(nbytes, ops, dtype_name):
 # ---------------------------------------------------------------------------
 
 
-def flash_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, lse=False,
-               iters=10):
+def compare(torch, out, ref):
+    """(max abs error, max over rows of the row's max abs error / the
+    reference row's RMS). A row whose reference is all zero (it sees no
+    key) must come out exactly zero."""
+    diff = (out.float() - ref.float()).abs()
+    row_err = diff.amax(-1)
+    row_rms = ref.float().pow(2).mean(-1).sqrt()
+    live = row_rms > 0
+    rel = (row_err[live] / row_rms[live]).max().item() if live.any() else 0.0
+    if bool((row_err[~live] > 0).any()):
+        rel = float("inf")
+    return diff.max().item(), rel
+
+
+def check_flash(torch, mods, a, iters=10):
+    """Kernel 1 against its plain version on the arguments `a` of one
+    flash_attention call (q, k, v, spans, causal, softcap, offsets, lse)."""
     fa = mods["flash"]
-    g = torch.Generator(device="cuda").manual_seed(n + d)
-    q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=g).to(dtype) for _ in range(3))
-    kw = dict(spans=spans, causal=True, softcap=50.0, q_offset=q_offset, kv_offset=kv_offset)
-    out = fa.flash_attention(q, k, v, return_lse=lse, **kw)
-    ref, ref_lse = fa.flash_attention_plain(q, k, v, spans, 50.0, q_offset, kv_offset)
+    q, k, v, spans = a["q"], a["k"], a["v"], a["spans"]
+    q_off, kv_off = int(a["q_offset"] or 0), int(a["kv_offset"] or 0)
+    lse = bool(a["return_lse"])
+    kw = dict(spans=spans, causal=a["causal"], softcap=a["softcap"], q_offset=q_off,
+              kv_offset=kv_off, return_lse=lse)
+    out = fa.flash_attention(q, k, v, **kw)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, spans, a["softcap"], q_off, kv_off)
     torch.cuda.synchronize()
     if lse:
         out, out_lse = out
-    err = (out.float() - ref.float()).abs().max().item()
+    err, rel = compare(torch, out, ref)
     if lse:
         live = ref_lse > -1e29
         err = max(err, (out_lse[live] - ref_lse[live]).abs().max().item() if live.any() else 0.0)
         require(bool((out_lse[~live] < -1e29).all()), "flash lse of a fully masked row")
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, return_lse=lse, **kw), iters)
-    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, spans, 50.0, q_offset, kv_offset),
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters)
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, spans, a["softcap"], q_off, kv_off),
                     max(2, iters // 3))
-    rows = torch.arange(n, device="cuda") + q_offset
-    cols = torch.arange(n, device="cuda") + kv_offset
-    visible = int(mods["spans"].span_allowed(rows, cols, spans).sum().item())
-    if spans is None:
-        visible *= b
+    b, h, nq, d = q.shape
+    nkv = k.shape[2]
+    rows = torch.arange(nq, device="cuda") + q_off
+    cols = torch.arange(nkv, device="cuda") + kv_off
+    mask = mods["spans"].span_allowed(rows, cols, spans)  # [b|1, nq, nkv]
+    visible = int(mask.sum().item()) * (b // mask.shape[0])
     itemsize = q.element_size()
-    nbytes = 4 * b * h * n * d * itemsize + (b * h * n * 4 if lse else 0)
+    nbytes = 2 * b * h * (nq + nkv) * d * itemsize + (b * h * nq * 4 if lse else 0)
     if spans is not None:
         nbytes += spans.numel() * 4
-    bnd, by = bound_ms(nbytes, 4 * h * d * visible, str(dtype).split(".")[-1])
-    mask = mods["spans"].span_allowed(rows, cols, spans)[:, None]
+    bnd, by = bound_ms(nbytes, 4 * h * d * visible, str(q.dtype).split(".")[-1])
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask), iters)
-    return dict(err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, sdpa_no_softcap_ms=lib)
+        q, k, v, attn_mask=mask[:, None]), iters)
+    return dict(err=err, row_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                sdpa_no_softcap_ms=lib)
+
+
+def check_decode(torch, mods, a, iters=20):
+    """Kernel 2 against its plain version on the arguments `a` of one
+    decode_attention call (q, k, v, bias, k_scale, v_scale, softcap, lens)."""
+    da = mods["decode"]
+    args = tuple(a[n] for n in ("q", "k", "v", "bias", "k_scale", "v_scale", "softcap", "lens"))
+    q, k, lens = a["q"], a["k"], a["lens"]
+    out = da.decode_attention(*args)
+    ref = da.decode_attention_plain(*args).to(q.dtype)
+    torch.cuda.synchronize()
+    err, rel = compare(torch, out, ref)
+    ms = time_ms(lambda: da.decode_attention(*args), iters)
+    plain = time_ms(lambda: da.decode_attention_plain(*args), max(2, iters // 4))
+    b, h, nq, d = q.shape
+    int8 = a["k_scale"] is not None
+    slots = int(lens.sum().item()) if lens is not None else b * k.shape[2]
+    per_slot = h * d * k.element_size() * 2 + (h * 8 if int8 else 0) + 4  # K, V, scales, bias
+    nbytes = slots * per_slot + 2 * b * h * nq * d * q.element_size() + 4 * b
+    kind = "int8" if int8 else str(k.dtype).split(".")[-1]
+    bnd, by = bound_ms(nbytes, 4 * h * nq * d * slots, kind)
+    return dict(err=err, row_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+
+
+def flash_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, lse=False,
+               iters=10):
+    g = torch.Generator(device="cuda").manual_seed(n + d)
+    q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=g).to(dtype) for _ in range(3))
+    return check_flash(torch, mods, dict(
+        q=q, k=k, v=v, spans=spans, causal=True, softcap=50.0, q_offset=q_offset,
+        kv_offset=kv_offset, return_lse=lse), iters)
 
 
 def decode_case(torch, mods, b, h, nq, cap, d, dtype, lens_list, int8, iters=20):
-    da = mods["decode"]
     g = torch.Generator(device="cuda").manual_seed(nq + cap)
     q = torch.randn(b, h, nq, d, device="cuda", generator=g).to(dtype)
     k, v = (torch.randn(b, h, cap, d, device="cuda", generator=g).to(dtype) for _ in range(2))
@@ -137,45 +194,39 @@ def decode_case(torch, mods, b, h, nq, cap, d, dtype, lens_list, int8, iters=20)
         k, ks = mods["layers"]._quantize_rows(k)
         v, vs = mods["layers"]._quantize_rows(v)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
-    args = (q, k, v, bias, ks, vs, 50.0, lens)
-    out = da.decode_attention(*args)
-    ref = da.decode_attention_plain(*args).to(dtype)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    ms = time_ms(lambda: da.decode_attention(*args), iters)
-    plain = time_ms(lambda: da.decode_attention_plain(*args), max(2, iters // 4))
-    slots = int(sum(lens_list))
-    per_slot = h * d * k.element_size() * 2 + (h * 8 if int8 else 0) + 4  # K, V, scales, bias
-    nbytes = slots * per_slot + 2 * b * h * nq * d * q.element_size() + 4 * b
-    kind = "int8" if int8 else str(dtype).split(".")[-1]
-    bnd, by = bound_ms(nbytes, 4 * h * nq * d * slots, kind)
-    return dict(err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    return check_decode(torch, mods, dict(
+        q=q, k=k, v=v, bias=bias, k_scale=ks, v_scale=vs, softcap=50.0, lens=lens), iters)
+
+
+RESULTS = {"flash_fwd": [], "decode_attn": []}
+
+
+def record(name, shape, res, dtype):
+    """Log one kernel-vs-plain result and hold it to the dtype's limits:
+    max abs error, and max row error over the reference row's RMS (so a
+    kernel that drops part of a long row fails even where |out| is small)."""
+    kind = str(dtype).split(".")[-1]
+    log(json.dumps({"kernel": name, "shape": shape, **res}))
+    require(res["err"] <= TOL[kind], f"{name} {shape}: max abs err {res['err']} > {TOL[kind]}")
+    require(res["row_rel_err"] <= ROW_REL_TOL[kind],
+            f"{name} {shape}: row err / row RMS {res['row_rel_err']} > {ROW_REL_TOL[kind]}")
+    RESULTS[name].append(res)
+    return res
 
 
 def phase_kernels(torch, mods):
     spans_of = lambda b, ls: torch.tensor(  # noqa: E731 — [text][image]... layouts
         [[[0, off, ln] for off, ln in ls]] * b, dtype=torch.int32, device="cuda")
-    results = {"flash_fwd": [], "decode_attn": []}
-
-    def record(name, shape, res, dtype):
-        tol = TOL[str(dtype).split(".")[-1]]
-        log(json.dumps({"kernel": name, "shape": shape, **res}))
-        require(res["err"] <= tol, f"{name} {shape}: max abs err {res['err']} > {tol}")
-        results[name].append(res)
-
     bf16, f32 = torch.bfloat16, torch.float32
     for n, spans in ((256, [(33, 196)]), (1024, [(10, 196), (400, 196)]),
                      (4096, [(10, 196), (1500, 196), (3000, 196)])):
-        s = spans_of(2, spans)
         record("flash_fwd", f"b2 h8 n{n} d64 bf16 spans{len(spans)}",
-               flash_case(torch, mods, 2, 8, n, 64, bf16, s), bf16)
+               flash_case(torch, mods, 2, 8, n, 64, bf16, spans_of(2, spans)), bf16)
     record("flash_fwd", "b2 h8 n1024 d64 bf16 q_off=512 kv_off=256 lse",
            flash_case(torch, mods, 2, 8, 1024, 64, bf16, spans_of(2, [(700, 196)]),
                       q_offset=512, kv_offset=256, lse=True), bf16)
     record("flash_fwd", "b2 h8 n1000 d64 f32 spans1",
            flash_case(torch, mods, 2, 8, 1000, 64, f32, spans_of(2, [(33, 196)]), iters=3), f32)
-    main_flash = flash_case(torch, mods, 8, 8, 1024, 64, bf16, None)
-    record("flash_fwd", "main path: b8 h8 n1024 d64 bf16 causal (text prefill)", main_flash, bf16)
 
     lens4 = [8192, 5000, 1200, 37]
     for nq in (1, 196):
@@ -184,11 +235,11 @@ def phase_kernels(torch, mods):
                    decode_case(torch, mods, 4, 8, nq, 8192, 64, bf16, lens4, int8), bf16)
     record("decode_attn", "b4 h8 nq196 cap8192 d64 f32",
            decode_case(torch, mods, 4, 8, 196, 8192, 64, f32, lens4, False, iters=3), f32)
-    text_lens = [l + 64 for l in serving_lengths()]
-    main_decode = decode_case(torch, mods, 8, 8, 1, 1152, 64, bf16, text_lens, False)
-    record("decode_attn", "main path: b8 h8 nq1 cap1152 d64 bf16 (text decode step)",
-           main_decode, bf16)
-    return results, {"flash_fwd": main_flash, "decode_attn": main_decode}
+    # long-context text serving: where the kernel loses to its plain version
+    lens8 = [8192 - 37 * i for i in range(8)]
+    for int8 in (False, True):
+        record("decode_attn", f"long context: b8 h8 nq1 cap8192 d64 bf16{' int8' if int8 else ''}",
+               decode_case(torch, mods, 8, 8, 1, 8192, 64, bf16, lens8, int8), bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +294,60 @@ def counted(mods, fn):
     return out, {"flash_fwd": fa.launches, "decode_attn": da.launches}
 
 
+@contextlib.contextmanager
+def capturing(torch, mods, want):
+    """While open, keep a copy of the arguments of the first call the model
+    makes to each kernel wrapper (as `models/layers.py` binds it) that
+    want[name] accepts. The call itself goes on to the wrapper unchanged."""
+    layers, seen, originals = mods["layers"], {}, {}
+    for name, attr in (("flash_fwd", "flash_attention"), ("decode_attn", "decode_attention")):
+        orig = originals[attr] = getattr(layers, attr)
+
+        def spy(*args, _orig=orig, _sig=inspect.signature(orig), _name=name, **kw):
+            bound = _sig.bind(*args, **kw)
+            bound.apply_defaults()
+            if _name not in seen and want[_name](bound.arguments):
+                seen[_name] = {k: x.clone() if isinstance(x, torch.Tensor) else x
+                               for k, x in bound.arguments.items()}
+            return _orig(*args, **kw)
+
+        setattr(layers, attr, spy)
+    try:
+        yield seen
+    finally:
+        for attr, orig in originals.items():
+            setattr(layers, attr, orig)
+
+
+def bias_is_prefix(bias):
+    """True when every row's valid slots (bias 0) are a prefix of the cache."""
+    valid = bias > -1e29
+    return bool((valid.cummin(dim=-1).values == valid).all())
+
+
+def check_main_path(torch, mods, name, calls, dtype):
+    """Hold each kernel against its plain version on the tensors the main
+    path gave it (captured from one call of the serving run)."""
+    require(set(calls) == set(KERNELS), f"{name}: captured only {sorted(calls)}")
+    out = {}
+    fa, dc = calls["flash_fwd"], calls["decode_attn"]
+    qs = lambda t: "x".join(map(str, t.shape))  # noqa: E731
+    out["flash_fwd"] = record("flash_fwd", f"main path, {name}: prefill q {qs(fa['q'])} "
+                              f"spans {'none' if fa['spans'] is None else qs(fa['spans'])}",
+                              check_flash(torch, mods, fa), dtype)
+    kv = "int8" if dc["k_scale"] is not None else str(dc["k"].dtype).split(".")[-1]
+    prefix = "prefix" if bias_is_prefix(dc["bias"]) else "non-prefix"
+    out["decode_attn"] = record("decode_attn", f"main path, {name}: q {qs(dc['q'])} "
+                                f"cache {qs(dc['k'])} {kv}, {prefix} bias, "
+                                f"lens {dc['lens'].tolist()}",
+                                check_decode(torch, mods, dc), dtype)
+    return out
+
+
 def phase_serving(torch, Transfusion, mods):
+    """Each path: a warm-up run that also captures one call of each kernel
+    (checked against the plain version at those tensors), then the counted,
+    timed run. Returns (launch totals, main-path kernel results)."""
     import numpy as np
 
     model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
@@ -251,14 +355,20 @@ def phase_serving(torch, Transfusion, mods):
     prompts = [rng.integers(0, 256, size=n) for n in serving_lengths()]
     b, new = len(prompts), 128
     totals = {"flash_fwd": 0, "decode_attn": 0}
-    report = {}
+    report, main = {}, {}
 
     for name, quant in (("generate_text_batch bf16 KV", False),
                         ("generate_text_batch int8 KV", True)):
         run = lambda k: model.generate_text_batch(  # noqa: E731
             prompts, max_new_tokens=k, temperature=0.0, kv_quantize=quant)
-        run(2)  # warm-up
+        # warm-up; its cache has the timed run's capacity (the width 1024
+        # plus 2 or 128 new tokens both round up to 1152)
+        with capturing(torch, mods, {"flash_fwd": lambda a: True,
+                                     "decode_attn": lambda a: True}) as calls:
+            run(2)
         torch.cuda.synchronize()
+        require(calls["decode_attn"]["k"].shape[2] == 1152, f"{name}: warm-up cache capacity")
+        main[name] = check_main_path(torch, mods, name, calls, torch.bfloat16)
         t0 = time.perf_counter()
         run(1)
         torch.cuda.synchronize()
@@ -280,12 +390,18 @@ def phase_serving(torch, Transfusion, mods):
         )
         log(json.dumps({"serving": name, **report[name]}))
 
+    name = "sample cache_kv cfg 3.0"
     prompt = [np.asarray(list(rng.integers(0, 256, size=24)) + [model.som_ids[0]], np.int32)]
     kw = dict(prompt=prompt, max_length=196, text_temperature=0.0, cache_kv=True,
               kv_quantize=False, cfg_scale=3.0, modality_steps=16,
               fixed_modality_shape=(14, 14), generator=torch.Generator("cuda").manual_seed(0))
-    model.sample(**{**kw, "modality_steps": 2})  # warm-up
+    # warm-up (2 ODE steps, the same cache); captures an ODE evaluation over
+    # the 196 latent rows
+    with capturing(torch, mods, {"flash_fwd": lambda a: True,
+                                 "decode_attn": lambda a: a["q"].shape[2] == 196}) as calls:
+        model.sample(**{**kw, "modality_steps": 2})
     torch.cuda.synchronize()
+    main[name] = check_main_path(torch, mods, name, calls, torch.bfloat16)
     t0 = time.perf_counter()
     items, counts = counted(mods, lambda: model.sample(**kw))
     t_img = time.perf_counter() - t0
@@ -297,11 +413,10 @@ def phase_serving(torch, Transfusion, mods):
             f"sample: kernel launches {counts}")
     for k in totals:
         totals[k] += counts[k]
-    report["sample cache_kv cfg 3.0"] = dict(
-        seconds=t_img, images=len(lats), s_per_image=t_img / len(lats), launches=counts)
-    log(json.dumps({"serving": "sample cache_kv cfg 3.0",
-                    **report["sample cache_kv cfg 3.0"]}))
-    return totals
+    report[name] = dict(seconds=t_img, images=len(lats), s_per_image=t_img / len(lats),
+                        launches=counts)
+    log(json.dumps({"serving": name, **report[name]}))
+    return totals, main
 
 
 # ---------------------------------------------------------------------------
@@ -350,17 +465,20 @@ def main() -> int:
         regs = [ln.strip() for ln in _build.ptxas_log(name).splitlines() if "registers" in ln]
         log(f"ptxas {name}: {regs}")
 
-    per_shape, main_shape = phase_kernels(torch, mods)
+    phase_kernels(torch, mods)
     phase_reference(torch, Transfusion)
-    launches = phase_serving(torch, Transfusion, mods)
+    launches, main_path = phase_serving(torch, Transfusion, mods)
 
+    # the kernels line times each kernel on the tensors captured from the
+    # text path with bf16 KV
+    text = main_path["generate_text_batch bf16 KV"]
     kernels = []
     for name, meta in KERNELS.items():
         require(launches[name] > 0, f"{name} was not launched on the serving path")
-        m = main_shape[name]
+        m = text[name]
         kernels.append(dict(
             name=name, route="cuda", **meta, launches=launches[name],
-            max_abs_err=max(r["err"] for r in per_shape[name]),
+            max_abs_err=max(r["err"] for r in RESULTS[name]),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None,
         ))

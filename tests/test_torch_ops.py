@@ -20,6 +20,7 @@ from transfusion_tpu.utils import helpers as jhelp
 from transfusion_tpu_torch.data import packing as tpack
 from transfusion_tpu_torch.models import layers as tlayers
 from transfusion_tpu_torch.models.serving import plan_serving
+from transfusion_tpu_torch.models.transformer import Transformer, make_kv_cache
 from transfusion_tpu_torch.ops import flow as tflow
 from transfusion_tpu_torch.ops import hyper_connections as thc
 from transfusion_tpu_torch.ops import norms as tnorms
@@ -204,7 +205,16 @@ def test_layout_helpers():
 
 
 def test_plan_serving_routes_every_eligible_step_to_the_kernel():
-    assert plan_serving(256, 1).use_decode_kernel
+    """The plan decides only the KV dtype; every eligible cached step of a
+    flash model goes to the decode kernel, whatever the capacity."""
     assert not plan_serving(256, 1).kv_quantize
     assert plan_serving(256, 1, kv_quantize=True).kv_quantize
-    assert not plan_serving(65536, 64, flash=False).use_decode_kernel
+    assert not plan_serving(65536, 64).kv_quantize
+    cache = make_kv_cache(2, 1, 2, 8192, 32, device="cpu")
+    flash = Transformer(64, 2, dim_head=32, heads=2, attn_impl="flash")
+    dense = Transformer(64, 2, dim_head=32, heads=2, attn_impl="dense")
+    assert flash._use_decode_kernel(cache, False, None, True, 1)
+    assert flash._use_decode_kernel(cache, False, None, False, 196)
+    assert not flash._use_decode_kernel(cache, True, None, True, 1)
+    assert not flash._use_decode_kernel(cache, False, None, True, 4)
+    assert not dense._use_decode_kernel(cache, False, None, True, 1)

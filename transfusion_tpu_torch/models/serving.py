@@ -4,9 +4,9 @@
 The JAX package picks the decode path and the KV dtype from crossovers
 measured on its own accelerator. Those do not carry over to the H100, and
 the port has not measured its own yet (queued in ROADMAP.md). Until it
-does, the port routes every kernel-eligible cached step to the decode
-kernel, and uses the int8 cache only when the caller passes
-`kv_quantize=True`.
+does, the plan decides only the KV dtype: int8 when the caller passes
+`kv_quantize=True`. Every kernel-eligible cached step goes to the decode
+kernel; `Transformer._use_decode_kernel` decides eligibility per call.
 """
 
 from __future__ import annotations
@@ -17,27 +17,16 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class ServingPlan:
-    """use_decode_kernel: cached single-token / modality-row steps go to the
-    decode kernel (the cache layout is the same either way). kv_quantize:
-    int8 cache. reasons: one clause per decision, for logs."""
+    """kv_quantize: int8 cache. reason: one clause, for logs."""
 
-    use_decode_kernel: bool
     kv_quantize: bool
-    reasons: tuple
+    reason: str
 
 
-def plan_serving(cache_capacity: int, batch: int, *, flash: bool = True,
+def plan_serving(cache_capacity: int, batch: int, *,
                  kv_quantize: Optional[bool] = None) -> ServingPlan:
-    """flash: the model runs attn_impl='flash' (a 'dense' model never
-    routes to the kernel). Per-step exclusions (span-masked steps,
-    multi-token causal chunks) are decided per call by
-    `Transformer._use_decode_kernel`."""
-    reasons = [
-        f"decode kernel: every eligible step (cap {cache_capacity}, batch {batch}; "
-        "H100 crossovers not measured yet)" if flash else
-        "decode kernel excluded: attn_impl != 'flash'"
-    ]
-    use_kernel = flash
     quantize = bool(kv_quantize)
-    reasons.append("int8 KV: requested" if quantize else "bf16/f32 KV: int8 not requested")
-    return ServingPlan(use_kernel, quantize, tuple(reasons))
+    return ServingPlan(quantize, (
+        f"{'int8 KV: requested' if quantize else 'bf16/f32 KV: int8 not requested'} "
+        f"(cap {cache_capacity}, batch {batch}; H100 crossovers not measured yet)"
+    ))

@@ -334,11 +334,8 @@ class Transfusion:
         )
 
     def _plan(self, cap, batch, kv_quantize):
-        plan = plan_serving(
-            cap, batch, flash=self.transformer_cfg.get("attn_impl") == "flash",
-            kv_quantize=kv_quantize,
-        )
-        logger.debug("serving plan: %s", "; ".join(plan.reasons))
+        plan = plan_serving(cap, batch, kv_quantize=kv_quantize)
+        logger.debug("serving plan: %s", plan.reason)
         return plan
 
     # ------------------------------------------------------------------
