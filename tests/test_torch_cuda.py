@@ -1,6 +1,6 @@
-"""PyTorch port on a CUDA card: each CUDA kernel against its plain PyTorch
-version, and the serving path on the card against the same weights on the
-CPU. Every test here is marked `cuda` and skips without a GPU (the CUDA
+"""PyTorch port on a CUDA card: each CUDA kernel (forward and backward)
+against its plain PyTorch version, and the serving path and a training
+step on the card against the same weights on the CPU. Every test here is marked `cuda` and skips without a GPU (the CUDA
 kernels have no CPU mode). This file imports no JAX, so it runs on a
 machine that has only the port's dependencies:
 
@@ -13,7 +13,9 @@ import torch
 
 from transfusion_tpu_torch import Transfusion
 from transfusion_tpu_torch.models.layers import _quantize_rows
-from transfusion_tpu_torch.ops import decode_attn, flash_attn
+from transfusion_tpu_torch.ops import decode_attn, flash_attn, flash_attn_nhd
+from transfusion_tpu_torch.ops.rope import rope_angles
+from transfusion_tpu_torch.training import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +108,93 @@ def test_serving_on_card_matches_cpu(cuda_device):
     lat_g = next(o[1] for o in gm.sample(**skw) if isinstance(o, tuple))
     lat_c = next(o[1] for o in cm.sample(**skw) if isinstance(o, tuple))
     np.testing.assert_allclose(lat_g, lat_c, atol=1e-3)
+
+
+def assert_grads_close(got, want, rel):
+    """Each gradient within rel of its reference's largest element: the two
+    sides sum in another order and, in bf16, may round the output one ulp
+    (2^-8 relative) apart."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = max(b.float().abs().max().item(), 1e-6)
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rel * scale, f"{name}: {err} > {rel} * {scale}"
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("n,d", [(130, 32), (1000, 64), (200, 128)])
+def test_backward_kernel_matches_plain(cuda_device, dtype, rel, n, d):
+    q, k, v, do = (randn(2, 2, n, d, seed=s, dtype=dtype) for s in range(4))
+    spans = torch.tensor(SPANS, device=cuda_device)
+    g_lse = randn(2, 2, n, seed=9)
+    for q_off, kv_off, gl in ((0, 0, None), (64, 16, g_lse), (0, 48, None)):
+        out, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True, q_offset=q_off,
+                                              kv_offset=kv_off, return_lse=True)
+        before = flash_attn.flash_attention_backward.launches
+        got = flash_attn.flash_attention_backward(q, k, v, out, lse, do, spans, 50.0, q_off,
+                                                  kv_off, gl)
+        assert flash_attn.flash_attention_backward.launches == before + 1
+        delta = (do.float() * out.float()).sum(-1) - (0 if gl is None else gl)
+        want = flash_attn.flash_attention_backward_plain(q, k, v, do, lse, delta, spans, 50.0,
+                                                         q_off, kv_off)
+        torch.cuda.synchronize()
+        assert_grads_close(got, want, rel)
+        if kv_off == 48:  # rows 0..29 see no column (causally, or through a span): zero dq
+            assert (got[0][:, :, :30] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,tol,rel", [(torch.float32, 1e-4, 1e-4),
+                                           (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("rope", [True, False])
+def test_token_major_kernels_match_plain(cuda_device, dtype, tol, rel, rope):
+    b, h, n, d = 2, 4, 256, 64
+    q, k, v, do = (randn(b, n, h * d, seed=s, dtype=dtype) for s in range(4))
+    spans = torch.tensor([[[0, 40, 100]], [[0, 7, 196]]], device=cuda_device)
+    cos = sin = None
+    if rope:
+        pos = torch.stack([torch.arange(n), torch.arange(n) // 3]).to(cuda_device)
+        ang = rope_angles(pos, d)
+        cos, sin = torch.cos(ang), torch.sin(ang)
+    f = flash_attn_nhd
+    before = (f.flash_attention_nhd.launches, f.flash_attention_nhd_backward.launches)
+    out, lse = f._forward(q, k, v, h, cos, sin, spans, 50.0)
+    ref, ref_lse = f.flash_attention_nhd_plain(q, k, v, h, cos, sin, spans, 50.0)
+    got = f.flash_attention_nhd_backward(q, k, v, out, lse, do, h, cos, sin, spans, 50.0)
+    delta = (do.float() * out.float()).view(b, n, h, d).sum(-1).transpose(1, 2)
+    want = f.flash_attention_nhd_backward_plain(q, k, v, do, lse, delta, h, cos, sin, spans,
+                                                50.0)
+    torch.cuda.synchronize()
+    assert (f.flash_attention_nhd.launches, f.flash_attention_nhd_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert_grads_close(got, want, rel)
+
+
+def test_training_step_on_card_matches_cpu(cuda_device):
+    """One float32 training step (token-major route: 2 heads x 64) on the
+    card and on the CPU from the same weights and draws: loss and every
+    gradient within 1e-4."""
+    cfg = dict(CFG, transformer=dict(dim=64, depth=2, dim_head=64, heads=2, attn_impl="flash"))
+    models = [Transfusion(device=dev, seed=2, **cfg) for dev in ("cuda", "cpu")]
+    models[1].core.load_state_dict({k: t.cpu() for k, t in models[0].core.state_dict().items()})
+    rng = np.random.default_rng(0)
+    batch = [[rng.integers(0, 8, 5).astype(np.int32), rng.standard_normal((4, 16)).astype(np.float32)]
+             for _ in range(3)]
+    packed = models[1].pack(batch, shift_friendly=True).to_torch("cpu")
+    draws = models[1].make_draws(packed, torch.Generator().manual_seed(0))
+    out = []
+    for m in models:
+        dev = m.device
+        p = packed.to_torch(dev) if dev.type == "cuda" else packed
+        d = type(draws)(times=draws.times.to(dev), cfg_uniform=draws.cfg_uniform.to(dev),
+                        noises=tuple(t.to(dev) for t in draws.noises))
+        state = Trainer(m).init_state()
+        leaves = {k: t.requires_grad_(True) for k, t in state.params.items()}
+        loss, _ = m._loss_impl(leaves, p, d, m.prob_uncond)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        out.append((loss.item(), [None if g is None else g.cpu() for g in grads]))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4
+    for a, b in zip(out[0][1], out[1][1]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert (a - b).abs().max().item() <= 1e-4

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports with `jax` and `transfusion_tpu`
-blocked, builds and runs a small model on the CPU, and its entry points
-default to the card (raising when there is none)."""
+blocked, builds a small model on the CPU, serves from it and takes a
+training step, and its entry points default to the card (raising when
+there is none)."""
 
 import os
 import subprocess
@@ -34,6 +35,13 @@ SCRIPT = textwrap.dedent(
     toks = m.generate_text_batch([np.asarray([8, 1, 2])], max_new_tokens=3, temperature=0.0)
     assert toks.shape == (1, 3)
 
+    from transfusion_tpu_torch.training import Trainer
+    trainer = Trainer(m)
+    batch = [[np.asarray([1, 2, 3], np.int32), np.ones((4, 16), np.float32)]]
+    state, metrics = trainer.train_step(trainer.init_state(), batch,
+                                        generator=torch.Generator().manual_seed(0))
+    assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+
     if not torch.cuda.is_available():
         try:
             Transfusion(**cfg)
@@ -52,4 +60,4 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.startswith("OK")
-    assert int(r.stdout.split()[1]) >= 15  # every module of the package was imported
+    assert int(r.stdout.split()[1]) >= 20  # every module of the package was imported

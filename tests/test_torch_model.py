@@ -212,13 +212,34 @@ def test_cache_helpers():
     assert marked["mask"][2, 9:11].all() and not cache["mask"].any()
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(jax_ref):
+    """Unported options raise; the uncached flash `text_forward` (which
+    raised before the training slice) now equals the JAX one."""
     with pytest.raises(NotImplementedError, match="LASER"):
         Transfusion(transformer=dict(tcfg("flash"), attn_laser=True), device="cpu", **CFG)
     with pytest.raises(NotImplementedError, match="hyper-connections"):
         Transfusion(transformer=dict(tcfg("flash"), num_residual_streams=2), device="cpu", **CFG)
     with pytest.raises(NotImplementedError, match="axial"):
         Transfusion(transformer=tcfg("flash"), add_pos_emb=True, device="cpu", **CFG)
+    models, params = jax_ref
     tm = Transfusion(transformer=tcfg("flash"), device="cpu", **CFG)
-    with pytest.raises(NotImplementedError, match="NHD"):
-        tm.core.text_forward(torch.zeros((1, 4), dtype=torch.int64))
+    tm.load_flax(jax.tree.map(np.asarray, params))
+    toks = np.asarray([[8, 1, 2, 3, 7, 5], [8, 4, 4, 0, 1, 2]], np.int32)
+    j_logits = models["flash"].core.apply(params, jnp.asarray(toks), method="text_forward")[0]
+    t_logits, _ = tm.core.text_forward(torch.tensor(toks, dtype=torch.int64))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=1e-4)
+
+
+def test_uncached_flash_outside_kernel_shapes_matches_jax():
+    """Head dim 16 is outside `supported`: the uncached flash route takes
+    the dense path with the causal|span mask built from the flash spec,
+    as `transfusion_flash_attention` falls back to `_reference_attention`."""
+    cfg = dict(dim=32, depth=2, dim_head=16, heads=2, attn_impl="flash")
+    jm = JaxTransfusion(transformer=cfg, **CFG)
+    params = jitter(jm.init_params(jax.random.PRNGKey(1)))
+    tm = Transfusion(transformer=cfg, device="cpu", **CFG)
+    tm.load_flax(jax.tree.map(np.asarray, params))
+    toks = np.asarray([[8, 1, 2, 3, 7, 5, 6, 0]], np.int32)
+    j_logits = jm.core.apply(params, jnp.asarray(toks), method="text_forward")[0]
+    t_logits, _ = tm.core.text_forward(torch.tensor(toks, dtype=torch.int64))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=1e-4)

@@ -1,5 +1,5 @@
-// Shared tile machinery of the port's two attention kernels
-// (flash_fwd.cu, decode_attn.cu).
+// Shared tile machinery of the port's attention kernels (flash_fwd.cu,
+// flash_bwd.cu, decode_attn.cu).
 //
 // A block of 256 threads holds a tile of ROWS = 16 * RPT query rows in
 // shared memory and walks the keys/values in tiles of BK = 64 columns.
@@ -50,6 +50,27 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o, 16);
   return x;
+}
+
+// Offset of row 0 of head (bi, hi) in a [b, h, n, d] (nhd = 0) or
+// [b, n, h*d] (nhd = 1) tensor; rows are row_stride(nhd, H, D) apart.
+__device__ __forceinline__ size_t head_base(int nhd, int bi, int hi, int H, int n, int D) {
+  return nhd ? (size_t(bi) * n * H + hi) * D : (size_t(bi) * H + hi) * size_t(n) * D;
+}
+__device__ __forceinline__ size_t row_stride(int nhd, int H, int D) {
+  return nhd ? size_t(H) * D : size_t(D);
+}
+
+// Element c of a row, rotated by the interleaved RoPE when cs != nullptr
+// (cs/sn point at the row's d angles) and rounded to T, as `_rope_tile`.
+template <typename T>
+__device__ __forceinline__ float rope_load(const T* row, int c, const float* cs,
+                                           const float* sn) {
+  const float x = to_f(row[c]);
+  if (cs == nullptr) return x;
+  const float partner = to_f(row[c ^ 1]);
+  const float rot = (c & 1) ? partner : -partner;
+  return round_to<T>(x * cs[c] + rot * sn[c]);
 }
 
 template <int D, int RPT>

@@ -14,6 +14,15 @@
 // optional per-row logsumexp. A row that sees no column gets out = 0 and
 // lse ~ -1e30 (the contract ring attention merges through).
 //
+// Two layouts, chosen by `nhd`: head-major q/k/v/out [b, h, n, d] (the
+// route of `_flash_fwd`) and token-major [b, n, h*d] (the route of
+// `_nhd_pallas` -> `_kernel_batched_nhd`, row 5 of the kernel table). In
+// both, a head's row r lies at base + r * row_stride; the kernel computes
+// the base and stride from the layout, so the token-major route needs no
+// transpose copies. With cos/sin (float32 [b, n, d]) each q/k element is
+// rotated on load by the interleaved RoPE (pairs 2j, 2j+1) in float32 and
+// rounded to the input dtype, as `_rope_tile` does before the product.
+//
 // Layout: one block per (b*h, 64-row q tile); the block reads its own spans
 // (no scalar prefetch), loops over 64-column KV tiles only up to the last
 // tile visible through causality or a span rectangle, skips fully masked
@@ -41,12 +50,12 @@ constexpr int RPT = 4;
 constexpr int BQ = 16 * RPT;  // 64 query rows per block
 constexpr int MAX_SPANS = 128;
 
-template <typename T, int D>
+template <typename T, int D, bool NHD, bool ROPE>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ spans, int m, T* __restrict__ out,
-                 float* __restrict__ lse, int H, int nq, int nkv, int q_off, int kv_off,
-                 float scale, float softcap) {
+                 const int* __restrict__ spans, int m, const float* __restrict__ cos,
+                 const float* __restrict__ sin, T* __restrict__ out, float* __restrict__ lse,
+                 int H, int nq, int nkv, int q_off, int kv_off, float scale, float softcap) {
   using TileT = Tile<D, RPT>;
   extern __shared__ float smem[];
   TileT tile(smem);
@@ -54,11 +63,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   int* sp_len = sp_off + MAX_SPANS;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, bi = bh / H;
+  const int bh = blockIdx.y, bi = bh / H, head = bh - bi * H;
   const int q0 = blockIdx.x * BQ;
-  const T* qb = q + size_t(bh) * nq * D;
-  const T* kb = k + size_t(bh) * nkv * D;
-  const T* vb = v + size_t(bh) * nkv * D;
+  const size_t rs = row_stride(NHD, H, D);
+  const T* qb = q + head_base(NHD, bi, head, H, nq, D);
+  const T* kb = k + head_base(NHD, bi, head, H, nkv, D);
+  const T* vb = v + head_base(NHD, bi, head, H, nkv, D);
 
   for (int s = tid; s < m; s += NT) {
     sp_off[s] = spans[(size_t(bi) * m + s) * 3 + 1];
@@ -68,8 +78,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float scale_t = round_to<T>(scale);
   for (int e = tid; e < BQ * D; e += NT) {
     const int r = e / D, c = e - r * D, gr = q0 + r;
-    tile.Qs[r * TileT::QS + c] =
-        gr < nq ? round_to<T>(to_f(qb[size_t(gr) * D + c]) * scale_t) : 0.f;
+    float x = 0.f;
+    if (gr < nq) {
+      const size_t a = (size_t(bi) * nq + gr) * D;
+      x = round_to<T>(rope_load(qb + size_t(gr) * rs, c, ROPE ? cos + a : nullptr,
+                                ROPE ? sin + a : nullptr) * scale_t);
+    }
+    tile.Qs[r * TileT::QS + c] = x;
   }
   __syncthreads();
 
@@ -109,9 +124,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();  // previous tile's readers are done with Ks/Vs/Ps
     for (int e = tid; e < BK * D; e += NT) {
       const int r = e / D, c = e - r * D, gk = k0 + r;
-      const bool in = gk < nkv;
-      tile.Ks[r * TileT::QS + c] = in ? to_f(kb[size_t(gk) * D + c]) : 0.f;
-      tile.Vs[r * D + c] = in ? to_f(vb[size_t(gk) * D + c]) : 0.f;
+      float kx = 0.f, vx = 0.f;
+      if (gk < nkv) {
+        const size_t a = (size_t(bi) * nkv + gk) * D;
+        kx = rope_load(kb + size_t(gk) * rs, c, ROPE ? cos + a : nullptr,
+                       ROPE ? sin + a : nullptr);
+        vx = to_f(vb[size_t(gk) * rs + c]);
+      }
+      tile.Ks[r * TileT::QS + c] = kx;
+      tile.Vs[r * D + c] = vx;
     }
     __syncthreads();
 
@@ -139,48 +160,58 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     tile.pv(acc, tx, ty);
   }
 
-  T* ob = out + size_t(bh) * nq * D;
+  T* ob = out + head_base(NHD, bi, head, H, nq, D);
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int row = q0 + ty * RPT + r;
     if (row >= nq) continue;
     const float ls = fmaxf(l_i[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < TileT::DC; ++c) ob[size_t(row) * D + tx + 16 * c] = from_f<T>(acc[r][c] / ls);
+    for (int c = 0; c < TileT::DC; ++c) ob[size_t(row) * rs + tx + 16 * c] = from_f<T>(acc[r][c] / ls);
     if (lse != nullptr && tx == 0) lse[size_t(bh) * nq + row] = m_i[r] + logf(ls);
   }
 }
 
+struct Rope {
+  const float* cos;  // float32 [b, nq, d] or NULL
+  const float* sin;
+};
+
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* spans, int m, void* out,
-           float* lse, int b, int h, int nq, int nkv, int q_off, int kv_off, float scale,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const int* spans, int m, Rope rope,
+           void* out, float* lse, int b, int h, int nq, int nkv, int q_off, int kv_off, int nhd,
+           float scale, float softcap, cudaStream_t stream) {
   const size_t smem = Tile<D, RPT>::kFloats * sizeof(float) + 2 * MAX_SPANS * sizeof(int);
-  auto kern = flash_fwd_kernel<T, D>;
+  // layout and RoPE are template flags: the head-major route compiles to
+  // constant strides and loads without a branch
+  auto kern = !nhd ? flash_fwd_kernel<T, D, false, false>
+              : rope.cos != nullptr ? flash_fwd_kernel<T, D, true, true>
+                                    : flash_fwd_kernel<T, D, true, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((nq + BQ - 1) / BQ, b * h);
   kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                   static_cast<const T*>(v), spans, m, static_cast<T*>(out),
-                                   lse, h, nq, nkv, q_off, kv_off, scale, softcap);
+                                   static_cast<const T*>(v), spans, m, rope.cos, rope.sin,
+                                   static_cast<T*>(out), lse, h, nq, nkv, q_off, kv_off, scale,
+                                   softcap);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v, const int* spans, int m,
-               void* out, float* lse, int b, int h, int nq, int nkv, int q_off, int kv_off,
-               float scale, float softcap, cudaStream_t stream) {
+               Rope rope, void* out, float* lse, int b, int h, int nq, int nkv, int q_off,
+               int kv_off, int nhd, float scale, float softcap, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, spans, m, out, lse, b, h, nq, nkv, q_off, kv_off, scale,
-                           softcap, stream);
+      return launch<T, 32>(q, k, v, spans, m, rope, out, lse, b, h, nq, nkv, q_off, kv_off,
+                           nhd, scale, softcap, stream);
     case 64:
-      return launch<T, 64>(q, k, v, spans, m, out, lse, b, h, nq, nkv, q_off, kv_off, scale,
-                           softcap, stream);
+      return launch<T, 64>(q, k, v, spans, m, rope, out, lse, b, h, nq, nkv, q_off, kv_off,
+                           nhd, scale, softcap, stream);
     case 128:
-      return launch<T, 128>(q, k, v, spans, m, out, lse, b, h, nq, nkv, q_off, kv_off, scale,
-                            softcap, stream);
+      return launch<T, 128>(q, k, v, spans, m, rope, out, lse, b, h, nq, nkv, q_off, kv_off,
+                            nhd, scale, softcap, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -188,17 +219,23 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, const int* sp
 
 }  // namespace
 
-// q [b,h,nq,d], k/v [b,h,nkv,d] contiguous, bf16 (is_bf16=1) or float32;
-// spans int32 [b,m,3] (m <= 128); out like q; lse float32 [b,h,nq] or NULL.
+// q [b,h,nq,d], k/v [b,h,nkv,d] (nhd = 0) or q [b,nq,h*d], k/v [b,nkv,h*d]
+// (nhd = 1), contiguous, bf16 (is_bf16=1) or float32; spans int32 [b,m,3]
+// (m <= 128); cos/sin float32 [b,nq,d] or NULL (no RoPE; only with nhd = 1,
+// where nq == nkv); out like q; lse float32 [b,h,nq] or NULL.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* spans, int m,
-                         void* out, float* lse, int b, int h, int nq, int nkv, int d, int q_off,
-                         int kv_off, float scale, float softcap, int is_bf16, void* stream) {
+                         const float* cos, const float* sin, void* out, float* lse, int b,
+                         int h, int nq, int nkv, int d, int q_off, int kv_off, int nhd,
+                         float scale, float softcap, int is_bf16, void* stream) {
   if (m < 0 || m > MAX_SPANS || nq <= 0 || nkv <= 0) return int(cudaErrorInvalidValue);
+  if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && (nq != nkv || !nhd)))
+    return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Rope rope{cos, sin};
   if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, spans, m, out, lse, b, h, nq, nkv, q_off,
-                                     kv_off, scale, softcap, s);
-  return dispatch_d<float>(d, q, k, v, spans, m, out, lse, b, h, nq, nkv, q_off, kv_off, scale,
-                           softcap, s);
+    return dispatch_d<__nv_bfloat16>(d, q, k, v, spans, m, rope, out, lse, b, h, nq, nkv,
+                                     q_off, kv_off, nhd, scale, softcap, s);
+  return dispatch_d<float>(d, q, k, v, spans, m, rope, out, lse, b, h, nq, nkv, q_off, kv_off,
+                           nhd, scale, softcap, s);
 }

@@ -168,14 +168,20 @@ def _assemble(descriptors, n: int, m: int):
 
 def pack_samples(samples: Sequence[list], spec: PackSpec, *, wrap_sos_eos: bool = True,
                  add_meta: bool = True, pad_multiple: int = 64,
-                 pad_len: Optional[int] = None, span_multiple: int = 2) -> PackedBatch:
+                 pad_len: Optional[int] = None, span_multiple: int = 2,
+                 shift_friendly: bool = False) -> PackedBatch:
     """Pack ragged ModalitySamples (lists of int arrays / float arrays /
     (type, float array) tuples) into one PackedBatch of numpy arrays.
 
     wrap_sos_eos adds [sos] ... [eos]; add_meta writes the
     [meta][shape][som] ... [eom] frame around each modality (sampling passes
     False: the sampled stream already holds the frame). The padded length is
-    round_up(max_len + 1, pad_multiple) unless pad_len is given."""
+    round_up(max_len + 1, pad_multiple) unless pad_len is given.
+
+    shift_friendly adds one slot, so that after the training step's
+    next-token shift (text[:, :-1]) the model sees a length that is a
+    multiple of pad_multiple; with it, pad_len must leave room for that
+    slot beyond the longest sample."""
     num_modalities = len(spec.modalities)
     descriptors: list = []
     span_counts: list = []
@@ -243,9 +249,17 @@ def pack_samples(samples: Sequence[list], spec: PackSpec, *, wrap_sos_eos: bool 
         lengths_py.append(offset)
 
     max_len = max(lengths_py) if lengths_py else 1
-    n = pad_len if pad_len is not None else round_up_to_multiple(max(max_len, 1) + 1, pad_multiple)
-    if n < max_len:
-        raise ValueError(f"pad_len {n} too small for longest sample {max_len}")
+    shift = 1 if shift_friendly else 0
+    n = pad_len if pad_len is not None else (
+        round_up_to_multiple(max(max_len, 1) + 1, pad_multiple) + shift
+    )
+    # an exact fit under shift_friendly would drop the last real token of a
+    # longest sample in the shift
+    if n < max_len + shift:
+        raise ValueError(
+            f"pad_len {n} too small for longest sample {max_len}"
+            + (" + 1 shift slot (shift_friendly=True)" if shift_friendly else "")
+        )
     m = max(span_multiple, round_up_to_multiple(max(span_counts, default=1), span_multiple))
 
     text, cfg, spans_arr, lengths = _assemble(descriptors, n, m)

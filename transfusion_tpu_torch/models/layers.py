@@ -21,9 +21,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from transfusion_tpu_torch.ops.decode_attn import decode_attention
-from transfusion_tpu_torch.ops.flash_attn import flash_attention
+from transfusion_tpu_torch.ops.flash_attn import flash_attention, supported
+from transfusion_tpu_torch.ops.flash_attn_nhd import flash_attention_nhd, nhd_eligible
 from transfusion_tpu_torch.ops.norms import l2norm, max_neg_value, softclamp
 from transfusion_tpu_torch.ops.rope import apply_rope
+from transfusion_tpu_torch.ops.spans import span_allowed
 
 
 def random_fourier_embed(times, dim: int, weights):
@@ -80,12 +82,16 @@ class Attention(nn.Module):
     RoPE, KV cache. forward returns (out, orig_values, new_cache).
 
     Routes (as `transfusion_tpu.models.layers.Attention`):
+      * uncached with a flash spec, inside `nhd_eligible(h, n, d)` (the
+        training step at the bench shape) -> the token-major route:
+        `flash_attention_nhd` on [b, n, h*d] with RoPE fused in the kernel;
+        the value residual then travels in that layout too;
+      * uncached with a flash spec otherwise -> RoPE in PyTorch, then
+        `flash_attention` when `supported(n, d)`, else the dense path;
       * cached prefill with a flash spec -> `flash_attention` over the chunk
         alone (the cache is only written);
       * cached step with a decode bias -> `decode_attention` over the cache;
       * anything else -> the dense path against the cache (or the chunk).
-    Uncached flash attention runs through the NHD kernel in the JAX package;
-    it arrives with the training slice and raises here.
     """
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
@@ -108,11 +114,45 @@ class Attention(nn.Module):
         b, n, _ = t.shape
         return t.view(b, n, self.heads, self.dim_head).transpose(1, 2)
 
+    def _forward_nhd(self, x, q, k, v, rope, value_residual, flash_spec):
+        """The token-major route (JAX `layers.py:236-286`): q/k/v and the
+        value residual stay [b, n, h*d]; per-head mix and gates are repeated
+        over each head's d columns."""
+        b, n, _ = x.shape
+        d = self.dim_head
+        orig_v = v
+        if value_residual is not None:
+            if self.to_value_residual_mix is not None:
+                mix = torch.sigmoid(self.to_value_residual_mix(x)).repeat_interleave(d, dim=-1)
+            else:
+                mix = 0.5
+            v = v * mix + value_residual * (1.0 - mix)
+        cos = sin = None
+        if rope is not None:
+            ang = (rope if rope.ndim > 2 else rope[None]).float().expand(b, n, d)
+            cos, sin = torch.cos(ang), torch.sin(ang)
+        out = flash_attention_nhd(
+            q, k, v, self.heads, cos=cos, sin=sin, spans=flash_spec.get("spans"),
+            causal=flash_spec.get("causal", False), softcap=self.softcap_value,
+        )
+        if self.to_gates is not None:
+            out = out * torch.sigmoid(self.to_gates(x)).repeat_interleave(d, dim=-1)
+        return self.to_out(out), orig_v, None
+
     def forward(self, x, mask=None, rope=None, cache=None, value_residual=None,
                 flash_spec=None, decode_bias=None, decode_lens=None, prefill=False):
         b, n, _ = x.shape
         q, k = self.to_qk(x).chunk(2, dim=-1)
-        q, k, v = (self._split_heads(t) for t in (q, k, self.to_v(x)))
+        v = self.to_v(x)
+        uncached_flash = flash_spec is not None and self.attn_impl == "flash" and cache is None
+        if uncached_flash and self.dim_head == 256:
+            raise NotImplementedError(
+                "head dim 256: the port's attention kernels take 32/64/128 "
+                "(ROADMAP.md Queue 2, 'head dim 256')"
+            )
+        if uncached_flash and decode_bias is None and nhd_eligible(self.heads, n, self.dim_head):
+            return self._forward_nhd(x, q, k, v, rope, value_residual, flash_spec)
+        q, k, v = (self._split_heads(t) for t in (q, k, v))
         orig_v = v
 
         if value_residual is not None:
@@ -151,18 +191,19 @@ class Attention(nn.Module):
                 q, k_buf, v_buf, decode_bias, k_scale=k_sc, v_scale=v_sc,
                 softcap=self.softcap_value, lens=decode_lens,
             )
-        elif flash_spec is not None and self.attn_impl == "flash":
-            if cache is None:
-                raise NotImplementedError(
-                    "uncached flash attention takes the fused NHD kernel in the "
-                    "JAX package; it arrives with the training slice (ROADMAP.md "
-                    "slice 2). The port runs cached prefill and decode only"
-                )
+        elif flash_spec is not None and self.attn_impl == "flash" and (
+            cache is not None or supported(n, self.dim_head)
+        ):
             out = flash_attention(
                 q, k_full, v_full, spans=flash_spec.get("spans"),
                 causal=flash_spec.get("causal", False), softcap=self.softcap_value,
             )
         else:
+            if flash_spec is not None:
+                # `transfusion_flash_attention`'s dense path for shapes the
+                # kernel does not take: the mask comes from the spec
+                seq = torch.arange(n, device=x.device)
+                mask = span_allowed(seq, seq, flash_spec.get("spans"))[:, None]
             sim = torch.matmul(
                 (q * self.dim_head**-0.5).float(), k_full.float().transpose(-1, -2)
             )

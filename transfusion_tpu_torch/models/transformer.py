@@ -132,8 +132,19 @@ class Transformer(nn.Module):
                  ff_expansion_factor: float = 4.0, unet_skips: bool = True,
                  num_residual_streams: int = 1, attn_impl: str = "dense",
                  attn_softcap: float = 50.0, attn_gate_values: bool = True,
-                 rope_theta: float = 10000.0, attn_laser: bool = False):
+                 rope_theta: float = 10000.0, attn_laser: bool = False,
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
+        if dropout > 0:
+            raise NotImplementedError(
+                f"dropout={dropout}: attention/feedforward dropout is queued in "
+                "ROADMAP.md (Queue 1, 'dropout/remat'); the port trains with dropout 0"
+            )
+        if remat:
+            raise NotImplementedError(
+                "remat=True: gradient checkpointing is queued in ROADMAP.md "
+                "(Queue 1, 'dropout/remat')"
+            )
         if attn_laser:
             raise NotImplementedError(
                 "attn_laser=True: LASER attention is queued in ROADMAP.md "

@@ -1,22 +1,26 @@
-"""The Transfusion model, serving slice (counterpart of
-`transfusion_tpu/models/transfusion.py`).
+"""The Transfusion model (counterpart of `transfusion_tpu/models/transfusion.py`).
 
   * `TransfusionCore` (nn.Module): transformer + text embedding + logits
-    head + per-modality latent <-> model projections, with the cached
-    entry points `joint` (prefill), `decode_text_step`,
-    `decode_modality_rows` and `text_forward`.
-  * `Transfusion` (plain class): configuration, vocab layout, packing and
-    the host-side serving loops — `generate_text_only`,
-    `generate_text_batch` and `sample(cache_kv=True)` with incremental CFG.
+    head + per-modality latent <-> model projections, with the entry points
+    `joint` (the packed forward: training, or the cached prefill),
+    `decode_text_step`, `decode_modality_rows` and `text_forward`.
+  * `Transfusion` (plain class): configuration, vocab layout, packing, the
+    joint training loss (`loss`, `_loss_impl`) and the host-side serving
+    loops — `generate_text_only`, `generate_text_batch` and
+    `sample(cache_kv=True)` with incremental CFG.
 
-The port holds its weights in the modules (no `params` argument); load the
-JAX package's weights with `Transfusion.load_flax`. Randomness comes from a
-caller-owned `torch.Generator`. Entry points run on `cuda` unless built
-with `device="cpu"`.
+The port holds its serving weights in the modules; load the JAX package's
+weights with `Transfusion.load_flax`. The loss can also run on an explicit
+parameter dict (float32 master weights, `training/trainer.py`), which it
+casts to the compute dtype inside the graph, as flax's `dtype=` does with
+float32 params. Randomness comes in as explicit draws (`LossDraws`) or
+from a caller-owned `torch.Generator`. Entry points run on `cuda` unless
+built with `device="cpu"`.
 
-Not in this slice (ROADMAP.md): training and the loss, uncached `sample()`
-(needs the NHD kernel, slice 2), modality encoders/decoders, U-Net
-pre/post projections, axial positional embeddings, adaptive ODE solvers.
+Not ported yet (ROADMAP.md): uncached `sample()` and
+`generate_modality_only`, the velocity-consistency and reconstruction
+losses, modality encoders/decoders, U-Net pre/post projections, axial
+positional embeddings, adaptive ODE solvers.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,9 +48,18 @@ from transfusion_tpu_torch.models.transformer import (
     cache_mark_valid,
     make_kv_cache,
 )
-from transfusion_tpu_torch.ops.flow import gumbel_sample, min_p_filter, model_output_to_flow
+from transfusion_tpu_torch.ops.flow import (
+    gumbel_sample,
+    min_p_filter,
+    model_output_to_flow,
+    noise_data,
+)
 from transfusion_tpu_torch.ops.odeint import odeint
-from transfusion_tpu_torch.ops.spans import spans_to_rotary_positions
+from transfusion_tpu_torch.ops.spans import (
+    spans_to_is_any_modality,
+    spans_to_modality_mask,
+    spans_to_rotary_positions,
+)
 from transfusion_tpu_torch.utils.helpers import (
     cast_tuple,
     concat_contiguous_text,
@@ -62,6 +75,35 @@ logger = logging.getLogger("transfusion_tpu_torch")
 
 def default_to_modality_shape_fn(s: str) -> tuple:
     return tuple(int(x) for x in s.split(","))
+
+
+class LossBreakdown(NamedTuple):
+    total: Any
+    text: Any
+    flow: list
+    velocity: Optional[list] = None
+    recon: Optional[list] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class LossDraws:
+    """The random draws of one joint-loss evaluation, made by the caller:
+    times Float[b, m] per span instance, cfg_uniform Float[b] (a sample's
+    text is dropped to null where it is < prob_uncond) and one noise tensor
+    per latent group, shaped like the group's latents."""
+
+    times: Any
+    cfg_uniform: Any
+    noises: tuple
+
+
+def default_modality_times(u_count, u_time, num_modalities, m: int):
+    """The JAX `default_modality_times` from its two uniform draws Float[b]:
+    a random count floor(u_count * num_modalities) of 'already decoded'
+    instances is pinned at time 0.5; the rest share the time u_time."""
+    rand_num = torch.floor(u_count * num_modalities.to(torch.float32))
+    prev_decoded = torch.arange(m, device=u_count.device)[None, :] < rand_num[:, None]
+    return torch.where(prev_decoded, 0.5, u_time[:, None])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +150,12 @@ class TransfusionCore(nn.Module):
     @property
     def dtype(self):
         return self.to_text_logits.weight.dtype
+
+    def forward(self, packed, times):
+        """The uncached joint forward (training); see `joint`. It is the
+        module's forward so that `torch.func.functional_call` can run it on
+        an explicit parameter dict."""
+        return self.joint(packed, times)
 
     def embed_text(self, text):
         return self.text_embed(text.clamp_min(0)).to(self.dtype)
@@ -221,9 +269,16 @@ class Transfusion:
                  modality_decoder=None, pre_post_transformer_enc_dec=None,
                  modality_default_shape=None, fallback_to_default_shape_if_invalid: bool = False,
                  modality_num_dim=None, to_modality_shape_fn=default_to_modality_shape_fn,
+                 ignore_index: int = -1, flow_loss_weight: float = 1.0,
+                 text_loss_weight: float = 1.0, reconstruction_loss_weight: float = 0.0,
                  odeint_method: str = "midpoint", model_output_clean: bool = True,
-                 eps: float = 1e-2, pad_multiple: int = 64, dtype=torch.float32,
+                 eps: float = 1e-2, prob_uncond: float = 0.1, pad_multiple: int = 64,
+                 ce_chunk_size: Optional[int] = None, dtype=torch.float32,
                  device=None, seed: int = 0):
+        if reconstruction_loss_weight > 0:
+            _not_in_port("the reconstruction loss", "velocity/reconstruction losses")
+        if ce_chunk_size is not None:
+            _not_in_port("ce_chunk_size (sequence-chunked cross-entropy)", "chunked CE")
         if any(cast_tuple(add_pos_emb)):
             _not_in_port("add_pos_emb (axial positional embedding)", "axial pos-emb")
         if modality_encoder is not None or modality_decoder is not None:
@@ -276,6 +331,10 @@ class Transfusion:
         self.odeint_method = odeint_method
         self.fallback_to_default_shape_if_invalid = fallback_to_default_shape_if_invalid
         self.pad_multiple = pad_multiple
+        self.ignore_index = ignore_index
+        self.flow_loss_weight = flow_loss_weight
+        self.text_loss_weight = text_loss_weight
+        self.prob_uncond = prob_uncond
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -284,7 +343,8 @@ class Transfusion:
                 transformer_cfg=self.transformer_cfg, modalities=self.modalities,
                 model_output_clean=model_output_clean, eps=eps,
             )
-        # serving only in this slice: no autograd graphs behind any call
+        # the module's weights serve; training differentiates an explicit
+        # parameter dict (`_loss_impl`), so no call records graphs on them
         self.core = core.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
         # the time embedding's frequencies stay float32 whatever the dtype
         self.core.transformer.fourier_weights = self.core.transformer.fourier_weights.float()
@@ -337,6 +397,126 @@ class Transfusion:
         plan = plan_serving(cap, batch, kv_quantize=kv_quantize)
         logger.debug("serving plan: %s", plan.reason)
         return plan
+
+    # ------------------------------------------------------------------
+    # joint loss
+    # ------------------------------------------------------------------
+
+    def make_draws(self, packed, generator=None, times=None) -> LossDraws:
+        """Draws for one loss evaluation of the (torch) packed batch, from
+        `generator` (torch's default generator when None): the two uniforms
+        of `default_modality_times` (unless times Float[b, m] is given), the
+        CFG-drop uniforms and one standard normal per latent group."""
+        b, m = packed.spans.shape[:2]
+        dev = packed.text.device
+        u = torch.rand((3, b), generator=generator, device=dev)
+        if times is None:
+            num_mods = (packed.spans[..., 2] > 0).sum(-1)
+            times = default_modality_times(u[0], u[1], num_mods, m)
+        noises = tuple(torch.randn(tuple(g.latents.shape), generator=generator, device=dev)
+                       for g in packed.groups)
+        return LossDraws(times=torch.as_tensor(times, dtype=torch.float32, device=dev),
+                         cfg_uniform=u[2], noises=noises)
+
+    def _joint_core(self, params, packed, times, noises):
+        """Noise each latent group (x_t = t x + (1 - t) noise, flow target
+        x - noise) and run the core's joint forward, on `params` when given
+        (else the module's own weights). Returns (logits, pred_flows, flows)."""
+        noised_groups, flows = [], []
+        for g, noise in zip(packed.groups, noises):
+            t_inst = times[g.batch_idx, g.span_rows]
+            noised, flow = noise_data(g.latents, noise, t_inst)
+            noised_groups.append(g.replace(latents=noised))
+            flows.append(flow)
+        packed_n = packed.replace(groups=tuple(noised_groups))
+        if params is None:
+            out = self.core(packed_n, times)
+        else:  # cast inside the autograd graph: the grads arrive in params' dtype
+            out = torch.func.functional_call(
+                self.core, {k: p.to(self.dtype) for k, p in params.items()}, (packed_n, times))
+        logits, _, pred_flows, _, _ = out
+        return logits, pred_flows, flows
+
+    def _loss_impl(self, params, packed, draws: LossDraws, prob_uncond: float,
+                   train: bool = True):
+        """The joint loss of the JAX `_loss_impl` (`transfusion.py:858-1065`)
+        without the velocity, reconstruction and pipeline branches:
+        CFG dropout of whole samples' text, the next-token shift, text CE
+        over valid labels (not ignore_index, not null, not inside a
+        modality), per-type flow MSE, weighted by the text and per-type
+        token fractions. packed holds torch tensors. Returns (total,
+        LossBreakdown)."""
+        T = self.num_modalities
+        n = packed.text.shape[1] - 1
+        text = packed.text
+        if train and prob_uncond > 0:
+            drop = draws.cfg_uniform < prob_uncond
+            text = torch.where(drop[:, None] & packed.cfg_mask, self.null_text_id, text)
+        text_in, labels = text[:, :-1], text[:, 1:]
+        logits, pred_flows, flows = self._joint_core(
+            params, packed.replace(text=text_in), draws.times, draws.noises)
+        total_tokens = float(packed.total_tokens)
+
+        valid = ((labels != self.ignore_index) & (labels != self.null_text_id)
+                 & ~spans_to_is_any_modality(n, packed.spans))
+        kept = valid.sum().to(torch.float32)
+        safe_labels = torch.where(valid, labels, 0)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        label_logp = logp.gather(-1, safe_labels[..., None])[..., 0]
+        text_loss = -(label_logp * valid).sum() / kept.clamp_min(1.0)
+        text_frac = kept / total_tokens
+
+        mod_mask = spans_to_modality_mask(n, packed.spans, T)
+        fracs = mod_mask.any(dim=2).sum(dim=(0, 2)).to(torch.float32) / total_tokens
+
+        flow_losses = []
+        for t in range(T):
+            sse = torch.zeros((), device=logits.device)
+            cnt = 0
+            for gi, g in enumerate(packed.groups):
+                if g.modality_type == t:
+                    diff = pred_flows[gi] - flows[gi]
+                    sse = sse + (diff.float() ** 2).sum()
+                    cnt += diff.numel()
+            flow_losses.append(sse / float(max(cnt, 1)))
+        flow_total = sum(fl * fracs[t] for t, fl in enumerate(flow_losses))
+
+        total = (text_loss * text_frac * self.text_loss_weight
+                 + flow_total * self.flow_loss_weight)
+        return total, LossBreakdown(total=total, text=text_loss, flow=flow_losses)
+
+    def loss(self, batch=None, draws: Optional[LossDraws] = None, *, params=None,
+             generator=None, times=None, num_modalities_to_times_fn=None,
+             velocity_consistency_ema_params=None, prob_uncond: Optional[float] = None,
+             return_breakdown: bool = False, train: bool = True, packed=None,
+             pipeline=None):
+        """Joint multimodal training loss of a ragged batch (a list of
+        samples, packed here with shift_friendly=True) or of `packed` (numpy
+        or torch). The draws come from `draws`, else from `generator`;
+        `times` Float[b, m] or `num_modalities_to_times_fn` override the
+        drawn times. `params`: an explicit parameter dict to differentiate
+        (default: the module's weights)."""
+        if velocity_consistency_ema_params is not None:
+            _not_in_port("the velocity-consistency loss", "velocity/reconstruction losses")
+        if pipeline is not None:
+            _not_in_port("pipeline parallelism", "Queue 1 item 9, parallelism")
+        if packed is None:
+            packed = self.pack(batch, wrap_sos_eos=True, add_meta=True, shift_friendly=True)
+        if not isinstance(packed.text, torch.Tensor):
+            packed = packed.to_torch(self.device)
+        if num_modalities_to_times_fn is not None and times is None:
+            num_mods = (packed.spans[..., 2] > 0).sum(-1).cpu().numpy()
+            times = np.asarray(num_modalities_to_times_fn(num_mods), np.float32)
+            pad = packed.spans.shape[1] - times.shape[1]
+            times = np.pad(times, ((0, 0), (0, max(pad, 0))))
+        if draws is None:
+            draws = self.make_draws(packed, generator, times)
+        elif times is not None:
+            draws = dataclasses.replace(
+                draws, times=torch.as_tensor(times, dtype=torch.float32, device=self.device))
+        total, breakdown = self._loss_impl(
+            params, packed, draws, float(default(prob_uncond, self.prob_uncond)), train)
+        return (total, breakdown) if return_breakdown else total
 
     # ------------------------------------------------------------------
     # text-only generation
@@ -516,11 +696,11 @@ class Transfusion:
         if not cache_kv:
             raise NotImplementedError(
                 "sample(cache_kv=False) re-forwards the packed sequence without a "
-                "cache, which takes the fused NHD flash kernel; it arrives with "
-                "ROADMAP.md slice 2. Pass cache_kv=True"
+                "cache; it is queued in ROADMAP.md (slice 2, uncached sampling). "
+                "Pass cache_kv=True"
             )
         if self.num_text_tokens == 0:
-            _not_in_port("generate_modality_only", "slice 2")
+            _not_in_port("generate_modality_only", "slice 2, uncached sampling")
         return self._sample_cached(
             self._prompt_to_items(prompt), generator, max_length, text_temperature,
             text_min_p, fixed_modality_shape, init_modality_noise, modality_steps,

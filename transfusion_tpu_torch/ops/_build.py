@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "transfusion_tpu_torch"
-SOURCES = ("flash_fwd", "decode_attn")
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attn")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes._CFuncPtr] = {}

@@ -1,20 +1,28 @@
-"""Flash-attention forward with the transfusion mask — kernel 1 of the port.
+"""Flash attention with the transfusion mask, head-major — kernel 1 (forward)
+and the backward kernel of the port.
 
-Counterpart of `transfusion_tpu/ops/pallas_attn_kernel.py` `flash_attention`
-(the head-major forward `_flash_fwd` -> `_kernel_batched_heads` / `_kernel`
-/ `_kernel_streamed`). The CUDA kernel is `csrc/flash_fwd.cu`; its source
-note says what bounds it on the H100 and what the design does about it.
+Counterpart of `transfusion_tpu/ops/pallas_attn_kernel.py` `flash_attention`:
+the forward `_flash_fwd` -> `_kernel_batched_heads` / `_kernel` /
+`_kernel_streamed` is `csrc/flash_fwd.cu`; the backward of its custom VJP
+(`_bwd` -> `_bwd_kernel_batched_heads` or `_bwd_dkv_kernel` +
+`_bwd_dq_kernel`) is `csrc/flash_bwd.cu`. Their source notes say what
+bounds them on the H100 and what the design does about it. The token-major
+route (`flash_attention_nhd`) shares both kernels; it lives in
+`ops/flash_attn_nhd.py`.
 
-`flash_attention` takes the plain PyTorch version for CPU tensors and
-launches the kernel for CUDA tensors (there is no fallback between the
-two). `flash_attention.launches` counts kernel launches.
+`flash_attention` is a `torch.autograd.Function` when a gradient is asked
+for (and a plain call otherwise, as on the serving path). Each wrapper
+takes the plain PyTorch version for CPU tensors and launches the kernel for
+CUDA tensors (there is no fallback between the two).
+`flash_attention.launches` and `flash_attention_backward.launches` count
+kernel launches.
 
 Mask contract (global coordinates i = q_offset + row, j = kv_offset + col):
 
     allowed(i, j) = i >= j | any_m[len_m > 0 & i >= off_m & j < off_m + len_m]
 
 with a tanh softcap on the logits after the d^-1/2 scale. A row that sees
-no column returns 0 and logsumexp ~ -1e30.
+no column returns 0 and logsumexp ~ -1e30, and gets zero gradients.
 """
 
 from __future__ import annotations
@@ -27,18 +35,28 @@ from transfusion_tpu_torch.ops import _build
 from transfusion_tpu_torch.ops.norms import NEG_INF
 from transfusion_tpu_torch.ops.spans import span_allowed
 
-MAX_SPANS = 128  # csrc/flash_fwd.cu keeps a block's spans in shared memory
+MAX_SPANS = 128  # the kernels keep a block's spans in shared memory
 HEAD_DIMS = (32, 64, 128)
-# flash_fwd(q, k, v, spans, m, out, lse, b, h, nq, nkv, d, q_off, kv_off,
-#           scale, softcap, is_bf16, stream)
-_ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
-)
+# the JAX route's sequence cap (`_MAX_N_TIMES_D`, pallas_attn_kernel.py:1214)
+_MAX_N_TIMES_D = 131072 * 64
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# flash_fwd(q, k, v, spans, m, cos, sin, out, lse, b, h, nq, nkv, d, q_off,
+#           kv_off, nhd, scale, softcap, is_bf16, stream)
+_FWD_ARGTYPES = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 8 + [_F] * 2 + [_I, _P]
+# flash_bwd(q, k, v, dout, lse, delta, spans, m, cos, sin, dq, dk, dv, b, h,
+#           nq, nkv, d, q_off, kv_off, nhd, scale, softcap, is_bf16, stream)
+_BWD_ARGTYPES = [_P] * 7 + [_I] + [_P] * 5 + [_I] * 8 + [_F] * 2 + [_I, _P]
+
+
+def supported(n: int, d: int) -> bool:
+    """`transfusion_flash_attention` takes the kernel for these shapes and
+    the dense path otherwise (pallas_attn_kernel.py:1224). Head dim 256 is
+    admitted here but has no CUDA kernel yet: callers raise for it."""
+    return n * d <= _MAX_N_TIMES_D and d in (32, 64, 128, 256)
 
 
 def flash_attention_plain(q, k, v, spans=None, softcap=50.0, q_offset=0, kv_offset=0):
-    """Dense PyTorch version of the kernel's arithmetic. Returns
+    """Dense PyTorch version of the forward kernel's arithmetic. Returns
     (out [b,h,nq,d] in q's dtype, lse float32 [b,h,nq])."""
     b, h, nq, d = q.shape
     nkv = k.shape[2]
@@ -58,41 +76,201 @@ def flash_attention_plain(q, k, v, spans=None, softcap=50.0, q_offset=0, kv_offs
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _launch(q, k, v, spans, softcap, q_offset, kv_offset, want_lse):
-    b, h, nq, d = q.shape
+def backward_plain_f32(q, k, v, do, lse, delta, spans=None, softcap=50.0, q_offset=0,
+                       kv_offset=0):
+    """The backward kernels' arithmetic, written out (not autograd through
+    the forward), in float32: p recomputed from lse under `where(allowed)`,
+    ds = p (dp - delta) (1 - (s/cap)^2), q scaled in float32 and dq scaled
+    again. Returns float32 (dq, dk, dv)."""
+    nq, d = q.shape[2], q.shape[3]
     nkv = k.shape[2]
+    scale = d**-0.5
+    qs = q.float() * scale
+    kf, vf, dof = k.float(), v.float(), do.float()
+    s = torch.matmul(qs, kf.transpose(-1, -2))
+    chain = 1.0
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+        chain = 1.0 - (s / softcap) ** 2
+    rows = torch.arange(nq, device=q.device) + int(q_offset)
+    cols = torch.arange(nkv, device=q.device) + int(kv_offset)
+    allowed = span_allowed(rows, cols, spans)[:, None]
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * chain
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dq = torch.matmul(ds, kf) * scale
+    return dq, dk, dv
+
+
+def flash_attention_backward_plain(q, k, v, do, lse, delta, spans=None, softcap=50.0,
+                                   q_offset=0, kv_offset=0):
+    """Plain version of the backward kernel: (dq, dk, dv) in the inputs'
+    dtypes. delta = rowsum(dO * O) - g_lse, float32 [b,h,nq]."""
+    dq, dk, dv = backward_plain_f32(q, k, v, do, lse, delta, spans, softcap, q_offset,
+                                    kv_offset)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches (shared with the token-major route)
+# ---------------------------------------------------------------------------
+
+
+def _check(what, q, k, v, d, rest=()):
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"{what} kernel: head dim {d} not in {HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention kernel: dtype {q.dtype} (float32 or bfloat16)")
-    for name, t in (("k", k), ("v", v)):
+        raise TypeError(f"{what} kernel: dtype {q.dtype} (float32 or bfloat16)")
+    for name, t in (("k", k), ("v", v), *rest):
         if t.dtype != q.dtype or t.device != q.device:
-            raise TypeError(f"flash_attention kernel: {name} must match q's dtype and device")
-        if t.shape != (b, h, nkv, d):
-            raise ValueError(f"flash_attention kernel: {name} shape {tuple(t.shape)}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            raise TypeError(f"{what} kernel: {name} must match q's dtype and device")
+
+
+def _spans_arg(what, spans, b, device):
     if spans is None:
-        spans_t = torch.zeros((b, 0, 3), dtype=torch.int32, device=q.device)
+        return torch.zeros((b, 0, 3), dtype=torch.int32, device=device)
+    spans_t = spans.to(device=device, dtype=torch.int32).contiguous()
+    if spans_t.ndim != 3 or spans_t.shape[0] != b or spans_t.shape[2] != 3:
+        raise ValueError(f"{what} kernel: spans shape {tuple(spans.shape)}")
+    if spans_t.shape[1] > MAX_SPANS:
+        raise ValueError(f"{what} kernel: {spans_t.shape[1]} spans > {MAX_SPANS}")
+    return spans_t
+
+
+def _rope_args(cos, sin, b, n, d, device):
+    if cos is None:
+        return None, None, 0, 0
+    cos = cos.to(device=device, dtype=torch.float32).expand(b, n, d).contiguous()
+    sin = sin.to(device=device, dtype=torch.float32).expand(b, n, d).contiguous()
+    return cos, sin, cos.data_ptr(), sin.data_ptr()
+
+
+def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=None,
+               cos=None, sin=None):
+    """Launch csrc/flash_fwd.cu. heads=None: head-major q [b,h,nq,d], k/v
+    [b,h,nkv,d]; heads=h: token-major [b,n,h*d] with optional RoPE angles
+    cos/sin [b,n,d]. Returns (out like q, lse float32 [b,h,nq] | None).
+    Callers count the launch."""
+    nhd = heads is not None
+    if nhd:
+        b, nq, hd = q.shape
+        h, d, nkv = heads, hd // heads, k.shape[1]
+        shape_k = (b, nkv, hd)
     else:
-        spans_t = spans.to(device=q.device, dtype=torch.int32).contiguous()
-        if spans_t.shape[0] != b or spans_t.shape[2] != 3:
-            raise ValueError(f"flash_attention kernel: spans shape {tuple(spans.shape)}")
-    m = spans_t.shape[1]
-    if m > MAX_SPANS:
-        raise ValueError(f"flash_attention kernel: {m} spans > {MAX_SPANS}")
+        b, h, nq, d = q.shape
+        nkv = k.shape[2]
+        shape_k = (b, h, nkv, d)
+    what = "flash_attention_nhd" if nhd else "flash_attention"
+    _check(what, q, k, v, d)
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != shape_k:
+            raise ValueError(f"{what} kernel: {name} shape {tuple(t.shape)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    spans_t = _spans_arg(what, spans, b, q.device)
+    cos, sin, cos_p, sin_p = _rope_args(cos, sin, b, nq, d, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if want_lse else None
-    fn = _build.load("flash_fwd", _ARGTYPES)
+    fn = _build.load("flash_fwd", _FWD_ARGTYPES)
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), spans_t.data_ptr(), m,
-        out.data_ptr(), lse.data_ptr() if lse is not None else None,
-        b, h, nq, nkv, d, int(q_offset), int(kv_offset),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), spans_t.data_ptr(), spans_t.shape[1],
+        cos_p, sin_p, out.data_ptr(), lse.data_ptr() if lse is not None else None,
+        b, h, nq, nkv, d, int(q_offset), int(kv_offset), int(nhd),
         float(d**-0.5), float(softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_fwd")
-    flash_attention.launches += 1
     return out, lse
+
+
+def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, heads=None,
+               cos=None, sin=None):
+    """Launch csrc/flash_bwd.cu (the dK/dV kernel, then the dQ kernel) in
+    either layout (see `launch_fwd`). Returns (dq, dk, dv) like q, k, v.
+    Callers count the launch."""
+    nhd = heads is not None
+    if nhd:
+        b, nq, hd = q.shape
+        h, d, nkv = heads, hd // heads, k.shape[1]
+    else:
+        b, h, nq, d = q.shape
+        nkv = k.shape[2]
+    what = "flash_attention_nhd backward" if nhd else "flash_attention backward"
+    _check(what, q, k, v, d, rest=(("dout", do),))
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse = lse.to(torch.float32).contiguous()
+    delta = delta.to(torch.float32).contiguous()
+    if tuple(lse.shape) != (b, h, nq) or tuple(delta.shape) != (b, h, nq):
+        raise ValueError(f"{what} kernel: lse/delta must be [b, h, nq] = {(b, h, nq)}")
+    spans_t = _spans_arg(what, spans, b, q.device)
+    cos, sin, cos_p, sin_p = _rope_args(cos, sin, b, nq, d, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = _build.load("flash_bwd", _BWD_ARGTYPES)
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), spans_t.data_ptr(), spans_t.shape[1], cos_p, sin_p,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, nq, nkv, d, int(q_offset), int(kv_offset), int(nhd),
+        float(d**-0.5), float(softcap), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_bwd")
+    return dq, dk, dv
+
+
+def _device_kind(what, t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: unsupported device {t.device}")
+    return t.device.type
+
+
+# ---------------------------------------------------------------------------
+# head-major entry points
+# ---------------------------------------------------------------------------
+
+
+def _forward(q, k, v, spans, softcap, q_off, kv_off, want_lse):
+    if _device_kind("flash_attention", q) == "cpu":
+        return flash_attention_plain(q, k, v, spans, softcap, q_off, kv_off)
+    out = launch_fwd(q, k, v, spans, softcap, q_off, kv_off, want_lse)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention_backward(q, k, v, o, lse, do, spans=None, softcap=50.0, q_offset=0,
+                             kv_offset=0, g_lse=None):
+    """Gradients (dq, dk, dv) of `flash_attention` at output o and its lse,
+    for the output cotangent do and, with return_lse, the lse cotangent
+    g_lse [b,h,nq] (folded into delta = rowsum(do * o) - g_lse)."""
+    delta = (do.float() * o.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    args = (q, k, v, do, lse, delta, spans, softcap, int(q_offset), int(kv_offset))
+    if _device_kind("flash_attention backward", q) == "cpu":
+        return flash_attention_backward_plain(*args)
+    out = launch_bwd(*args)
+    flash_attention_backward.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, spans, softcap, q_off, kv_off, return_lse):
+        out, lse = _forward(q, k, v, spans, softcap, q_off, kv_off, True)
+        ctx.save_for_backward(q, k, v, out, lse, spans)
+        ctx.cfg = (softcap, q_off, kv_off, return_lse)
+        return (out, lse) if return_lse else out
+
+    @staticmethod
+    def backward(ctx, g, g_lse=None):
+        q, k, v, out, lse, spans = ctx.saved_tensors
+        softcap, q_off, kv_off, return_lse = ctx.cfg
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, g, spans, softcap, q_off, kv_off,
+            g_lse if return_lse else None,
+        )
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, spans=None, causal=False, softcap=50.0,
@@ -101,18 +279,17 @@ def flash_attention(q, k, v, spans=None, causal=False, softcap=50.0,
     always on (as in the TPU kernels); `causal` only states that the caller
     wants it when no spans are given. q_offset/kv_offset (ints) are the
     global positions of q row 0 / kv column 0. return_lse=True also returns
-    the per-row logsumexp Float32[b,h,nq]."""
+    the per-row logsumexp Float32[b,h,nq]. Differentiable in q, k, v (and
+    through the lse when it is returned)."""
     if spans is None and not causal:
         raise ValueError("flash_attention needs causal=True and/or spans")
     q_off = 0 if q_offset is None else int(q_offset)
     kv_off = 0 if kv_offset is None else int(kv_offset)
-    if q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, spans, softcap, q_off, kv_off)
-    elif q.device.type == "cuda":
-        out, lse = _launch(q, k, v, spans, softcap, q_off, kv_off, return_lse)
-    else:
-        raise RuntimeError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, spans, softcap, q_off, kv_off, return_lse)
+    out, lse = _forward(q, k, v, spans, softcap, q_off, kv_off, return_lse)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

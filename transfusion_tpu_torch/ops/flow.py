@@ -1,5 +1,5 @@
-"""Rectified-flow output conversion and text sampling filters (counterpart
-of `transfusion_tpu/ops/flow.py`). Randomness comes from a caller-owned
+"""Rectified-flow noising and output conversion, and text sampling filters
+(counterpart of `transfusion_tpu/ops/flow.py`). Randomness comes from a caller-owned
 `torch.Generator`; it cannot reproduce `jax.random` draws, so parity with
 the JAX package is tested greedily or with injected noise."""
 
@@ -12,6 +12,13 @@ from transfusion_tpu_torch.ops.norms import safe_log
 
 def _append_dims(t, ndims: int):
     return t.reshape(*t.shape, *((1,) * ndims))
+
+
+def noise_data(data, noise, times):
+    """x_t = t * x + (1 - t) * noise; flow target = x - noise. times
+    broadcasts against data's leading dims. Returns (noised, flow)."""
+    times = _append_dims(times, data.ndim - times.ndim)
+    return data * times + noise * (1.0 - times), data - noise
 
 
 def model_output_to_flow(out, noised, times, eps: float = 5e-2):

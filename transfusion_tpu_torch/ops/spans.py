@@ -18,6 +18,14 @@ def spans_to_instance_mask(seq_len: int, spans):
     return (pos >= offsets) & (pos < offsets + lengths)
 
 
+def spans_to_modality_mask(seq_len: int, spans, num_modalities: int = 1):
+    """Bool[b, t, m, n]: the instance mask split per modality type."""
+    inst = spans_to_instance_mask(seq_len, spans)  # [b, m, n]
+    types = torch.arange(num_modalities, device=spans.device)
+    type_match = spans[..., 0][:, None, :] == types[None, :, None]  # [b, t, m]
+    return type_match[..., None] & inst[:, None]
+
+
 def spans_to_is_any_modality(seq_len: int, spans):
     """Bool[b, n]: token is inside any modality span."""
     return spans_to_instance_mask(seq_len, spans).any(dim=1)

@@ -1,0 +1,163 @@
+"""Trainer: the joint training step with clip + Adam + EMA, and checkpoints
+(counterpart of `transfusion_tpu/training/trainer.py` with its default
+fused update).
+
+The state holds float32 master weights, Adam moments and the EMA copy as
+dicts keyed by the core's parameter names. Each step casts the masters to
+the model's compute dtype inside the autograd graph (`Transfusion.loss`
+with `params=`), so the gradients arrive in float32, as they do for flax
+modules with `dtype=bf16` over float32 params. The model's own module
+weights are left as they were; `sync_model` copies a state into them (for
+sampling with the trained weights).
+
+Randomness: `train_step` takes the loss's draws (`LossDraws`) or makes them
+from a `torch.Generator`. Not ported yet (ROADMAP.md): meshes, gradient
+accumulation, pipeline parallelism, velocity consistency.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+from typing import Optional
+
+import torch
+
+from transfusion_tpu_torch.training.ema import EmaState, init_ema
+from transfusion_tpu_torch.training.fused_update import (
+    AdamState,
+    fused_clip_adam_ema,
+    init_adam,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    params: dict  # float32 master weights
+    adam: AdamState
+    ema: EmaState
+    step: int
+
+
+def _queued(what: str, item: str):
+    raise NotImplementedError(f"{what} is not in the PyTorch port yet (ROADMAP.md: {item})")
+
+
+class Trainer:
+    def __init__(self, model, learning_rate: float = 3e-4, grad_clip_norm: Optional[float] = 0.5,
+                 ema_beta: float = 0.99, ema_update_every: int = 10,
+                 ema_update_after_step: int = 100, mesh=None,
+                 velocity_consistency: bool = False, checkpoint_dir: Optional[str] = None,
+                 pipeline_microbatches: Optional[int] = None,
+                 grad_accumulation: Optional[int] = None):
+        if mesh is not None:
+            _queued("mesh sharding", "Queue 1 item 9, parallelism")
+        if pipeline_microbatches is not None:
+            _queued("pipeline parallelism", "Queue 1 item 9, parallelism")
+        if grad_accumulation is not None:
+            _queued("gradient accumulation", "Queue 1 item 5, grad accumulation")
+        if velocity_consistency:
+            _queued("velocity consistency", "velocity/reconstruction losses")
+        self.model = model
+        self.learning_rate = learning_rate
+        self.grad_clip_norm = grad_clip_norm
+        self.ema_cfg = dict(ema_beta=ema_beta, ema_update_every=ema_update_every,
+                            ema_update_after_step=ema_update_after_step)
+        self.checkpoint_dir = checkpoint_dir
+
+    def init_state(self, params: Optional[dict] = None) -> TrainState:
+        """Masters from `params` (a state dict, e.g. `weights.from_flax`'s;
+        only the core's parameters are taken) or from the model's current
+        weights, as float32 on the model's device."""
+        names = [k for k, _ in self.model.core.named_parameters()]
+        src = params if params is not None else dict(self.model.core.named_parameters())
+        masters = {k: src[k].detach().to(device=self.model.device, dtype=torch.float32).clone()
+                   for k in names}
+        return TrainState(params=masters, adam=init_adam(masters), ema=init_ema(masters), step=0)
+
+    def _packed(self, batch):
+        model = self.model
+        if isinstance(batch, list):
+            batch = model.pack(batch, shift_friendly=True)
+        if not isinstance(batch.text, torch.Tensor):
+            batch = batch.to_torch(model.device)
+        return batch
+
+    def train_step(self, state: TrainState, batch, draws=None, generator=None):
+        """One optimizer step on a ragged batch (list of samples) or a
+        packed batch. Returns (new state, metrics): loss, text_loss,
+        grad_norm and flow_loss_{i}, as 0-d tensors on the device."""
+        model = self.model
+        packed = self._packed(batch)
+        if draws is None:
+            draws = model.make_draws(packed, generator)
+        leaves = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
+        loss, breakdown = model._loss_impl(leaves, packed, draws, model.prob_uncond, train=True)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(state.params.items(), grads)}
+        params, adam, ema_params, grad_norm = fused_clip_adam_ema(
+            grads, state.params, state.adam, state.ema.params, state.ema.step,
+            learning_rate=self.learning_rate, grad_clip_norm=self.grad_clip_norm,
+            **self.ema_cfg,
+        )
+        new_state = TrainState(params=params, adam=adam,
+                               ema=EmaState(params=ema_params, step=state.ema.step + 1),
+                               step=state.step + 1)
+        metrics = {"loss": loss.detach(), "text_loss": breakdown.text.detach(),
+                   "grad_norm": grad_norm}
+        for i, fl in enumerate(breakdown.flow):
+            metrics[f"flow_loss_{i}"] = fl.detach()
+        return new_state, metrics
+
+    def train_steps(self, state: TrainState, batch, steps: int, generator=None):
+        """`steps` optimizer steps on one batch (packed once), each with
+        fresh draws from `generator`: the per-step semantics of the JAX
+        `train_steps` scan, as a Python loop. Returns (state, last metrics)."""
+        packed = self._packed(batch)
+        metrics = {}
+        for _ in range(steps):
+            state, metrics = self.train_step(state, packed, generator=generator)
+        return state, metrics
+
+    def sync_model(self, state: TrainState):
+        """Copy the state's master weights into the model's modules, in the
+        model's dtype, for sampling with them."""
+        with torch.no_grad():
+            for k, p in self.model.core.named_parameters():
+                p.copy_(state.params[k])
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
+    def _dir(self) -> str:
+        if self.checkpoint_dir is None:
+            raise ValueError("set checkpoint_dir to save or restore")
+        return self.checkpoint_dir
+
+    def save(self, state: TrainState) -> str:
+        """Write `state` to checkpoint_dir/step_<step>.pt; returns the path."""
+        os.makedirs(self._dir(), exist_ok=True)
+        path = os.path.join(self._dir(), f"step_{state.step}.pt")
+        torch.save({
+            "params": state.params, "mu": state.adam.mu, "nu": state.adam.nu,
+            "count": state.adam.count, "ema": state.ema.params, "ema_step": state.ema.step,
+            "step": state.step,
+        }, path)
+        return path
+
+    def restore(self, step: Optional[int] = None) -> Optional[TrainState]:
+        """The state saved at `step` (default: the latest), on the model's
+        device; None when there is no checkpoint."""
+        found = [int(m[1]) for f in (os.listdir(self._dir()) if os.path.isdir(self._dir()) else ())
+                 if (m := re.fullmatch(r"step_(\d+)\.pt", f))]
+        if step is None and not found:
+            return None
+        step = max(found) if step is None else step
+        path = os.path.join(self._dir(), f"step_{step}.pt")
+        ck = torch.load(path, map_location=self.model.device, weights_only=True)
+        return TrainState(params=ck["params"],
+                          adam=AdamState(mu=ck["mu"], nu=ck["nu"], count=ck["count"]),
+                          ema=EmaState(params=ck["ema"], step=ck["ema_step"]), step=ck["step"])
