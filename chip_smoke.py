@@ -36,7 +36,20 @@ Phases (any failure exits non-zero and prints no result line):
      launch the route's forward and backward kernels once per layer per
      step, and the loss must be finite and fall (the 20 steps reuse one
      set of draws, so the loss compares like with like);
-  6. the `kernels` line, then the last line
+  6. long-context training: the 573M config of `scripts/probe_573m.py`
+     (dim 1024, depth 12, 16x64 heads, vocab 50k, per-block remat 'full',
+     ce_chunk_size 256, bf16; seeded weights) at full width through
+     `Trainer(grad_accumulation=2).train_step` on 2 samples of 20 x
+     ([600 text][14x14x32 latent]) + text, each packed to n 16384 after the
+     shift: every layer takes the TPU's streamed envelope (rows 3 and 9 of
+     the kernel table). The warm-up step captures one attention call, held
+     against the plain versions computed 1024 query rows at a time; then
+     LONG_STEPS steps with the counters set to 0 must launch the streamed
+     forward 2 x 12 x 2 times a step (remat runs it again in the backward)
+     and the backward 12 x 2 times, the loss must be finite and fall, and
+     one step with remat_policy 'dots' from the same state and draws must
+     give the same loss within 1e-3 relative;
+  7. the `kernels` line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `library_ms` in the kernels line is `torch.compile`d `flex_attention` with a
@@ -83,6 +96,16 @@ ROW_REL_TOL = {"bfloat16": 0.08, "float32": 1e-3}
 # float32 the two summation orders agree to ~1e-6
 BWD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 TRAIN_STEPS = 20
+# scripts/probe_573m.py:29-41, unchanged
+LONG_CFG = dict(
+    num_text_tokens=50_000, dim_latent=32, modality_default_shape=(14, 14), pad_multiple=64,
+    ce_chunk_size=256,
+    transformer=dict(dim=1024, depth=12, dim_head=64, heads=16, attn_impl="flash",
+                     remat=True, remat_policy="full"),
+)
+LONG_GROUPS, LONG_TAIL, LONG_N = 20, 270, 16385  # packed length before the shift
+LONG_STEPS = 4
+LONG_BLOCK_Q = 1024  # query rows per block of the plain versions at n 16384
 
 
 class SmokeFailure(Exception):
@@ -138,9 +161,10 @@ def compare(torch, out, ref):
     return diff.max().item(), rel
 
 
-def check_flash(torch, mods, a, iters=10, library=False):
-    """Kernel 1 against its plain version on the arguments `a` of one
-    flash_attention call (q, k, v, spans, causal, softcap, offsets, lse)."""
+def check_flash(torch, mods, a, iters=10, library=False, block_q=None):
+    """Kernel 1 against its plain version (block_q query rows at a time) on
+    the arguments `a` of one flash_attention call (q, k, v, spans, causal,
+    softcap, offsets, lse)."""
     fa = mods["flash"]
     q, k, v, spans = a["q"], a["k"], a["v"], a["spans"]
     q_off, kv_off = int(a["q_offset"] or 0), int(a["kv_offset"] or 0)
@@ -148,7 +172,8 @@ def check_flash(torch, mods, a, iters=10, library=False):
     kw = dict(spans=spans, causal=a["causal"], softcap=a["softcap"], q_offset=q_off,
               kv_offset=kv_off, return_lse=lse)
     out = fa.flash_attention(q, k, v, **kw)
-    ref, ref_lse = fa.flash_attention_plain(q, k, v, spans, a["softcap"], q_off, kv_off)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, spans, a["softcap"], q_off, kv_off,
+                                            block_q)
     torch.cuda.synchronize()
     if lse:
         out, out_lse = out
@@ -158,21 +183,23 @@ def check_flash(torch, mods, a, iters=10, library=False):
         err = max(err, (out_lse[live] - ref_lse[live]).abs().max().item() if live.any() else 0.0)
         require(bool((out_lse[~live] < -1e29).all()), "flash lse of a fully masked row")
     ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters)
-    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, spans, a["softcap"], q_off, kv_off),
-                    max(2, iters // 3))
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, spans, a["softcap"], q_off, kv_off,
+                                                     block_q), max(2, iters // 3))
     b, h, nq, d = q.shape
     nkv = k.shape[2]
-    rows = torch.arange(nq, device="cuda") + q_off
-    cols = torch.arange(nkv, device="cuda") + kv_off
-    mask = mods["spans"].span_allowed(rows, cols, spans)  # [b|1, nq, nkv]
     visible = visible_pairs(torch, mods, b, nq, nkv, spans, q_off, kv_off)
     itemsize = q.element_size()
     nbytes = 2 * b * h * (nq + nkv) * d * itemsize + (b * h * nq * 4 if lse else 0)
     if spans is not None:
         nbytes += spans.numel() * 4
     bnd, by = bound_ms(nbytes, 4 * h * d * visible, str(q.dtype).split(".")[-1])
-    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask[:, None]), iters)
+    sdpa = None  # its dense boolean mask does not fit at long lengths
+    if nq * nkv <= 4096 * 4096:
+        rows = torch.arange(nq, device="cuda") + q_off
+        cols = torch.arange(nkv, device="cuda") + kv_off
+        mask = mods["spans"].span_allowed(rows, cols, spans)  # [b|1, nq, nkv]
+        sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None]), iters)
     lib = flex_ms(torch, q, k, v, spans, a["softcap"], q_off, kv_off, iters=iters)[0] \
         if library else None
     return dict(err=err, row_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
@@ -201,11 +228,16 @@ def check_decode(torch, mods, a, iters=20):
     return dict(err=err, row_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
 
 
-def visible_pairs(torch, mods, b, nq, nkv, spans, q_off, kv_off):
-    rows = torch.arange(nq, device="cuda") + q_off
+def visible_pairs(torch, mods, b, nq, nkv, spans, q_off, kv_off, block=2048):
+    """(query, key) pairs the mask lets through, summed over the batch (per
+    head), counted block rows at a time."""
     cols = torch.arange(nkv, device="cuda") + kv_off
-    mask = mods["spans"].span_allowed(rows, cols, spans)  # [b|1, nq, nkv]
-    return int(mask.sum().item()) * (b // mask.shape[0])
+    total = 0
+    for i in range(0, nq, block):
+        rows = torch.arange(i, min(i + block, nq), device="cuda") + q_off
+        mask = mods["spans"].span_allowed(rows, cols, spans)  # [b|1, rows, nkv]
+        total += int(mask.sum().item()) * (b // mask.shape[0])
+    return total
 
 
 def flex_ms(torch, q, k, v, spans, softcap, q_off=0, kv_off=0, do=None, iters=10):
@@ -216,6 +248,10 @@ def flex_ms(torch, q, k, v, spans, softcap, q_off=0, kv_off=0, do=None, iters=10
     try:
         from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
+        # every yardstick compiles anew: past dynamo's recompile limit
+        # flex_attention falls back to its eager version, which holds the
+        # whole score matrix (16 GiB at n 16384)
+        torch._dynamo.reset()
         b, h, nq, d = q.shape
         nkv = k.shape[2]
         sp = (torch.zeros((b, 0, 3), dtype=torch.int32, device="cuda") if spans is None
@@ -232,7 +268,9 @@ def flex_ms(torch, q, k, v, spans, softcap, q_off=0, kv_off=0, do=None, iters=10
         def score_mod(score, bi, hi, qi, ki):
             return torch.tanh(score / softcap) * softcap
 
-        block = create_block_mask(mask_mod, b, None, nq, nkv, device="cuda")
+        # compiled: the eager mask would be materialized whole at long lengths
+        block = create_block_mask(mask_mod, b, None, nq, nkv, device="cuda",
+                                  **({"_compile": True} if nq * nkv > 4096 * 4096 else {}))
         # the timed backward re-runs one graph (retain_graph), which a
         # compiled backward with donated buffers refuses
         torch._functorch.config.donated_buffer = False
@@ -268,10 +306,10 @@ def bwd_bound(torch, b, h, nq, nkv, d, itemsize, visible, extra_bytes=0):
     return nbytes, 10 * h * d * visible
 
 
-def check_flash_bwd(torch, mods, a, iters=5, library=False):
-    """The backward kernel against its plain version on the arguments `a`
-    of one flash_attention call plus the output cotangent a['do'] (and an
-    lse cotangent a['g_lse'] when given)."""
+def check_flash_bwd(torch, mods, a, iters=5, library=False, block_q=None):
+    """The backward kernel against its plain version (block_q query rows at
+    a time) on the arguments `a` of one flash_attention call plus the
+    output cotangent a['do'] (and an lse cotangent a['g_lse'] when given)."""
     fa = mods["flash"]
     q, k, v, spans, cap = a["q"], a["k"], a["v"], a["spans"], a["softcap"]
     q_off, kv_off = int(a["q_offset"] or 0), int(a["kv_offset"] or 0)
@@ -281,7 +319,7 @@ def check_flash_bwd(torch, mods, a, iters=5, library=False):
     args = (q, k, v, out, lse, do, spans, cap, q_off, kv_off, g_lse)
     got = fa.flash_attention_backward(*args)
     delta = (do.float() * out.float()).sum(-1) - (0 if g_lse is None else g_lse)
-    pargs = (q, k, v, do, lse, delta, spans, cap, q_off, kv_off)
+    pargs = (q, k, v, do, lse, delta, spans, cap, q_off, kv_off, block_q)
     want = fa.flash_attention_backward_plain(*pargs)
     torch.cuda.synchronize()
     err, rel, row = grad_compare(torch, got, want)
@@ -360,7 +398,7 @@ def flash_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, l
 
 
 def bwd_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, g_lse=False,
-             iters=5):
+             iters=5, library=False):
     g = torch.Generator(device="cuda").manual_seed(n + d + 1)
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
@@ -368,7 +406,7 @@ def bwd_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, g_l
              kv_offset=kv_offset)
     if g_lse:
         a["g_lse"] = torch.randn(b, h, n, device="cuda", generator=g)
-    return check_flash_bwd(torch, mods, a, iters)
+    return check_flash_bwd(torch, mods, a, iters, library)
 
 
 def nhd_case(torch, mods, b, h, n, d, dtype, spans, iters=5):
@@ -399,7 +437,7 @@ def decode_case(torch, mods, b, h, nq, cap, d, dtype, lens_list, int8, iters=20)
 
 
 RESULTS = {"flash_fwd": [], "flash_bwd": [], "flash_fwd_nhd": [], "flash_bwd_nhd": [],
-           "decode_attn": []}
+           "decode_attn": [], "flash_fwd_streamed": [], "flash_bwd_streamed": []}
 
 
 def record(name, shape, res, dtype):
@@ -454,17 +492,19 @@ def phase_kernels(torch, mods):
         kind = str(dtype).split(".")[-1]
         record("flash_fwd_nhd", f"b{b} h8 n256 d64 {kind} rope spans2", fwd, dtype)
         record("flash_bwd_nhd", f"b{b} h8 n256 d64 {kind} rope spans2", bwd, dtype)
-    # the head-major backward: n 1024 training, row 7's envelope, ring
+    # the head-major backward: n 1024 training, row 7's envelope (no main
+    # path reaches it, so its library yardstick is timed here), ring
     # attention's offsets with an lse cotangent, ragged n in float32
     groups4 = [(40 + 244 * i, 196) for i in range(4)]
-    for shape, args in (
-        ("b8 h8 n1024 d64 bf16 spans4", (8, 8, 1024, 64, bf16, spans_of(8, groups4))),
-        ("b2 h8 n256 d32 bf16 spans1 (row 7)", (2, 8, 256, 32, bf16, spans_of(2, [(40, 196)]))),
+    for shape, args, kw in (
+        ("b8 h8 n1024 d64 bf16 spans4", (8, 8, 1024, 64, bf16, spans_of(8, groups4)), {}),
+        ("b2 h8 n256 d32 bf16 spans1 (row 7)", (2, 8, 256, 32, bf16, spans_of(2, [(40, 196)])),
+         {"library": True}),
         ("b2 h8 n1024 d64 bf16 q_off=512 kv_off=256 g_lse",
-         (2, 8, 1024, 64, bf16, spans_of(2, [(700, 196)]), 512, 256, True)),
-        ("b2 h8 n1000 d64 f32 spans1", (2, 8, 1000, 64, f32, spans_of(2, [(33, 196)]))),
+         (2, 8, 1024, 64, bf16, spans_of(2, [(700, 196)]), 512, 256, True), {}),
+        ("b2 h8 n1000 d64 f32 spans1", (2, 8, 1000, 64, f32, spans_of(2, [(33, 196)])), {}),
     ):
-        record("flash_bwd", shape, bwd_case(torch, mods, *args), args[4])
+        record("flash_bwd", shape, bwd_case(torch, mods, *args, **kw), args[4])
 
 
 # ---------------------------------------------------------------------------
@@ -553,17 +593,28 @@ def serving_lengths():
     return [37, 160, 283, 406, 530, 653, 776, 900]
 
 
+# kernels line entries counted by the TPU kernel-table row a head-major
+# wrapper's launch stands in for (`launches_by_row`)
+BY_ROW = {"flash_fwd_streamed": ("flash_fwd", 3), "flash_bwd_streamed": ("flash_bwd", 9)}
+
+
 def counted(mods, fn):
-    """Run fn with every kernel wrapper's launch counter set to 0; returns
-    (result, {kernel name: launches})."""
+    """Run fn with every kernel wrapper's launch counters set to 0; returns
+    (result, {kernel name: launches}), the streamed entries from the
+    launches by row."""
     import torch
 
     counters = mods["counters"]
     for fn_ in counters.values():
         fn_.launches = 0
+        if hasattr(fn_, "launches_by_row"):
+            fn_.launches_by_row = dict.fromkeys(fn_.launches_by_row, 0)
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: fn_.launches for name, fn_ in counters.items()}
+    counts = {name: fn_.launches for name, fn_ in counters.items()}
+    for name, (wrapper, row) in BY_ROW.items():
+        counts[name] = counters[wrapper].launches_by_row[row]
+    return out, counts
 
 
 # kernel name -> the wrapper that `models/layers.py` calls
@@ -693,7 +744,8 @@ def phase_serving(torch, Transfusion, mods):
                                  "decode_attn": lambda a: a["q"].shape[2] == 196}) as calls:
         model.sample(**{**kw, "modality_steps": 2})
     torch.cuda.synchronize()
-    main[name] = check_main_path(torch, mods, name, calls, torch.bfloat16)
+    # its prefill is the one main-path call in the batched envelope (row 1)
+    main[name] = check_main_path(torch, mods, name, calls, torch.bfloat16, library=True)
     t0 = time.perf_counter()
     items, counts = counted(mods, lambda: model.sample(**kw))
     t_img = time.perf_counter() - t0
@@ -801,6 +853,114 @@ def phase_training(torch, Transfusion, Trainer, mods):
     return totals, main
 
 
+# ---------------------------------------------------------------------------
+# phase 6: long-context training of the 573M config
+# ---------------------------------------------------------------------------
+
+
+def long_sample(rng):
+    """LONG_GROUPS x ([600 text][14x14x32 latent]) then LONG_TAIL text."""
+    import numpy as np
+
+    items = []
+    for _ in range(LONG_GROUPS):
+        items += [rng.integers(0, 50_000, 600).astype(np.int32),
+                  (0, rng.standard_normal((14, 14, 32)).astype(np.float32))]
+    return items + [rng.integers(0, 50_000, LONG_TAIL).astype(np.int32)]
+
+
+def phase_long_training(torch, Transfusion, Trainer, mods):
+    """The 573M config at n 16384 with remat, chunked CE and grad
+    accumulation 2. Returns (launch totals, {kernel: main-path result})."""
+    import numpy as np
+
+    name = "573M, 2 x n 16384, remat full, ce_chunk 256, grad_accumulation 2"
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **LONG_CFG)
+    trainer = Trainer(model, learning_rate=3e-4, grad_accumulation=2)
+    depth = LONG_CFG["transformer"]["depth"]
+    rng = np.random.default_rng(0)
+    packs = [model.pack([long_sample(rng)], shift_friendly=True) for _ in range(2)]
+    for p in packs:
+        require(p.text.shape[1] == LONG_N, f"{name}: packed to {p.text.shape}")
+        require(p.spans.shape[1] == LONG_GROUPS, f"{name}: {p.spans.shape[1]} spans")
+    packs = [p.to_torch("cuda") for p in packs]
+    tokens = sum(int(p.total_tokens) for p in packs)
+    state = trainer.init_state()
+    n_params = sum(t.numel() for t in state.params.values())
+    # one set of draws (one per microbatch) for every step
+    gen = torch.Generator("cuda").manual_seed(0)
+    draws = [model.make_draws(p, gen) for p in packs]
+
+    with capturing(torch, mods, {"flash_fwd": lambda a: True}) as calls:
+        state, _ = trainer.train_step(state, packs, draws=draws)
+    torch.cuda.synchronize()
+    require("flash_fwd" in calls and "do" in calls["flash_fwd"],
+            f"{name}: no attention call captured")
+    a = calls.pop("flash_fwd")
+    shape = (f"main path, {name}: q {shape_str(a['q'])} spans {shape_str(a['spans'])}, "
+             f"plain in blocks of {LONG_BLOCK_Q} rows")
+    main = {
+        "flash_fwd_streamed": record("flash_fwd_streamed", shape, check_flash(
+            torch, mods, a, iters=3, library=True, block_q=LONG_BLOCK_Q), torch.bfloat16),
+        "flash_bwd_streamed": record("flash_bwd_streamed", shape, check_flash_bwd(
+            torch, mods, a, iters=3, library=True, block_q=LONG_BLOCK_Q), torch.bfloat16),
+    }
+    del a, calls
+
+    # one step under remat 'dots' from the state the timed steps start at:
+    # the same forward, another recomputation (its model is dropped after)
+    dots_cfg = dict(LONG_CFG, transformer=dict(LONG_CFG["transformer"], remat_policy="dots"))
+    dots = Trainer(Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **dots_cfg),
+                   learning_rate=3e-4, grad_accumulation=2)
+    t0 = time.perf_counter()
+    metrics = dots.train_step(state, packs, draws=draws)[1]  # its new state is dropped
+    dots_loss, dots_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    dots_s = time.perf_counter() - t0
+    del dots, metrics
+    torch.cuda.empty_cache()
+
+    box = [state]  # the timed steps hold one state at a time
+    del state
+
+    def steps():
+        losses, norms = [], []
+        for _ in range(LONG_STEPS):
+            box[0], metrics = trainer.train_step(box[0], packs, draws=draws)
+            losses.append(metrics["loss"])
+            norms.append(metrics["grad_norm"])
+        return [float(x) for x in losses], [float(x) for x in norms]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (losses, norms), counts = counted(mods, steps)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{name}: loss did not fall {losses[0]} -> {losses[-1]}")
+    want_f, want_b = 2 * depth * 2 * LONG_STEPS, depth * 2 * LONG_STEPS
+    require(counts["flash_fwd_streamed"] == counts["flash_fwd"] == want_f
+            and counts["flash_bwd_streamed"] == counts["flash_bwd"] == want_b,
+            f"{name}: launches {counts}, want {want_f} streamed forwards and {want_b} "
+            "streamed backwards and no other")
+    log(json.dumps({
+        "training": name, "params": n_params, "steps": LONG_STEPS, "seconds": dt,
+        "ms_per_step": dt / LONG_STEPS * 1e3, "packed_tokens_per_s": tokens * LONG_STEPS / dt,
+        "tokens_per_step": tokens, "positions_per_step": 2 * (LONG_N - 1),
+        "peak_memory_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
+        "launches": counts,
+    }))
+    rel = abs(dots_loss - losses[0]) / abs(losses[0])
+    norm_rel = abs(dots_norm - norms[0]) / norms[0]
+    log(json.dumps({"training": f"{name}, the first step under remat 'dots'",
+                    "seconds": dots_s, "loss": dots_loss, "loss_rel_diff_to_full": rel,
+                    "grad_norm_rel_diff_to_full": norm_rel}))
+    require(rel <= 1e-3, f"{name}: remat 'dots' loss {dots_loss} vs 'full' {losses[0]}")
+    require(norm_rel <= 1e-2,
+            f"{name}: remat 'dots' grad norm {dots_norm} vs 'full' {norms[0]}")
+    return {k: counts[k] for k in BY_ROW}, main
+
+
 KERNELS = {
     "flash_fwd": dict(
         source="transfusion_tpu_torch/csrc/flash_fwd.cu",
@@ -821,6 +981,16 @@ KERNELS = {
     "decode_attn": dict(
         source="transfusion_tpu_torch/csrc/decode_attn.cu",
         replaces="transfusion_tpu/ops/pallas_decode_kernel.py:164",
+    ),
+    # the same kernels as flash_fwd / flash_bwd, at the TPU's streamed
+    # envelope (launches counted by row on the long-context run only)
+    "flash_fwd_streamed": dict(
+        source="transfusion_tpu_torch/csrc/flash_fwd.cu",
+        replaces="transfusion_tpu/ops/pallas_attn_kernel.py:258",
+    ),
+    "flash_bwd_streamed": dict(
+        source="transfusion_tpu_torch/csrc/flash_bwd.cu",
+        replaces="transfusion_tpu/ops/pallas_attn_kernel.py:868",
     ),
 }
 
@@ -872,20 +1042,30 @@ def main() -> int:
         regs = [ln.strip() for ln in _build.ptxas_log(name).splitlines() if "registers" in ln]
         log(f"ptxas {name}: {regs}")
 
-    phase_kernels(torch, mods)
-    phase_reference(torch, Transfusion)
-    phase_reference_training(torch, Transfusion, Trainer, mods)
-    launches, main_path = phase_serving(torch, Transfusion, mods)
-    train_launches, train_path = phase_training(torch, Transfusion, Trainer, mods)
+    def timed_phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(json.dumps({"phase": fn.__name__, "seconds": time.perf_counter() - t}))
+        return out
 
-    # the kernels line: launches over the serving and training runs; times
-    # on the tensors captured from the text path with bf16 KV (flash_fwd,
-    # decode_attn) and from the training runs (the backward and token-major
-    # kernels)
-    timed = {**train_path, **main_path["generate_text_batch bf16 KV"]}
+    timed_phase(phase_kernels, torch, mods)
+    timed_phase(phase_reference, torch, Transfusion)
+    timed_phase(phase_reference_training, torch, Transfusion, Trainer, mods)
+    launches, main_path = timed_phase(phase_serving, torch, Transfusion, mods)
+    train_launches, train_path = timed_phase(phase_training, torch, Transfusion, Trainer, mods)
+    long_launches, long_path = timed_phase(phase_long_training, torch, Transfusion, Trainer,
+                                           mods)
+
+    # the kernels line: launches over the serving and training runs (the
+    # streamed entries: over the long-context run); times on the tensors
+    # captured from the text path with bf16 KV (flash_fwd, decode_attn),
+    # from the training runs (the backward and token-major kernels) and from
+    # the long-context run (the streamed entries)
+    timed = {**train_path, **main_path["generate_text_batch bf16 KV"], **long_path}
     kernels = []
     for name, meta in KERNELS.items():
-        total = launches[name] + train_launches[name]
+        total = (launches.get(name, 0) + train_launches.get(name, 0)
+                 + long_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]
         kernels.append(dict(

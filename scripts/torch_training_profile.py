@@ -12,12 +12,21 @@ under `torch.profiler` for each attention route:
     n 256 after the shift;
   * head-major: 8 samples of four such groups, n 1024 after the shift.
 
-For each window it prints one JSON line: wall seconds of the profiled step
-(the profiler adds host time, so the busy share is a lower bound of the
-unprofiled step's), summed device kernel time, the device's busy share
-(kernel time / wall; the port runs one stream), the number of kernel
-launches, and the twelve kernels with the most device time. It also prints
-the unprofiled ms per step over 10 steps. Needs a CUDA device.
+Then the long-context window of `chip_smoke.py` phase 6: the 573M config
+of `scripts/probe_573m.py` (dim 1024, depth 12, 16x64 heads, vocab 50k,
+remat 'full', ce_chunk_size 256) with `Trainer(grad_accumulation=2)` on 2
+samples packed to n 16384 each, under remat 'full', 'dots' and none; for
+each, the peak device memory (`torch.cuda.max_memory_allocated`) of one
+microbatch's forward and backward above what stays resident, and of a
+whole step.
+
+For each profiled window it prints one JSON line: wall seconds of the
+profiled step (the profiler adds host time, so the busy share is a lower
+bound of the unprofiled step's), summed device kernel time, the device's
+busy share (kernel time / wall; the port runs one stream), the number of
+kernel launches, and the twelve kernels with the most device time. It also
+prints the unprofiled ms per step (over 10 steps; 3 for the long windows).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,17 +58,37 @@ def bench_batch(rng, b, groups):
     return batch
 
 
-def profile(torch, name, step, tokens):
+# scripts/probe_573m.py:29-41, as chip_smoke.py's LONG_CFG
+LONG_CFG = dict(
+    num_text_tokens=50_000, dim_latent=32, modality_default_shape=(14, 14), pad_multiple=64,
+    ce_chunk_size=256,
+    transformer=dict(dim=1024, depth=12, dim_head=64, heads=16, attn_impl="flash"),
+)
+
+
+def long_sample(rng):
+    """chip_smoke.py's long sample: 20 x ([600 text][14x14x32 latent]) then
+    270 text, n 16384 after the shift."""
+    import numpy as np
+
+    items = []
+    for _ in range(20):
+        items += [rng.integers(0, 50_000, 600).astype(np.int32),
+                  (0, rng.standard_normal((14, 14, 32)).astype(np.float32))]
+    return items + [rng.integers(0, 50_000, 270).astype(np.int32)]
+
+
+def profile(torch, name, step, tokens, warmup=2, timed=10):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    for _ in range(2):  # warm-up
+    for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(timed):
         step()
     torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) / 10 * 1e3
+    ms_step = (time.perf_counter() - t0) / timed * 1e3
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
@@ -108,7 +137,61 @@ def main() -> int:
             box[0], _ = trainer.train_step(box[0], packed, generator=gen)
 
         profile(torch, name, step, int(packed.total_tokens))
+    del model, trainer
+    long_windows(torch, Transfusion, Trainer)
     return 0
+
+
+def long_windows(torch, Transfusion, Trainer):
+    """The long-context step under remat 'full', 'dots' and none: a profiled
+    window each, the peak memory of one microbatch's forward and backward
+    above what stays resident (the state, the weights), and the peak of a
+    whole step with one state resident."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    packs = None
+    for policy in ("full", "dots", None):
+        tcfg = dict(LONG_CFG["transformer"], remat=policy is not None,
+                    remat_policy=policy or "full")
+        model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0,
+                            **dict(LONG_CFG, transformer=tcfg))
+        trainer = Trainer(model, learning_rate=3e-4, grad_accumulation=2)
+        if packs is None:
+            packs = [model.pack([long_sample(rng)], shift_friendly=True).to_torch("cuda")
+                     for _ in range(2)]
+        tokens = sum(int(p.total_tokens) for p in packs)
+        gen = torch.Generator("cuda").manual_seed(0)
+        box = [trainer.init_state()]
+
+        def step(trainer=trainer, gen=gen, box=box):
+            box[0], _ = trainer.train_step(box[0], packs, generator=gen)
+
+        label = f"remat {policy}" if policy else "no remat"
+        profile(torch, f"train_step 573M, 2 x n16384, grad_accumulation 2, {label}", step,
+                tokens, warmup=1, timed=3)
+
+        leaves = {k: p.detach().requires_grad_(True) for k, p in box[0].params.items()}
+        draws = model.make_draws(packs[0], gen)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = model.loss(packed=packs[0], draws=draws, params=leaves)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        torch.cuda.synchronize()
+        microbatch = torch.cuda.max_memory_allocated() - resident
+        del loss, grads, leaves
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "window": f"memory, train_step 573M, 2 x n16384, grad_accumulation 2, {label}",
+            "resident_gb": resident / 1e9,
+            "microbatch_forward_backward_peak_above_resident_gb": microbatch / 1e9,
+            "step_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }), flush=True)
+        del model, trainer, box, step
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -142,6 +142,33 @@ def test_backward_kernel_matches_plain(cuda_device, dtype, rel, n, d):
             assert (got[0][:, :, :30] == 0).all()
 
 
+def test_long_sequence_kernels_match_blocked_plain(cuda_device):
+    """b1 h2 n12288 d64 bf16 with spans (the TPU's streamed envelope, rows 3
+    and 9 of the kernel table) against the plain versions computed 2048
+    query rows at a time: forward within 2e-2, dq/dk/dv within 1e-2 of
+    each gradient's largest element; the launches count as rows 3 and 9."""
+    b, h, n, d = 1, 2, 12288, 64
+    q, k, v, do = (randn(b, h, n, d, seed=s, dtype=torch.bfloat16) for s in range(4))
+    spans = torch.tensor([[[0, 600 + 804 * i, 196] for i in range(15)]], device=cuda_device)
+    rows_f = dict(flash_attn.flash_attention.launches_by_row)
+    rows_b = dict(flash_attn.flash_attention_backward.launches_by_row)
+    out, lse = flash_attn.flash_attention(q, k, v, spans=spans, return_lse=True)
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, spans, block_q=2048)
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, do, spans)
+    delta = (do.float() * out.float()).sum(-1)
+    want = flash_attn.flash_attention_backward_plain(q, k, v, do, lse, delta, spans,
+                                                     block_q=2048)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert_grads_close(got, want, 1e-2)
+    assert flash_attn.flash_attention.launches_by_row[3] == rows_f[3] + 1
+    assert flash_attn.flash_attention_backward.launches_by_row[9] == rows_b[9] + 1
+    wide = torch.empty(2, 32768, 8, d, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="grid rows"):
+        flash_attn.flash_attention(wide, wide, wide, causal=True)
+
+
 @pytest.mark.parametrize("dtype,tol,rel", [(torch.float32, 1e-4, 1e-4),
                                            (torch.bfloat16, 2e-2, 1e-2)])
 @pytest.mark.parametrize("rope", [True, False])

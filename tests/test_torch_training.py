@@ -233,15 +233,13 @@ def test_ema_schedule_matches_jax():
 
 def test_unported_training_options_raise():
     tm = Transfusion(transformer=TCFG["head-major"], device="cpu", **CFG)
-    for kw, match in ((dict(grad_accumulation=2), "grad accumulation"),
-                      (dict(velocity_consistency=True), "velocity"),
+    for kw, match in ((dict(velocity_consistency=True), "velocity"),
                       (dict(pipeline_microbatches=2), "parallelism"),
                       (dict(mesh=object()), "parallelism")):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(tm, **kw)
-    for tkw in (dict(dropout=0.1), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Transfusion(transformer=dict(TCFG["head-major"], **tkw), device="cpu", **CFG)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Transfusion(transformer=dict(TCFG["head-major"], dropout=0.1), device="cpu", **CFG)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Transfusion(transformer=TCFG["head-major"], reconstruction_loss_weight=0.1,
                     device="cpu", **CFG)

@@ -3,11 +3,16 @@
 // Replaces the Pallas TPU backwards of transfusion_tpu/ops/pallas_attn_kernel.py:
 //   * `_bwd_kernel_batched_nhd` (row 6 of the kernel table): token-major
 //     [b, n, h*d] operands, RoPE fused on q/k, dq/dk un-rotated on store;
-//   * `_bwd_kernel_batched_heads` (row 7) and `_bwd_dkv_kernel` +
-//     `_bwd_dq_kernel` (row 8): head-major [b, h, n, d], q/kv offsets.
+//   * `_bwd_kernel_batched_heads` (row 7), `_bwd_dkv_kernel` +
+//     `_bwd_dq_kernel` (row 8) and, above n*d = 8192*64,
+//     `_flash_bwd_streamed` -> `_bwd_dkv_kernel_streamed` +
+//     `_bwd_dq_kernel_streamed` (row 9): head-major [b, h, n, d], q/kv
+//     offsets, lse cotangent.
 // The TPU splits them by what fits in VMEM (a full n x n score matrix per
-// grid step, or blocks with K/V resident); one FlashAttention-2 pair meets
-// all three contracts here:
+// grid step, blocks with one [n, d] pair resident, or every operand
+// streamed through the grid); here every tile is streamed from device
+// memory, so one FlashAttention-2 pair meets all four contracts, at any
+// length (64-bit offsets; shared memory does not grow with n):
 //
 //   s  = cap * tanh((q * scale) . k / cap)            scale = d^-1/2
 //   p  = allowed(i, j) ? exp(s - lse_i) : 0           (lse from the forward)
@@ -40,6 +45,8 @@
 // of n x n x d per head (s, dp, dv, dk, dq; the dq and dkv kernels each
 // recompute s and dp, so seven are executed) over ~8 b h n d elements of
 // traffic; at the bench shape that is far above the 295 FLOP/byte ridge.
+// Long causal sequences also leave the dK/dV grid unbalanced: the block of
+// the first kv tile walks every q tile, the last one a single tile.
 // This first version runs the products as float32 FMAs from shared memory
 // (the forward's tile scheme, 256 threads, 64 x 64 tiles) with no tensor
 // cores; tile skipping keeps the work to the visible pairs. Tensor-core
@@ -472,7 +479,8 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                          const float* cos, const float* sin, void* dq, void* dk, void* dv,
                          int b, int h, int nq, int nkv, int d, int q_off, int kv_off, int nhd,
                          float scale, float softcap, int is_bf16, void* stream) {
-  if (m < 0 || m > MAX_SPANS || nq <= 0 || nkv <= 0) return int(cudaErrorInvalidValue);
+  if (m < 0 || m > MAX_SPANS || nq <= 0 || nkv <= 0 || b * h > 65535)
+    return int(cudaErrorInvalidValue);  // one grid row per (batch, head)
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && nq != nkv))
     return int(cudaErrorInvalidValue);
   const Params P{q,   k,  v,  dout, lse, delta, cos,    sin,  spans, dq,    dk,

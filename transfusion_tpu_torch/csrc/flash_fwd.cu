@@ -228,7 +228,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int*
                          const float* cos, const float* sin, void* out, float* lse, int b,
                          int h, int nq, int nkv, int d, int q_off, int kv_off, int nhd,
                          float scale, float softcap, int is_bf16, void* stream) {
-  if (m < 0 || m > MAX_SPANS || nq <= 0 || nkv <= 0) return int(cudaErrorInvalidValue);
+  if (m < 0 || m > MAX_SPANS || nq <= 0 || nkv <= 0 || b * h > 65535)
+    return int(cudaErrorInvalidValue);  // one grid row per (batch, head)
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && (nq != nkv || !nhd)))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

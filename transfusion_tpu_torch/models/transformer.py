@@ -11,16 +11,22 @@ Routing of a cached call (the same decisions as the JAX `Transformer`):
     non-causal modality rows): the decode kernel over the cache, with an
     additive bias built from the cache mask and per-row bounds lens = idx + n;
   * anything else: the dense cached path with an explicit boolean mask.
+
+With `remat` an uncached call (training) recomputes each block's forward in
+the backward instead of keeping its activations, as `nn.remat` does in the
+JAX `Transformer` (`transformer.py:541-550`).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from transfusion_tpu_torch.models.layers import (
     AdaptiveWrapper,
@@ -127,24 +133,32 @@ class TransformerBlock(nn.Module):
         return s, attn_values, new_cache
 
 
+# 'dots' keeps the outputs of the unbatched matrix products (the block's
+# projections) and recomputes the rest: the counterpart of
+# `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+REMAT_POLICIES = ("full", "dots")
+
+
+def _call_block(block, params, *args):
+    return torch.func.functional_call(block, params, args)
+
+
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, dim_head: int = 64, heads: int = 8,
                  ff_expansion_factor: float = 4.0, unet_skips: bool = True,
                  num_residual_streams: int = 1, attn_impl: str = "dense",
                  attn_softcap: float = 50.0, attn_gate_values: bool = True,
                  rope_theta: float = 10000.0, attn_laser: bool = False,
-                 dropout: float = 0.0, remat: bool = False):
+                 dropout: float = 0.0, remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         if dropout > 0:
             raise NotImplementedError(
                 f"dropout={dropout}: attention/feedforward dropout is queued in "
-                "ROADMAP.md (Queue 1, 'dropout/remat'); the port trains with dropout 0"
+                "ROADMAP.md (Queue 1, 'dropout'); the port trains with dropout 0"
             )
-        if remat:
-            raise NotImplementedError(
-                "remat=True: gradient checkpointing is queued in ROADMAP.md "
-                "(Queue 1, 'dropout/remat')"
-            )
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={remat_policy!r} (one of {REMAT_POLICIES})")
         if attn_laser:
             raise NotImplementedError(
                 "attn_laser=True: LASER attention is queued in ROADMAP.md "
@@ -161,6 +175,7 @@ class Transformer(nn.Module):
         self.streams = num_residual_streams
         self.attn_impl = attn_impl
         self.rope_theta = rope_theta
+        self.remat, self.remat_policy = remat, remat_policy
         # fixed (non-trainable) frequencies of the time embedding; from_flax
         # carries the JAX model's draw across
         self.register_buffer("fourier_weights", torch.randn(dim // 2))
@@ -188,6 +203,21 @@ class Transformer(nn.Module):
             _logger.info("decode kernel excluded: multi-token causal chunk (n=%d)", n)
             return False
         return decode_supported(self.dim_head, n)
+
+    def _remat_block(self, block, *args):
+        """block(*args) under activation checkpointing. The block runs on the
+        parameter tensors it holds now, passed in explicitly: under the
+        trainer's `functional_call` those are the compute-dtype casts of the
+        float32 masters, which the module no longer holds when the backward
+        recomputes the forward. The attention kernels' autograd Functions
+        are recomputed under either policy (their launches are not aten
+        products), as the Pallas calls are under `nn.remat`."""
+        kw = {}
+        if self.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _DOTS_SAVED)
+        return checkpoint(_call_block, block, dict(block.named_parameters()), *args,
+                          use_reentrant=False, **kw)
 
     def _build_mask(self, n, cache, causal, spans):
         """Bool[b|1, 1, n, kv] or None."""
@@ -277,6 +307,7 @@ class Transformer(nn.Module):
         s = expand_stream(x, self.streams)
         skips = []
         value_residual = None
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for ind, block in enumerate(self.blocks):
             layer = ind + 1
             if self.unet_skips and layer <= self.depth // 2:
@@ -288,10 +319,9 @@ class Transformer(nn.Module):
                 layer_cache = {kk: cache[kk][ind] for kk in CACHE_BUFFERS if kk in cache}
                 layer_cache["idx"] = cache["idx"]
 
-            s, attn_values, _ = block(
-                s, skip, cond, cond_index, mask, rope, is_any_modality,
-                value_residual, layer_cache, flash_spec, decode_bias, decode_lens, prefill,
-            )
+            args = (s, skip, cond, cond_index, mask, rope, is_any_modality,
+                    value_residual, layer_cache, flash_spec, decode_bias, decode_lens, prefill)
+            s, attn_values, _ = self._remat_block(block, *args) if remat else block(*args)
             if value_residual is None:
                 value_residual = attn_values
         assert not skips

@@ -32,7 +32,9 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from transfusion_tpu_torch.data.packing import (
     ModalityPackSpec,
@@ -151,11 +153,11 @@ class TransfusionCore(nn.Module):
     def dtype(self):
         return self.to_text_logits.weight.dtype
 
-    def forward(self, packed, times):
+    def forward(self, packed, times, return_logits: bool = True):
         """The uncached joint forward (training); see `joint`. It is the
         module's forward so that `torch.func.functional_call` can run it on
         an explicit parameter dict."""
-        return self.joint(packed, times)
+        return self.joint(packed, times, return_logits=return_logits)
 
     def embed_text(self, text):
         return self.text_embed(text.clamp_min(0)).to(self.dtype)
@@ -252,6 +254,15 @@ class TransfusionCore(nn.Module):
         return self.to_text_logits(embed), new_cache
 
 
+def _ce_chunk_sum(embed, weight, labels, valid):
+    """-sum log p(label) over the valid positions of one sequence chunk
+    (one step of the JAX `_chunked_ce` scan): the chunk's logits live only
+    inside this call."""
+    logits = F.linear(embed.to(weight.dtype), weight).float()
+    label_logit = logits.gather(-1, labels[..., None])[..., 0]
+    return (-(label_logit - torch.logsumexp(logits, dim=-1)) * valid).sum()
+
+
 def _not_in_port(what: str, item: str):
     raise NotImplementedError(f"{what} is not in the PyTorch port yet (ROADMAP.md: {item})")
 
@@ -277,8 +288,8 @@ class Transfusion:
                  device=None, seed: int = 0):
         if reconstruction_loss_weight > 0:
             _not_in_port("the reconstruction loss", "velocity/reconstruction losses")
-        if ce_chunk_size is not None:
-            _not_in_port("ce_chunk_size (sequence-chunked cross-entropy)", "chunked CE")
+        if ce_chunk_size is not None and ce_chunk_size < 1:
+            raise ValueError(f"ce_chunk_size={ce_chunk_size} (None or a positive int)")
         if any(cast_tuple(add_pos_emb)):
             _not_in_port("add_pos_emb (axial positional embedding)", "axial pos-emb")
         if modality_encoder is not None or modality_decoder is not None:
@@ -335,6 +346,7 @@ class Transfusion:
         self.flow_loss_weight = flow_loss_weight
         self.text_loss_weight = text_loss_weight
         self.prob_uncond = prob_uncond
+        self.ce_chunk_size = ce_chunk_size
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -418,10 +430,11 @@ class Transfusion:
         return LossDraws(times=torch.as_tensor(times, dtype=torch.float32, device=dev),
                          cfg_uniform=u[2], noises=noises)
 
-    def _joint_core(self, params, packed, times, noises):
+    def _joint_core(self, params, packed, times, noises, return_logits: bool = True):
         """Noise each latent group (x_t = t x + (1 - t) noise, flow target
         x - noise) and run the core's joint forward, on `params` when given
-        (else the module's own weights). Returns (logits, pred_flows, flows)."""
+        (else the module's own weights). Returns (logits | None, embed,
+        pred_flows, flows)."""
         noised_groups, flows = [], []
         for g, noise in zip(packed.groups, noises):
             t_inst = times[g.batch_idx, g.span_rows]
@@ -430,55 +443,122 @@ class Transfusion:
             flows.append(flow)
         packed_n = packed.replace(groups=tuple(noised_groups))
         if params is None:
-            out = self.core(packed_n, times)
+            out = self.core(packed_n, times, return_logits)
         else:  # cast inside the autograd graph: the grads arrive in params' dtype
             out = torch.func.functional_call(
-                self.core, {k: p.to(self.dtype) for k, p in params.items()}, (packed_n, times))
-        logits, _, pred_flows, _, _ = out
-        return logits, pred_flows, flows
+                self.core, {k: p.to(self.dtype) for k, p in params.items()},
+                (packed_n, times, return_logits))
+        logits, embed, pred_flows, _, _ = out
+        return logits, embed, pred_flows, flows
+
+    def _chunked_ce(self, params, embed, labels, valid):
+        """The JAX `_chunked_ce` (`transfusion.py:828-856`): the CE sum over
+        chunks of `ce_chunk_size` positions (the tail padded with invalid
+        positions), each chunk checkpointed, so that neither the [b, n,
+        vocab] logits nor their gradient is ever held whole."""
+        weight = (self.core.to_text_logits.weight if params is None
+                  else params["to_text_logits.weight"].to(self.dtype))
+        C = self.ce_chunk_size
+        pad = (-embed.shape[1]) % C
+        if pad:
+            embed = F.pad(embed, (0, 0, 0, pad))
+            labels, valid = F.pad(labels, (0, pad)), F.pad(valid, (0, pad))
+        ce_sum = torch.zeros((), device=embed.device)
+        for i in range(0, embed.shape[1], C):
+            ce_sum = ce_sum + checkpoint(_ce_chunk_sum, embed[:, i:i + C], weight,
+                                         labels[:, i:i + C], valid[:, i:i + C],
+                                         use_reentrant=False)
+        return ce_sum
+
+    def _cfg_dropped_text(self, packed, draws: LossDraws, prob_uncond: float, train: bool):
+        """CFG dropout of whole samples' text to the null id (`cfg_mask`
+        positions of the samples whose uniform is below prob_uncond)."""
+        if not (train and prob_uncond > 0):
+            return packed.text
+        drop = draws.cfg_uniform < prob_uncond
+        return torch.where(drop[:, None] & packed.cfg_mask, self.null_text_id, packed.text)
+
+    def _valid_labels(self, labels, spans):
+        """Text positions that carry a CE term: not ignore_index, not the
+        null id, not inside a modality."""
+        return ((labels != self.ignore_index) & (labels != self.null_text_id)
+                & ~spans_to_is_any_modality(labels.shape[1], spans))
+
+    def loss_denominators(self, packed, draws: LossDraws, train: bool = True,
+                          prob_uncond: Optional[float] = None) -> dict:
+        """The joint loss's normalization constants for one (micro)batch of
+        torch tensors (the JAX `loss_denominators`, `transfusion.py:1067`):
+        kept text labels after the CFG dropout of `draws`, total tokens,
+        tokens per modality type, latent elements and instances per type,
+        as float32 tensors. None depends on the parameters, so gradient
+        accumulation sums them over the microbatches
+        (`sum_loss_denominators`) and hands the totals to every
+        microbatch's `_loss_impl`."""
+        T = self.num_modalities
+        prob_uncond = self.prob_uncond if prob_uncond is None else prob_uncond
+        labels = self._cfg_dropped_text(packed, draws, prob_uncond, train)[:, 1:]
+        dev = labels.device
+        mod_mask = spans_to_modality_mask(labels.shape[1], packed.spans, T)
+        elem_counts, inst_counts = [0] * T, [0] * T
+        for g in packed.groups:
+            elem_counts[g.modality_type] += int(math.prod(g.latents.shape))
+            inst_counts[g.modality_type] += int(g.latents.shape[0])
+        return {
+            "kept": self._valid_labels(labels, packed.spans).sum().to(torch.float32),
+            "total_tokens": torch.tensor(float(packed.total_tokens), device=dev),
+            "type_token_counts": mod_mask.any(dim=2).sum(dim=(0, 2)).to(torch.float32),
+            "elem_counts": torch.tensor(elem_counts, dtype=torch.float32, device=dev),
+            "inst_counts": torch.tensor(inst_counts, dtype=torch.float32, device=dev),
+        }
+
+    @staticmethod
+    def sum_loss_denominators(denoms) -> dict:
+        """The global denominators of a batch split into microbatches: the
+        sum of each microbatch's `loss_denominators`."""
+        return {k: sum(d[k] for d in denoms) for k in denoms[0]}
 
     def _loss_impl(self, params, packed, draws: LossDraws, prob_uncond: float,
-                   train: bool = True):
+                   train: bool = True, loss_scales: Optional[dict] = None):
         """The joint loss of the JAX `_loss_impl` (`transfusion.py:858-1065`)
         without the velocity, reconstruction and pipeline branches:
         CFG dropout of whole samples' text, the next-token shift, text CE
         over valid labels (not ignore_index, not null, not inside a
-        modality), per-type flow MSE, weighted by the text and per-type
-        token fractions. packed holds torch tensors. Returns (total,
-        LossBreakdown)."""
+        modality; chunked with `ce_chunk_size`), per-type flow MSE,
+        weighted by the text and per-type token fractions. packed holds
+        torch tensors. Every mean divides by `loss_scales` (the summed
+        `loss_denominators` of all microbatches of a step, so that the
+        microbatches' losses and gradients sum to the whole batch's), or by
+        this batch's own. Returns (total, LossBreakdown)."""
         T = self.num_modalities
-        n = packed.text.shape[1] - 1
-        text = packed.text
-        if train and prob_uncond > 0:
-            drop = draws.cfg_uniform < prob_uncond
-            text = torch.where(drop[:, None] & packed.cfg_mask, self.null_text_id, text)
+        scales = loss_scales
+        if scales is None:
+            scales = self.loss_denominators(packed, draws, train, prob_uncond)
+        text = self._cfg_dropped_text(packed, draws, prob_uncond, train)
         text_in, labels = text[:, :-1], text[:, 1:]
-        logits, pred_flows, flows = self._joint_core(
-            params, packed.replace(text=text_in), draws.times, draws.noises)
-        total_tokens = float(packed.total_tokens)
+        chunked = self.ce_chunk_size is not None
+        logits, embed, pred_flows, flows = self._joint_core(
+            params, packed.replace(text=text_in), draws.times, draws.noises,
+            return_logits=not chunked)
 
-        valid = ((labels != self.ignore_index) & (labels != self.null_text_id)
-                 & ~spans_to_is_any_modality(n, packed.spans))
-        kept = valid.sum().to(torch.float32)
+        valid = self._valid_labels(labels, packed.spans)
         safe_labels = torch.where(valid, labels, 0)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        label_logp = logp.gather(-1, safe_labels[..., None])[..., 0]
-        text_loss = -(label_logp * valid).sum() / kept.clamp_min(1.0)
-        text_frac = kept / total_tokens
-
-        mod_mask = spans_to_modality_mask(n, packed.spans, T)
-        fracs = mod_mask.any(dim=2).sum(dim=(0, 2)).to(torch.float32) / total_tokens
+        if chunked:
+            ce_sum = self._chunked_ce(params, embed, safe_labels, valid)
+        else:
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            label_logp = logp.gather(-1, safe_labels[..., None])[..., 0]
+            ce_sum = -(label_logp * valid).sum()
+        text_loss = ce_sum / scales["kept"].clamp_min(1.0)
+        text_frac = scales["kept"] / scales["total_tokens"]
+        fracs = scales["type_token_counts"] / scales["total_tokens"]
 
         flow_losses = []
         for t in range(T):
-            sse = torch.zeros((), device=logits.device)
-            cnt = 0
+            sse = torch.zeros((), device=embed.device)
             for gi, g in enumerate(packed.groups):
                 if g.modality_type == t:
-                    diff = pred_flows[gi] - flows[gi]
-                    sse = sse + (diff.float() ** 2).sum()
-                    cnt += diff.numel()
-            flow_losses.append(sse / float(max(cnt, 1)))
+                    sse = sse + ((pred_flows[gi] - flows[gi]).float() ** 2).sum()
+            flow_losses.append(sse / scales["elem_counts"][t].clamp_min(1.0))
         flow_total = sum(fl * fracs[t] for t, fl in enumerate(flow_losses))
 
         total = (text_loss * text_frac * self.text_loss_weight

@@ -15,7 +15,9 @@ for (and a plain call otherwise, as on the serving path). Each wrapper
 takes the plain PyTorch version for CPU tensors and launches the kernel for
 CUDA tensors (there is no fallback between the two).
 `flash_attention.launches` and `flash_attention_backward.launches` count
-kernel launches.
+kernel launches; their `launches_by_row` dicts count the same launches by
+the TPU kernel that the JAX route would have run for the shape (`tpu_row`:
+rows 1-3 of the kernel table for the forward, 7-9 for the backward).
 
 Mask contract (global coordinates i = q_offset + row, j = kv_offset + col):
 
@@ -37,7 +39,16 @@ from transfusion_tpu_torch.ops.spans import span_allowed
 
 MAX_SPANS = 128  # the kernels keep a block's spans in shared memory
 HEAD_DIMS = (32, 64, 128)
-# the JAX route's sequence cap (`_MAX_N_TIMES_D`, pallas_attn_kernel.py:1214)
+MAX_GRID_Y = 65535  # the kernels run one grid row per (batch, head)
+# The JAX route's envelopes (pallas_attn_kernel.py:1178-1214). The TPU picks
+# its kernel by what fits in VMEM; the CUDA kernels stream tiles from device
+# memory and take every shape up to the overall cap, so here the envelopes
+# only name the TPU kernel a call stands in for (`tpu_row`).
+_MAX_HND_BATCHED = 8 * 256 * 64
+_MAX_SCORE_ELEMS_FWD = 256 * 1024
+_MAX_SCORE_ELEMS_BWD = 128 * 1024
+_MAX_N_TIMES_D_RESIDENT = 4096 * 64
+_MAX_N_TIMES_D_BWD = 8192 * 64
 _MAX_N_TIMES_D = 131072 * 64
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # flash_fwd(q, k, v, spans, m, cos, sin, out, lse, b, h, nq, nkv, d, q_off,
@@ -55,9 +66,42 @@ def supported(n: int, d: int) -> bool:
     return n * d <= _MAX_N_TIMES_D and d in (32, 64, 128, 256)
 
 
-def flash_attention_plain(q, k, v, spans=None, softcap=50.0, q_offset=0, kv_offset=0):
+def _use_batched(h: int, nq: int, nkv: int, d: int, *, bwd: bool) -> bool:
+    """The JAX batched-heads envelope (`_use_batched`, pallas_attn_kernel.py:1193)."""
+    if h * max(nq, nkv) * d > _MAX_HND_BATCHED:
+        return False
+    return nq * nkv <= (_MAX_SCORE_ELEMS_BWD if bwd else _MAX_SCORE_ELEMS_FWD)
+
+
+def tpu_row(h: int, nq: int, nkv: int, d: int, *, bwd: bool) -> int:
+    """The kernel-table row of the TPU kernel that the JAX route runs at
+    these lengths: `_flash_fwd` (:359-360) takes row 3 (`_kernel_streamed`)
+    above 4096·64, else row 1 (`_kernel_batched_heads`) inside the batched
+    envelope, else row 2 (`_kernel`); `_bwd` (:1084-1100) takes row 7
+    (`_bwd_kernel_batched_heads`), row 9 (`_flash_bwd_streamed`) above
+    8192·64, else row 8 (`_flash_bwd`). The lengths are the call's own (the
+    JAX wrapper first pads a call without offsets to a multiple of 128)."""
+    long = max(nq, nkv) * d
+    if not bwd:
+        if long > _MAX_N_TIMES_D_RESIDENT:
+            return 3
+        return 1 if _use_batched(h, nq, nkv, d, bwd=False) else 2
+    if _use_batched(h, nq, nkv, d, bwd=True) and long <= _MAX_N_TIMES_D_BWD:
+        return 7
+    return 9 if long > _MAX_N_TIMES_D_BWD else 8
+
+
+def flash_attention_plain(q, k, v, spans=None, softcap=50.0, q_offset=0, kv_offset=0,
+                          block_q=None):
     """Dense PyTorch version of the forward kernel's arithmetic. Returns
-    (out [b,h,nq,d] in q's dtype, lse float32 [b,h,nq])."""
+    (out [b,h,nq,d] in q's dtype, lse float32 [b,h,nq]). block_q: compute
+    block_q query rows at a time (the same arithmetic; the score matrix of
+    a long sequence does not fit in memory whole)."""
+    if block_q is not None and block_q < q.shape[2]:
+        parts = [flash_attention_plain(q[:, :, i:i + block_q], k, v, spans, softcap,
+                                       int(q_offset) + i, kv_offset)
+                 for i in range(0, q.shape[2], block_q)]
+        return torch.cat([o for o, _ in parts], 2), torch.cat([l for _, l in parts], 2)
     b, h, nq, d = q.shape
     nkv = k.shape[2]
     scale = torch.tensor(d**-0.5, dtype=q.dtype)
@@ -77,11 +121,22 @@ def flash_attention_plain(q, k, v, spans=None, softcap=50.0, q_offset=0, kv_offs
 
 
 def backward_plain_f32(q, k, v, do, lse, delta, spans=None, softcap=50.0, q_offset=0,
-                       kv_offset=0):
+                       kv_offset=0, block_q=None):
     """The backward kernels' arithmetic, written out (not autograd through
     the forward), in float32: p recomputed from lse under `where(allowed)`,
     ds = p (dp - delta) (1 - (s/cap)^2), q scaled in float32 and dq scaled
-    again. Returns float32 (dq, dk, dv)."""
+    again. Returns float32 (dq, dk, dv). block_q: block_q query rows at a
+    time, dk and dv summed over the blocks in float32."""
+    if block_q is not None and block_q < q.shape[2]:
+        dqs, dk, dv = [], 0.0, 0.0
+        for i in range(0, q.shape[2], block_q):
+            rows = slice(i, i + block_q)
+            dq_i, dk_i, dv_i = backward_plain_f32(
+                q[:, :, rows], k, v, do[:, :, rows], lse[:, :, rows], delta[:, :, rows],
+                spans, softcap, int(q_offset) + i, kv_offset)
+            dqs.append(dq_i)
+            dk, dv = dk + dk_i, dv + dv_i
+        return torch.cat(dqs, 2), dk, dv
     nq, d = q.shape[2], q.shape[3]
     nkv = k.shape[2]
     scale = d**-0.5
@@ -105,11 +160,11 @@ def backward_plain_f32(q, k, v, do, lse, delta, spans=None, softcap=50.0, q_offs
 
 
 def flash_attention_backward_plain(q, k, v, do, lse, delta, spans=None, softcap=50.0,
-                                   q_offset=0, kv_offset=0):
+                                   q_offset=0, kv_offset=0, block_q=None):
     """Plain version of the backward kernel: (dq, dk, dv) in the inputs'
     dtypes. delta = rowsum(dO * O) - g_lse, float32 [b,h,nq]."""
     dq, dk, dv = backward_plain_f32(q, k, v, do, lse, delta, spans, softcap, q_offset,
-                                    kv_offset)
+                                    kv_offset, block_q)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -118,9 +173,17 @@ def flash_attention_backward_plain(q, k, v, do, lse, delta, spans=None, softcap=
 # ---------------------------------------------------------------------------
 
 
-def _check(what, q, k, v, d, rest=()):
+def _check(what, q, k, v, b, h, nq, nkv, d, q_off, kv_off, rest=()):
+    """Refuse what the kernels cannot take. They index device memory with
+    64-bit offsets (any element count), but run one grid row per
+    (batch, head) and take lengths and global positions as 32-bit ints."""
     if d not in HEAD_DIMS:
         raise ValueError(f"{what} kernel: head dim {d} not in {HEAD_DIMS}")
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"{what} kernel: b * h = {b * h} > {MAX_GRID_Y} (grid rows)")
+    if min(q_off, kv_off) < -(2**31) or max(q_off + nq, kv_off + nkv) > 2**31:
+        raise ValueError(f"{what} kernel: positions [{q_off}, {q_off + nq}) / "
+                         f"[{kv_off}, {kv_off + nkv}) do not fit in int32")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} kernel: dtype {q.dtype} (float32 or bfloat16)")
     for name, t in (("k", k), ("v", v), *rest):
@@ -163,7 +226,7 @@ def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=
         nkv = k.shape[2]
         shape_k = (b, h, nkv, d)
     what = "flash_attention_nhd" if nhd else "flash_attention"
-    _check(what, q, k, v, d)
+    _check(what, q, k, v, b, h, nq, nkv, d, int(q_offset), int(kv_offset))
     for name, t in (("k", k), ("v", v)):
         if tuple(t.shape) != shape_k:
             raise ValueError(f"{what} kernel: {name} shape {tuple(t.shape)}")
@@ -197,7 +260,8 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
         b, h, nq, d = q.shape
         nkv = k.shape[2]
     what = "flash_attention_nhd backward" if nhd else "flash_attention backward"
-    _check(what, q, k, v, d, rest=(("dout", do),))
+    _check(what, q, k, v, b, h, nq, nkv, d, int(q_offset), int(kv_offset),
+           rest=(("dout", do),))
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     lse = lse.to(torch.float32).contiguous()
     delta = delta.to(torch.float32).contiguous()
@@ -235,6 +299,8 @@ def _forward(q, k, v, spans, softcap, q_off, kv_off, want_lse):
         return flash_attention_plain(q, k, v, spans, softcap, q_off, kv_off)
     out = launch_fwd(q, k, v, spans, softcap, q_off, kv_off, want_lse)
     flash_attention.launches += 1
+    b, h, nq, d = q.shape
+    flash_attention.launches_by_row[tpu_row(h, nq, k.shape[2], d, bwd=False)] += 1
     return out
 
 
@@ -251,6 +317,8 @@ def flash_attention_backward(q, k, v, o, lse, do, spans=None, softcap=50.0, q_of
         return flash_attention_backward_plain(*args)
     out = launch_bwd(*args)
     flash_attention_backward.launches += 1
+    b, h, nq, d = q.shape
+    flash_attention_backward.launches_by_row[tpu_row(h, nq, k.shape[2], d, bwd=True)] += 1
     return out
 
 
@@ -292,4 +360,6 @@ def flash_attention(q, k, v, spans=None, causal=False, softcap=50.0,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_row = {1: 0, 2: 0, 3: 0}
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_by_row = {7: 0, 8: 0, 9: 0}

@@ -19,6 +19,9 @@ from __future__ import annotations
 import torch
 
 from transfusion_tpu_torch.ops.flash_attn import (
+    _MAX_HND_BATCHED,
+    _MAX_N_TIMES_D_BWD,
+    _MAX_SCORE_ELEMS_BWD,
     _device_kind,
     backward_plain_f32,
     flash_attention_plain,
@@ -26,12 +29,6 @@ from transfusion_tpu_torch.ops.flash_attn import (
     launch_fwd,
 )
 from transfusion_tpu_torch.ops.rope import _rotate_half
-
-# the JAX route's envelope (pallas_attn_kernel.py:1178-1211): the backward's
-# batched-heads operand block and score-matrix caps
-_MAX_HND_BATCHED = 8 * 256 * 64
-_MAX_SCORE_ELEMS_BWD = 128 * 1024
-_MAX_N_TIMES_D_BWD = 8192 * 64
 
 
 def nhd_eligible(h: int, n: int, d: int) -> bool:

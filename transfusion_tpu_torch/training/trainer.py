@@ -10,9 +10,15 @@ modules with `dtype=bf16` over float32 params. The model's own module
 weights are left as they were; `sync_model` copies a state into them (for
 sampling with the trained weights).
 
-Randomness: `train_step` takes the loss's draws (`LossDraws`) or makes them
-from a `torch.Generator`. Not ported yet (ROADMAP.md): meshes, gradient
-accumulation, pipeline parallelism, velocity consistency.
+With `grad_accumulation=M` a step splits its batch into M microbatches,
+runs their forward and backward passes one after the other with the
+batch's global loss denominators, sums their float32 gradients and makes
+one update: the same update as the whole batch at once
+(`_train_step_accum`, as the JAX `Trainer`).
+
+Randomness: `train_step` takes the loss's draws (`LossDraws`, or a list of
+M of them) or makes them from a `torch.Generator`. Not ported yet
+(ROADMAP.md): meshes, pipeline parallelism, velocity consistency.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ import os
 import re
 from typing import Optional
 
+import numpy as np
 import torch
 
+from transfusion_tpu_torch.data.packing import PackedBatch
 from transfusion_tpu_torch.training.ema import EmaState, init_ema
 from transfusion_tpu_torch.training.fused_update import (
     AdamState,
@@ -55,8 +63,8 @@ class Trainer:
             _queued("mesh sharding", "Queue 1 item 9, parallelism")
         if pipeline_microbatches is not None:
             _queued("pipeline parallelism", "Queue 1 item 9, parallelism")
-        if grad_accumulation is not None:
-            _queued("gradient accumulation", "Queue 1 item 5, grad accumulation")
+        if grad_accumulation is not None and grad_accumulation < 2:
+            raise ValueError("grad_accumulation must be >= 2 (None disables it)")
         if velocity_consistency:
             _queued("velocity consistency", "velocity/reconstruction losses")
         self.model = model
@@ -65,6 +73,7 @@ class Trainer:
         self.ema_cfg = dict(ema_beta=ema_beta, ema_update_every=ema_update_every,
                             ema_update_after_step=ema_update_after_step)
         self.checkpoint_dir = checkpoint_dir
+        self.grad_accumulation = grad_accumulation
 
     def init_state(self, params: Optional[dict] = None) -> TrainState:
         """Masters from `params` (a state dict, e.g. `weights.from_flax`'s;
@@ -84,19 +93,42 @@ class Trainer:
             batch = batch.to_torch(model.device)
         return batch
 
-    def train_step(self, state: TrainState, batch, draws=None, generator=None):
-        """One optimizer step on a ragged batch (list of samples) or a
-        packed batch. Returns (new state, metrics): loss, text_loss,
-        grad_norm and flow_loss_{i}, as 0-d tensors on the device."""
+    def _microbatches(self, batch) -> list:
+        """The grad_accumulation = M packed microbatches of one step: a
+        ragged list of samples split by `np.array_split` into M and packed
+        each, or a list of M packed batches. A single packed batch cannot be
+        split by rows (its latent groups span the whole batch)."""
+        M = self.grad_accumulation
+        if isinstance(batch, PackedBatch):
+            raise ValueError(
+                "grad_accumulation needs the ragged batch (a list of samples) or a list "
+                f"of {M} packed batches; a single packed batch cannot be split by rows "
+                "because its latent groups are bucketed across the whole batch")
+        if all(isinstance(b, PackedBatch) for b in batch):
+            if len(batch) != M:
+                raise ValueError(f"got {len(batch)} packed microbatches, expected "
+                                 f"grad_accumulation={M}")
+            return [self._packed(b) for b in batch]
+        if len(batch) < M:
+            raise ValueError(f"a batch of {len(batch)} samples cannot split into "
+                             f"grad_accumulation={M} non-empty microbatches")
+        return [self._packed([batch[i] for i in idx])
+                for idx in np.array_split(np.arange(len(batch)), M)]
+
+    def _grads(self, state: TrainState, packed, draws, loss_scales=None):
+        """Loss, breakdown and float32 gradients (a dict like the params) of
+        one (micro)batch at the state's master weights."""
         model = self.model
-        packed = self._packed(batch)
-        if draws is None:
-            draws = model.make_draws(packed, generator)
         leaves = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
-        loss, breakdown = model._loss_impl(leaves, packed, draws, model.prob_uncond, train=True)
+        loss, breakdown = model._loss_impl(leaves, packed, draws, model.prob_uncond,
+                                           train=True, loss_scales=loss_scales)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(state.params.items(), grads)}
+        return loss.detach(), breakdown, grads
+
+    def _apply(self, state: TrainState, grads, loss, text_loss, flow_losses):
+        """The fused clip + Adam + EMA update; returns (new state, metrics)."""
         params, adam, ema_params, grad_norm = fused_clip_adam_ema(
             grads, state.params, state.adam, state.ema.params, state.ema.step,
             learning_rate=self.learning_rate, grad_clip_norm=self.grad_clip_norm,
@@ -105,17 +137,58 @@ class Trainer:
         new_state = TrainState(params=params, adam=adam,
                                ema=EmaState(params=ema_params, step=state.ema.step + 1),
                                step=state.step + 1)
-        metrics = {"loss": loss.detach(), "text_loss": breakdown.text.detach(),
-                   "grad_norm": grad_norm}
-        for i, fl in enumerate(breakdown.flow):
+        metrics = {"loss": loss, "text_loss": text_loss.detach(), "grad_norm": grad_norm}
+        for i, fl in enumerate(flow_losses):
             metrics[f"flow_loss_{i}"] = fl.detach()
         return new_state, metrics
+
+    def train_step(self, state: TrainState, batch, draws=None, generator=None):
+        """One optimizer step on a ragged batch (list of samples) or a
+        packed batch (with grad_accumulation: a ragged batch or a list of M
+        packed ones, and draws a list of M `LossDraws`). Returns (new state,
+        metrics): loss, text_loss, grad_norm and flow_loss_{i}, as 0-d
+        tensors on the device."""
+        if self.grad_accumulation is not None:
+            return self._train_step_accum(state, batch, draws, generator)
+        packed = self._packed(batch)
+        if draws is None:
+            draws = self.model.make_draws(packed, generator)
+        loss, breakdown, grads = self._grads(state, packed, draws)
+        return self._apply(state, grads, loss, breakdown.text, breakdown.flow)
+
+    def _train_step_accum(self, state: TrainState, batch, draws, generator):
+        """Exact gradient accumulation (the JAX `_train_step_accum`,
+        `trainer.py:315-406`): M microbatch forward and backward passes,
+        each with the GLOBAL loss denominators (`loss_denominators` summed
+        over the microbatches), their gradients summed in float32 in place,
+        then one update. Loss and breakdown are summed the same way, so
+        they equal the whole batch's."""
+        model = self.model
+        packs = self._microbatches(batch)
+        if draws is None:
+            draws = [model.make_draws(p, generator) for p in packs]
+        if len(draws) != len(packs):
+            raise ValueError(f"{len(draws)} draws for {len(packs)} microbatches")
+        scales = model.sum_loss_denominators(
+            [model.loss_denominators(p, d) for p, d in zip(packs, draws)])
+        loss = text_loss = flow_losses = grads = None
+        for packed, d in zip(packs, draws):
+            loss_m, bd, grads_m = self._grads(state, packed, d, scales)
+            if grads is None:
+                loss, text_loss, flow_losses, grads = loss_m, bd.text, list(bd.flow), grads_m
+                continue
+            loss, text_loss = loss + loss_m, text_loss + bd.text
+            flow_losses = [a + b for a, b in zip(flow_losses, bd.flow)]
+            torch._foreach_add_(list(grads.values()), [grads_m[k] for k in grads])
+            del grads_m  # not held through the next microbatch or the update
+        return self._apply(state, grads, loss, text_loss, flow_losses)
 
     def train_steps(self, state: TrainState, batch, steps: int, generator=None):
         """`steps` optimizer steps on one batch (packed once), each with
         fresh draws from `generator`: the per-step semantics of the JAX
         `train_steps` scan, as a Python loop. Returns (state, last metrics)."""
-        packed = self._packed(batch)
+        packed = (self._microbatches(batch) if self.grad_accumulation is not None
+                  else self._packed(batch))
         metrics = {}
         for _ in range(steps):
             state, metrics = self.train_step(state, packed, generator=generator)
