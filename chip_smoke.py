@@ -494,7 +494,10 @@ def phase_kernels(torch, mods):
         record("flash_bwd_nhd", f"b{b} h8 n256 d64 {kind} rope spans2", bwd, dtype)
     # the head-major backward: n 1024 training, row 7's envelope (no main
     # path reaches it, so its library yardstick is timed here), ring
-    # attention's offsets with an lse cotangent, ragged n in float32
+    # attention's offsets with an lse cotangent, d 128, ragged n with whole
+    # rows masked (kv_off > q_off: rows 0..299 see no key, so dq is exactly
+    # 0 there, and kv rows no query reaches get dk = dv = 0), ragged n in
+    # float32 (the FMA kernels)
     groups4 = [(40 + 244 * i, 196) for i in range(4)]
     for shape, args, kw in (
         ("b8 h8 n1024 d64 bf16 spans4", (8, 8, 1024, 64, bf16, spans_of(8, groups4)), {}),
@@ -502,6 +505,9 @@ def phase_kernels(torch, mods):
          {"library": True}),
         ("b2 h8 n1024 d64 bf16 q_off=512 kv_off=256 g_lse",
          (2, 8, 1024, 64, bf16, spans_of(2, [(700, 196)]), 512, 256, True), {}),
+        ("b2 h8 n1000 d128 bf16 spans1", (2, 8, 1000, 128, bf16, spans_of(2, [(33, 196)])), {}),
+        ("b2 h8 n1000 d64 bf16 q_off=0 kv_off=300 spans1 (masked rows)",
+         (2, 8, 1000, 64, bf16, spans_of(2, [(700, 196)]), 0, 300), {}),
         ("b2 h8 n1000 d64 f32 spans1", (2, 8, 1000, 64, f32, spans_of(2, [(33, 196)])), {}),
     ):
         record("flash_bwd", shape, bwd_case(torch, mods, *args, **kw), args[4])

@@ -120,11 +120,20 @@ def assert_grads_close(got, want, rel):
         assert err <= rel * scale, f"{name}: {err} > {rel} * {scale}"
 
 
+# 20 spans of 7 rows, 9 apart: many partial tiles, span edges inside tiles
+SPANS20 = np.asarray([[[0, 3 + 9 * i, 7] for i in range(20)]] * 2, np.int32)
+
+
+@pytest.mark.parametrize("spans_np", [SPANS, SPANS20], ids=["spans2", "spans20"])
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("n,d", [(130, 32), (1000, 64), (200, 128)])
-def test_backward_kernel_matches_plain(cuda_device, dtype, rel, n, d):
+def test_backward_kernel_matches_plain(cuda_device, dtype, rel, n, d, spans_np):
+    """Ragged n (no multiple of the 64-row tile), every head dim, offsets
+    with kv_offset > q_offset (whole rows masked: dq exactly 0), an lse
+    cotangent, 2 or 20 spans; bf16 on the tensor-core kernel, float32 on
+    the FMA kernels."""
     q, k, v, do = (randn(2, 2, n, d, seed=s, dtype=dtype) for s in range(4))
-    spans = torch.tensor(SPANS, device=cuda_device)
+    spans = torch.tensor(spans_np, device=cuda_device)
     g_lse = randn(2, 2, n, seed=9)
     for q_off, kv_off, gl in ((0, 0, None), (64, 16, g_lse), (0, 48, None)):
         out, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True, q_offset=q_off,
@@ -138,8 +147,12 @@ def test_backward_kernel_matches_plain(cuda_device, dtype, rel, n, d):
                                                          q_off, kv_off)
         torch.cuda.synchronize()
         assert_grads_close(got, want, rel)
-        if kv_off == 48:  # rows 0..29 see no column (causally, or through a span): zero dq
-            assert (got[0][:, :, :30] == 0).all()
+        if kv_off == 48:  # rows that see no column (causally or through a span): dq = 0
+            dead = (~flash_attn.span_allowed(torch.arange(n, device=cuda_device),
+                                             torch.arange(n, device=cuda_device) + 48,
+                                             spans)).all(-1)  # [b, n]
+            assert dead[:, :3].all()
+            assert (got[0].permute(0, 2, 1, 3)[dead] == 0).all()
 
 
 def test_long_sequence_kernels_match_blocked_plain(cuda_device):
@@ -171,9 +184,9 @@ def test_long_sequence_kernels_match_blocked_plain(cuda_device):
 
 @pytest.mark.parametrize("dtype,tol,rel", [(torch.float32, 1e-4, 1e-4),
                                            (torch.bfloat16, 2e-2, 1e-2)])
-@pytest.mark.parametrize("rope", [True, False])
-def test_token_major_kernels_match_plain(cuda_device, dtype, tol, rel, rope):
-    b, h, n, d = 2, 4, 256, 64
+@pytest.mark.parametrize("rope,n,d", [(True, 256, 64), (False, 256, 64), (True, 200, 128)])
+def test_token_major_kernels_match_plain(cuda_device, dtype, tol, rel, rope, n, d):
+    b, h = 2, 4
     q, k, v, do = (randn(b, n, h * d, seed=s, dtype=dtype) for s in range(4))
     spans = torch.tensor([[[0, 40, 100]], [[0, 7, 196]]], device=cuda_device)
     cos = sin = None

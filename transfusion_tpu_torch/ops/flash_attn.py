@@ -54,9 +54,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # flash_fwd(q, k, v, spans, m, cos, sin, out, lse, b, h, nq, nkv, d, q_off,
 #           kv_off, nhd, scale, softcap, is_bf16, stream)
 _FWD_ARGTYPES = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 8 + [_F] * 2 + [_I, _P]
-# flash_bwd(q, k, v, dout, lse, delta, spans, m, cos, sin, dq, dk, dv, b, h,
-#           nq, nkv, d, q_off, kv_off, nhd, scale, softcap, is_bf16, stream)
-_BWD_ARGTYPES = [_P] * 7 + [_I] + [_P] * 5 + [_I] * 8 + [_F] * 2 + [_I, _P]
+# flash_bwd(q, k, v, dout, lse, delta, spans, m, cos, sin, dq, dk, dv, dq_acc,
+#           b, h, nq, nkv, d, q_off, kv_off, nhd, scale, softcap, is_bf16, stream)
+_BWD_ARGTYPES = [_P] * 7 + [_I] + [_P] * 6 + [_I] * 8 + [_F] * 2 + [_I, _P]
 
 
 def supported(n: int, d: int) -> bool:
@@ -121,28 +121,35 @@ def flash_attention_plain(q, k, v, spans=None, softcap=50.0, q_offset=0, kv_offs
 
 
 def backward_plain_f32(q, k, v, do, lse, delta, spans=None, softcap=50.0, q_offset=0,
-                       kv_offset=0, block_q=None):
+                       kv_offset=0, block_q=None, round_operands=None):
     """The backward kernels' arithmetic, written out (not autograd through
     the forward), in float32: p recomputed from lse under `where(allowed)`,
     ds = p (dp - delta) (1 - (s/cap)^2), q scaled in float32 and dq scaled
     again. Returns float32 (dq, dk, dv). block_q: block_q query rows at a
-    time, dk and dv summed over the blocks in float32."""
+    time, dk and dv summed over the blocks in float32. round_operands (a
+    dtype, e.g. torch.bfloat16): the bf16 kernel's rounding instead, for
+    measuring its error budget: p and ds rounded to that dtype before the
+    dv/dk/dq products, q unscaled in the products and the scale applied to
+    the float32 results."""
     if block_q is not None and block_q < q.shape[2]:
         dqs, dk, dv = [], 0.0, 0.0
         for i in range(0, q.shape[2], block_q):
             rows = slice(i, i + block_q)
             dq_i, dk_i, dv_i = backward_plain_f32(
                 q[:, :, rows], k, v, do[:, :, rows], lse[:, :, rows], delta[:, :, rows],
-                spans, softcap, int(q_offset) + i, kv_offset)
+                spans, softcap, int(q_offset) + i, kv_offset, round_operands=round_operands)
             dqs.append(dq_i)
             dk, dv = dk + dk_i, dv + dv_i
         return torch.cat(dqs, 2), dk, dv
     nq, d = q.shape[2], q.shape[3]
     nkv = k.shape[2]
     scale = d**-0.5
-    qs = q.float() * scale
-    kf, vf, dof = k.float(), v.float(), do.float()
-    s = torch.matmul(qs, kf.transpose(-1, -2))
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    if round_operands is None:
+        qf = qf * scale
+        s = torch.matmul(qf, kf.transpose(-1, -2))
+    else:
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     chain = 1.0
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
@@ -151,11 +158,15 @@ def backward_plain_f32(q, k, v, do, lse, delta, spans=None, softcap=50.0, q_offs
     cols = torch.arange(nkv, device=q.device) + int(kv_offset)
     allowed = span_allowed(rows, cols, spans)[:, None]
     p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
-    dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * chain
-    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    if round_operands is not None:
+        p, ds = p.to(round_operands).float(), ds.to(round_operands).float()
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
     dq = torch.matmul(ds, kf) * scale
+    if round_operands is not None:
+        dk = dk * scale
     return dq, dk, dv
 
 
@@ -202,11 +213,17 @@ def _spans_arg(what, spans, b, device):
     return spans_t
 
 
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (the bf16
+    backward reads rows, and RoPE angles, as 16-byte vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _rope_args(cos, sin, b, n, d, device):
     if cos is None:
         return None, None, 0, 0
-    cos = cos.to(device=device, dtype=torch.float32).expand(b, n, d).contiguous()
-    sin = sin.to(device=device, dtype=torch.float32).expand(b, n, d).contiguous()
+    cos = _aligned(cos.to(device=device, dtype=torch.float32).expand(b, n, d).contiguous())
+    sin = _aligned(sin.to(device=device, dtype=torch.float32).expand(b, n, d).contiguous())
     return cos, sin, cos.data_ptr(), sin.data_ptr()
 
 
@@ -249,9 +266,11 @@ def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=
 
 def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, heads=None,
                cos=None, sin=None):
-    """Launch csrc/flash_bwd.cu (the dK/dV kernel, then the dQ kernel) in
-    either layout (see `launch_fwd`). Returns (dq, dk, dv) like q, k, v.
-    Callers count the launch."""
+    """Launch csrc/flash_bwd.cu in either layout (see `launch_fwd`): for
+    bf16 the tensor-core dK/dV kernel, which adds dq into a zeroed float32
+    scratch, and the kernel that stores dq from it; for float32 the dK/dV
+    and dQ kernels. Returns (dq, dk, dv) like q, k, v. Callers count the
+    launch."""
     nhd = heads is not None
     if nhd:
         b, nq, hd = q.shape
@@ -262,7 +281,7 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
     what = "flash_attention_nhd backward" if nhd else "flash_attention backward"
     _check(what, q, k, v, b, h, nq, nkv, d, int(q_offset), int(kv_offset),
            rest=(("dout", do),))
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = (_aligned(t.contiguous()) for t in (q, k, v, do))
     lse = lse.to(torch.float32).contiguous()
     delta = delta.to(torch.float32).contiguous()
     if tuple(lse.shape) != (b, h, nq) or tuple(delta.shape) != (b, h, nq):
@@ -270,11 +289,15 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
     spans_t = _spans_arg(what, spans, b, q.device)
     cos, sin, cos_p, sin_p = _rope_args(cos, sin, b, nq, d, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq_acc = None
+    if q.dtype == torch.bfloat16:
+        dq_acc = torch.zeros((b, h, nq, d), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_bwd", _BWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), spans_t.data_ptr(), spans_t.shape[1], cos_p, sin_p,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(),
         b, h, nq, nkv, d, int(q_offset), int(kv_offset), int(nhd),
         float(d**-0.5), float(softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -79,17 +79,18 @@ def flash_attention_nhd_plain(q, k, v, h, cos=None, sin=None, spans=None, softca
 
 
 def flash_attention_nhd_backward_plain(q, k, v, do, lse, delta, h, cos=None, sin=None,
-                                       spans=None, softcap=50.0):
+                                       spans=None, softcap=50.0, round_operands=None):
     """Plain version of the backward kernel on the token-major layout: q/k
     rotated as in the forward, the head-major backward arithmetic in
-    float32, dq/dk un-rotated with the negated sin, each rounded to its
-    input's dtype."""
+    float32 (`backward_plain_f32`, which also takes `round_operands`),
+    dq/dk un-rotated with the negated sin, each rounded to its input's
+    dtype."""
     qr, kr = q, k
     if cos is not None:
         qr = _rope_tokens(q, cos, sin, h).to(q.dtype)
         kr = _rope_tokens(k, cos, sin, h).to(k.dtype)
     dq, dk, dv = backward_plain_f32(_heads(qr, h), _heads(kr, h), _heads(v, h), _heads(do, h),
-                                    lse, delta, spans, softcap)
+                                    lse, delta, spans, softcap, round_operands=round_operands)
     dq, dk, dv = _tokens(dq), _tokens(dk), _tokens(dv)
     if cos is not None:
         dq = _rope_tokens(dq, cos, sin, h, sign=-1.0)
