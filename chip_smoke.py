@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
      `transfusion_tpu_torch/csrc/` (one nvcc per source, in parallel);
      print the card's name and power limit;
   2. kernels vs plain: each kernel against its plain PyTorch version on the
-     same inputs, at synthetic shapes around the main paths' (forwards:
+     same inputs, at synthetic shapes around the main paths' and at head
+     dims 32 to 256, whole rows masked, row 1's envelope (forwards:
      bf16 within 2e-2, float32 within 1e-4 max abs error; every row's max
      error also within 0.08 (bf16) / 1e-3 (float32) of that row's RMS;
      backwards: dq/dk/dv within 1e-2 (bf16) / 1e-4 (float32) of the
@@ -471,6 +472,19 @@ def phase_kernels(torch, mods):
                       q_offset=512, kv_offset=256, lse=True), bf16)
     record("flash_fwd", "b2 h8 n1000 d64 f32 spans1",
            flash_case(torch, mods, 2, 8, 1000, 64, f32, spans_of(2, [(33, 196)]), iters=3), f32)
+    # row 1's envelope (8 small heads, one tile each); whole rows masked
+    # (kv_off > q_off: rows 0..299 see no key, so out is exactly 0 and lse
+    # ~ -1e30); head dim 256 on both kernels
+    record("flash_fwd", "b2 h8 n64 d64 bf16 spans2 (row 1)",
+           flash_case(torch, mods, 2, 8, 64, 64, bf16, spans_of(2, [(10, 30), (45, 12)]),
+                      iters=20), bf16)
+    record("flash_fwd", "b2 h8 n1000 d64 bf16 q_off=0 kv_off=300 spans1 lse (masked rows)",
+           flash_case(torch, mods, 2, 8, 1000, 64, bf16, spans_of(2, [(700, 196)]), q_offset=0,
+                      kv_offset=300, lse=True), bf16)
+    for dtype in (bf16, f32):
+        record("flash_fwd", f"b2 h8 n1000 d256 {str(dtype).split('.')[-1]} spans1 lse",
+               flash_case(torch, mods, 2, 8, 1000, 256, dtype, spans_of(2, [(33, 196)]),
+                          lse=True, iters=3), dtype)
 
     lens4 = [8192, 5000, 1200, 37]
     for nq in (1, 196):
@@ -497,7 +511,7 @@ def phase_kernels(torch, mods):
     # attention's offsets with an lse cotangent, d 128, ragged n with whole
     # rows masked (kv_off > q_off: rows 0..299 see no key, so dq is exactly
     # 0 there, and kv rows no query reaches get dk = dv = 0), ragged n in
-    # float32 (the FMA kernels)
+    # float32 (the FMA kernels), d 256 on both kernels
     groups4 = [(40 + 244 * i, 196) for i in range(4)]
     for shape, args, kw in (
         ("b8 h8 n1024 d64 bf16 spans4", (8, 8, 1024, 64, bf16, spans_of(8, groups4)), {}),
@@ -509,6 +523,8 @@ def phase_kernels(torch, mods):
         ("b2 h8 n1000 d64 bf16 q_off=0 kv_off=300 spans1 (masked rows)",
          (2, 8, 1000, 64, bf16, spans_of(2, [(700, 196)]), 0, 300), {}),
         ("b2 h8 n1000 d64 f32 spans1", (2, 8, 1000, 64, f32, spans_of(2, [(33, 196)])), {}),
+        ("b2 h8 n1000 d256 bf16 spans1", (2, 8, 1000, 256, bf16, spans_of(2, [(33, 196)])), {}),
+        ("b2 h8 n1000 d256 f32 spans1", (2, 8, 1000, 256, f32, spans_of(2, [(33, 196)])), {}),
     ):
         record("flash_bwd", shape, bwd_case(torch, mods, *args, **kw), args[4])
 

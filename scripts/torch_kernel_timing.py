@@ -3,24 +3,33 @@
 two commits on one card.
 
     python3 scripts/torch_kernel_timing.py [--tree PATH] [--only fwd|bwd]
+    python3 scripts/torch_kernel_timing.py --compare PARENT [--only fwd|bwd]
 
 PATH is the root of a checkout (default: the one this script is in); its
 `transfusion_tpu_torch` is imported and its kernels are built there. Prints
-one JSON line with the card's name and power limit and, per shape, the
-mean ms of a run of launches (CUDA events, after warm-up launches) on
-seeded bf16 inputs:
+one JSON line with the card's name and power limit, the registers and
+spills `ptxas -v` reported for the tree's forward kernels, and, per shape,
+the mean ms of a run of launches (CUDA events, after warm-up launches) on
+seeded bf16 inputs, at the main-path shapes of the kernel table's rows:
 
-  forward (`flash_attention`): the serving path's text prefill (b8 h8
-  n1024 d64, causal) and a short spanned sequence (b2 h8 n256 d64);
-  backward, at the main-path shapes of the kernel table's rows:
-    row 6: `flash_attention_nhd_backward`, b32 h8 n256 d64 token-major,
-           RoPE, spans (40, 196) + (0, 0) (training run (a));
+  forward:
+    row 1: `flash_attention`, b2 h8 n64 d64, 2 spans (the `sample`
+           prefill's batched envelope);
+    row 2: `flash_attention`, b8 h8 n1024 d64, causal (the serving text
+           prefill);
+    row 3: `flash_attention`, b1 h16 n16384 d64, 20 spans (the long-context
+           run);
+    row 5: `flash_attention_nhd`, b32 h8 n256 d64 token-major, RoPE, spans
+           (40, 196) + (0, 0) (training run (a));
+  backward:
+    row 6: `flash_attention_nhd_backward` at row 5's shape;
     row 8: `flash_attention_backward`, b8 h8 n1024 d64, 4 spans (run (b));
-    row 9: `flash_attention_backward`, b1 h16 n16384 d64, 20 spans (the
-           long-context run).
+    row 9: `flash_attention_backward` at row 3's shape.
 A backward call includes its delta = rowsum(dO o) and, where the checkout
-has one, its dq scratch. Run the two trees in turns (parent, change,
-change, parent) within one call. Needs a CUDA device.
+has one, its dq scratch. --compare PARENT runs this script on PARENT (a
+checkout unpacked with `git archive`) and on this checkout in turns
+(parent, change, change, parent), each in its own process, and then prints
+one JSON line per shape with the four times. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,12 +37,20 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
-FWD_SHAPES = (("text prefill b8 h8 n1024 d64 causal", 8, 1024, None),
-              ("b2 h8 n256 d64 one span", 2, 256, (40, 196)))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (name, b, h, n, spans, token-major, iterations)
+FWD_SHAPES = (
+    ("row 1 b2 h8 n64 d64 spans2", 2, 8, 64, [(10, 30), (45, 12)], False, 200),
+    ("row 2 b8 h8 n1024 d64 causal", 8, 8, 1024, None, False, 100),
+    ("row 3 b1 h16 n16384 d64 spans20", 1, 16, 16384, [(600 + 798 * i, 196) for i in range(20)],
+     False, 10),
+    ("row 5 nhd b32 h8 n256 d64 rope spans2", 32, 8, 256, [(40, 196), (0, 0)], True, 100),
+)
 BWD_SHAPES = (
     ("row 6 nhd b32 h8 n256 d64 rope spans2", 32, 8, 256, [(40, 196), (0, 0)], True, 50),
     ("row 8 b8 h8 n1024 d64 spans4", 8, 8, 1024, [(40 + 244 * i, 196) for i in range(4)],
@@ -56,40 +73,76 @@ def mean_ms(torch, run, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def time_forward(torch, out):
-    from transfusion_tpu_torch.ops.flash_attn import flash_attention
+def inputs(torch, b, h, n, span_list, nhd, count, d=64):
+    """Seeded bf16 tensors ([b, n, h*d] or [b, h, n, d]), spans and, for
+    the token-major route, RoPE angles."""
+    from transfusion_tpu_torch.ops import rope
+    from transfusion_tpu_torch.ops import spans as spans_mod
 
-    for name, b, n, span in FWD_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(n)
-        q, k, v = (torch.randn(b, 8, n, 64, device="cuda", generator=g).to(torch.bfloat16)
-                   for _ in range(3))
-        spans = None if span is None else torch.tensor([[[0, *span]]] * b, device="cuda")
-        out[name] = mean_ms(torch, lambda: flash_attention(q, k, v, spans=spans, causal=True),
-                            50, warmup=5)
+    g = torch.Generator(device="cuda").manual_seed(n + b)
+    shape = (b, n, h * d) if nhd else (b, h, n, d)
+    ts = [torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
+          for _ in range(count)]
+    spans = None if span_list is None else torch.tensor(
+        [[[0, off, ln] for off, ln in span_list]] * b, dtype=torch.int32, device="cuda")
+    cos = sin = None
+    if nhd:
+        ang = rope.rope_angles(spans_mod.spans_to_rotary_positions(n, spans), d)
+        cos, sin = torch.cos(ang), torch.sin(ang)
+    return ts, spans, cos, sin
+
+
+def time_forward(torch, out):
+    from transfusion_tpu_torch.ops import flash_attn, flash_attn_nhd
+
+    for name, b, h, n, span_list, nhd, iters in FWD_SHAPES:
+        (q, k, v), spans, cos, sin = inputs(torch, b, h, n, span_list, nhd, 3)
+        if nhd:
+            def run():
+                flash_attn_nhd.flash_attention_nhd(q, k, v, h, cos=cos, sin=sin, spans=spans,
+                                                   causal=True)
+        else:
+            def run():
+                flash_attn.flash_attention(q, k, v, spans=spans, causal=True)
+        out[name] = mean_ms(torch, run, iters, warmup=5)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def ptxas_report():
+    """[kernel, registers, spill stores, spill loads] of the tree's
+    csrc/flash_fwd.cu build, from its `ptxas -v` log."""
+    from transfusion_tpu_torch.ops import _build
+
+    rows, name, spills = [], None, (None, None)
+    for line in _build.ptxas_log("flash_fwd").splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spills = m.group(1), (None, None)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append([name, int(m.group(1)), *spills])
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        for r, nm in zip(rows, names):
+            r[0] = nm.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return rows
 
 
 def time_backward(torch, out):
-    from transfusion_tpu_torch.ops import flash_attn, flash_attn_nhd, rope
-    from transfusion_tpu_torch.ops import spans as spans_mod
+    from transfusion_tpu_torch.ops import flash_attn, flash_attn_nhd
 
-    d = 64
     for name, b, h, n, span_list, nhd, iters in BWD_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(n + b)
-        spans = torch.tensor([[[0, off, ln] for off, ln in span_list]] * b, dtype=torch.int32,
-                             device="cuda")
+        (q, k, v, do), spans, cos, sin = inputs(torch, b, h, n, span_list, nhd, 4)
         if nhd:
-            q, k, v, do = (torch.randn(b, n, h * d, device="cuda", generator=g)
-                           .to(torch.bfloat16) for _ in range(4))
-            ang = rope.rope_angles(spans_mod.spans_to_rotary_positions(n, spans), d)
-            cos, sin = torch.cos(ang), torch.sin(ang)
             o, lse = flash_attn_nhd._forward(q, k, v, h, cos, sin, spans, 50.0)
 
             def run():
                 flash_attn_nhd.flash_attention_nhd_backward(q, k, v, o, lse, do, h, cos, sin,
                                                             spans, 50.0)
         else:
-            q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=g)
-                           .to(torch.bfloat16) for _ in range(4))
             o, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True,
                                                 return_lse=True)
 
@@ -100,9 +153,31 @@ def time_backward(torch, out):
         torch.cuda.empty_cache()
 
 
+def compare(parent, only):
+    """Run the parent and this checkout in turns; one JSON line per shape."""
+    runs = []
+    for tree in (parent, HERE, HERE, parent):
+        cmd = [sys.executable, os.path.abspath(__file__), "--tree", tree]
+        if only:
+            cmd += ["--only", only]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        sys.stdout.write(res.stdout)
+        if res.returncode != 0:
+            sys.stderr.write(res.stderr)
+            return res.returncode
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    for name in (s[0] for s in FWD_SHAPES + BWD_SHAPES):
+        if name in runs[0]:
+            print(json.dumps({"shape": name, "parent_ms": [runs[0][name], runs[3][name]],
+                              "change_ms": [runs[1][name], runs[2][name]],
+                              "card": runs[1]["card"]}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--compare", metavar="PARENT")
     ap.add_argument("--only", choices=("fwd", "bwd"))
     args = ap.parse_args()
     import torch
@@ -110,12 +185,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    if args.compare:
+        return compare(os.path.abspath(args.compare), args.only)
     sys.path.insert(0, os.path.abspath(args.tree))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     out = {"tree": os.path.abspath(args.tree), "card": card}
     if args.only != "bwd":
         time_forward(torch, out)
+        out["ptxas flash_fwd [kernel, registers, spill stores, spill loads]"] = ptxas_report()
     if args.only != "fwd":
         time_backward(torch, out)
     print(json.dumps(out), flush=True)

@@ -38,7 +38,7 @@ def randn(*shape, seed=0, device="cuda", dtype=torch.float32):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("n,d", [(130, 32), (1000, 64), (200, 128)])
+@pytest.mark.parametrize("n,d", [(130, 32), (1000, 64), (200, 128), (300, 256), (64, 64)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, tol, n, d):
     q, k, v = (randn(2, 2, n, d, seed=s, dtype=dtype) for s in range(3))
     spans = torch.tensor(SPANS, device=cuda_device)
@@ -126,7 +126,7 @@ SPANS20 = np.asarray([[[0, 3 + 9 * i, 7] for i in range(20)]] * 2, np.int32)
 
 @pytest.mark.parametrize("spans_np", [SPANS, SPANS20], ids=["spans2", "spans20"])
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("n,d", [(130, 32), (1000, 64), (200, 128)])
+@pytest.mark.parametrize("n,d", [(130, 32), (1000, 64), (200, 128), (300, 256)])
 def test_backward_kernel_matches_plain(cuda_device, dtype, rel, n, d, spans_np):
     """Ragged n (no multiple of the 64-row tile), every head dim, offsets
     with kv_offset > q_offset (whole rows masked: dq exactly 0), an lse
@@ -184,7 +184,8 @@ def test_long_sequence_kernels_match_blocked_plain(cuda_device):
 
 @pytest.mark.parametrize("dtype,tol,rel", [(torch.float32, 1e-4, 1e-4),
                                            (torch.bfloat16, 2e-2, 1e-2)])
-@pytest.mark.parametrize("rope,n,d", [(True, 256, 64), (False, 256, 64), (True, 200, 128)])
+@pytest.mark.parametrize("rope,n,d", [(True, 256, 64), (False, 256, 64), (True, 200, 128),
+                                      (True, 128, 256)])
 def test_token_major_kernels_match_plain(cuda_device, dtype, tol, rel, rope, n, d):
     b, h = 2, 4
     q, k, v, do = (randn(b, n, h * d, seed=s, dtype=dtype) for s in range(4))
@@ -208,6 +209,36 @@ def test_token_major_kernels_match_plain(cuda_device, dtype, tol, rel, rope, n, 
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-3
     assert_grads_close(got, want, rel)
+
+
+@pytest.mark.parametrize("n", [128, 300], ids=["token-major", "head-major"])
+def test_head_dim_256_layer_on_card_matches_cpu(cuda_device, n):
+    """One float32 `Attention(dim_head=256)` on the uncached flash route
+    (token-major at n 128, head-major at n 300), forward and every
+    parameter's gradient, on the card (kernels) and on the CPU (plain
+    versions) from the same weights: within 1e-4 of max(1, the reference's
+    largest element) (sums over 2 x n rows in another order)."""
+    from transfusion_tpu_torch.models.layers import Attention
+
+    wrapper = flash_attn_nhd.flash_attention_nhd if n == 128 else flash_attn.flash_attention
+    before = wrapper.launches
+
+    layers = [Attention(64, dim_head=256, heads=2, attn_impl="flash").to(dev)
+              for dev in ("cuda", "cpu")]
+    layers[1].load_state_dict({k: t.cpu() for k, t in layers[0].state_dict().items()})
+    x = randn(2, n, 64, seed=5, device="cpu")
+    spans = torch.tensor([[[0, 7, 40]], [[0, 30, 50]]])
+    ang = rope_angles(torch.arange(n), 256)[None]
+    out = []
+    for layer in layers:
+        dev = next(layer.parameters()).device
+        xi = x.to(dev).requires_grad_(True)
+        y = layer(xi, rope=ang.to(dev), flash_spec={"spans": spans.to(dev), "causal": True})[0]
+        grads = torch.autograd.grad(y.square().sum(), [xi, *layer.parameters()])
+        out.append([y.detach().cpu()] + [g.cpu() for g in grads])
+    assert wrapper.launches == before + 1
+    for a, b in zip(*out):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
 
 
 def test_training_step_on_card_matches_cpu(cuda_device):

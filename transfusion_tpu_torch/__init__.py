@@ -4,16 +4,22 @@ The JAX package stays the reference; this package mirrors its layout and
 names (`ops/`, `models/`, `data/`, `utils/`) so each module's counterpart is
 easy to find. It imports `torch` and never `jax` or `transfusion_tpu`.
 
-Slice 1 covers the KV-cached serving path:
+The port goes slice by slice (ROADMAP.md):
 
-  * `Transfusion.generate_text_only` / `generate_text_batch` (ragged batched
-    text serving);
-  * `Transfusion.sample(cache_kv=True)` (the multimodal AR <-> ODE state
-    machine with CFG over one KV cache).
+  * serving: `Transfusion.generate_text_only` / `generate_text_batch`
+    (ragged batched text serving) and `Transfusion.sample(cache_kv=True)`
+    (the multimodal AR <-> ODE state machine with CFG over one KV cache);
+  * training: `Transfusion.loss` and `training.Trainer.train_step` (the
+    joint CE + flow loss, fused clip + Adam + EMA), on the token-major and
+    head-major attention routes;
+  * long-context training: per-block remat, chunked CE and exact gradient
+    accumulation (`Trainer(grad_accumulation=M)`), at n 16384 on the 573M
+    config.
 
-Its two attention kernels are hand-written CUDA for `sm_90a`
-(`csrc/flash_fwd.cu`, `csrc/decode_attn.cu`), built with `nvcc` at first use
-(`ops/_build.py`). On CPU tensors every kernel wrapper takes its plain
+Every TPU kernel on these paths has a hand-written CUDA kernel for
+`sm_90a` (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`: bf16 on the tensor
+cores, float32 on FMAs; `csrc/decode_attn.cu`), built with `nvcc` at first
+use (`ops/_build.py`). On CPU tensors every kernel wrapper takes its plain
 PyTorch version instead.
 """
 

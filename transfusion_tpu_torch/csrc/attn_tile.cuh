@@ -1,17 +1,18 @@
 // Shared tile machinery of the port's attention kernels (flash_fwd.cu,
-// flash_bwd.cu, decode_attn.cu).
+// flash_bwd.cu, decode_attn.cu): conversions, layouts, the mask, and the
+// FMA tile of the float32 forward and of the decode kernel (the bf16
+// forward and backward run on the tensor cores, mma_tile.cuh).
 //
-// A block of 256 threads holds a tile of ROWS = 16 * RPT query rows in
-// shared memory and walks the keys/values in tiles of BK = 64 columns.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty*RPT .. ty*RPT+RPT-1
-// and, of each KV tile, the columns tx, tx+16, tx+32, tx+48; of the output
-// it owns the head dimensions tx, tx+16, ... . The 16 threads that share a
-// row group sit in one half-warp, so row max and row sum are four
-// shuffles. Scores, softmax state and the output accumulator are float32.
-//
-// Products are plain FMAs from shared memory (no tensor cores yet): the
-// tiles are padded by one float per row so the K reads of a half-warp hit
-// 16 different banks.
+// The FMA tile: a block of 256 threads holds a tile of ROWS = 16 * RPT
+// query rows in shared memory and walks the keys/values in tiles of BK = 64
+// columns. Thread (ty, tx) = (tid / 16, tid % 16) owns query rows
+// ty*RPT .. ty*RPT+RPT-1 and, of each KV tile, the columns tx, tx+16, tx+32,
+// tx+48; of the output it owns the head dimensions tx, tx+16, ... . The 16
+// threads that share a row group sit in one half-warp, so row max and row
+// sum are four shuffles. Scores, softmax state and the output accumulator
+// are float32. Products are plain FMAs from shared memory: the tiles are
+// padded by one float per row so the K reads of a half-warp hit 16
+// different banks.
 
 #pragma once
 
@@ -71,6 +72,58 @@ __device__ __forceinline__ float rope_load(const T* row, int c, const float* cs,
   const float partner = to_f(row[c ^ 1]);
   const float rot = (c & 1) ? partner : -partner;
   return round_to<T>(x * cs[c] + rot * sn[c]);
+}
+
+// The transfusion mask at global coordinates (`_span_allowed`,
+// pallas_attn_kernel.py:54), spans as (off, len) in shared memory.
+__device__ __forceinline__ bool allowed(int i, int j, const int* sp_off, const int* sp_len,
+                                        int m) {
+  bool ok = i >= j;
+  for (int s = 0; s < m; ++s) ok = ok || (sp_len[s] > 0 && i >= sp_off[s] && j < sp_off[s] + sp_len[s]);
+  return ok;
+}
+
+// any pair of the (q rows [qs, qe], kv cols [kg, kg + W - 1]) tile visible /
+// every pair visible (global coordinates)
+template <int W>
+__device__ __forceinline__ void tile_visibility(int qs, int qe, int kg, const int* sp_off,
+                                                const int* sp_len, int m, bool& any,
+                                                bool& full) {
+  any = qe >= kg;
+  full = qs >= kg + W - 1;
+  for (int s = 0; s < m; ++s) {
+    const int off = sp_off[s], ln = sp_len[s];
+    if (ln <= 0) continue;
+    any = any || (qe >= off && kg < off + ln);
+    full = full || (qs >= off && kg + W - 1 < off + ln);
+  }
+}
+
+// The keys a query row sees form a prefix: a span's rectangle admits the
+// columns j < off + len of every row i >= off, and causality j < i + 1, so
+// allowed(i, j) <=> j < max(i + 1, max over spans with len > 0 and off <= i
+// of off + len), which is nondecreasing in i. visible_ends gives, for R
+// global rows i[r], that end less kv_off, clamped to [0, nkv]: the number
+// of local kv columns row i[r] sees.
+template <int R>
+__device__ __forceinline__ void visible_ends(const int (&i)[R], const int* sp_off,
+                                             const int* sp_len, int m, int kv_off, int nkv,
+                                             int (&end)[R]) {
+  long long e[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) e[r] = i[r] + 1LL;
+  for (int s = 0; s < m; ++s) {
+    const int off = sp_off[s], ln = sp_len[s];
+    if (ln <= 0) continue;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (off <= i[r]) e[r] = e[r] > (long long)off + ln ? e[r] : (long long)off + ln;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long x = e[r] - kv_off;
+    end[r] = int(x < 0 ? 0 : x > nkv ? nkv : x);
+  }
 }
 
 template <int D, int RPT>

@@ -67,20 +67,23 @@
 //     v), ds is float32 rounding noise; that dp is then taken from
 //     sequential float32 FMAs, as the plain version's product takes it,
 //     so that the noise agrees with the plain version's.
-//   * A warp owns 16 kv rows (4 warps; at d 128 8 warps, two per 16 rows,
-//     each holding half of the columns of dK, dV and dQ, so that no
-//     register spills). The grid is one-dimensional, (b*h) fastest: kv
-//     tile 0 of every head, the longest walk under causality, starts first.
+//   * A warp owns 16 kv rows (4 warps; from d 128 one warp per 64 columns
+//     and 16 rows, each holding its columns of dK, dV and dQ: 8 warps at
+//     d 128, so that no register spills, 16 at d 256). The grid is
+//     one-dimensional, (b*h) fastest: kv tile 0 of every head, the longest
+//     walk under causality, starts first.
 //
 // float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernels,
-// unchanged: float32 products from shared memory, no tensor cores (TF32
+// unchanged but for d 256: float32 products from shared memory, no tensor cores (TF32
 // would keep ~3 decimal digits), deterministic. Two kernels, no atomics:
-//   flash_bwd_dkv: one block per (b*h, 64-row kv tile); loops over the q
+//   flash_bwd_dkv: one block per (b*h, 64-row kv tile; 32 rows at d 256,
+//     where four 64-row float32 tiles would not fit); loops over the q
 //     tiles from the first that can see the kv tile (causality, or a span
 //     whose rectangle reaches it, `:646-655`) to the end, skipping tiles
 //     with no visible pair; accumulates dk and dv in registers.
-//   flash_bwd_dq: one block per (b*h, 64-row q tile); loops over the kv tiles
-//     up to the last one visible (as the forward), accumulates dq.
+//   flash_bwd_dq: one block per (b*h, 64-row q tile; 32 at d 256); loops
+//     over the kv tiles up to the last one visible (as the forward),
+//     accumulates dq.
 // Both recompute p from the forward's lse. q is scaled in float32, dq again
 // at the end. With cos/sin, q and k are rotated on load and dq/dk
 // un-rotated with the negated sin before the store (`:1408-1410`): the
@@ -96,11 +99,18 @@ using namespace attn_tile;
 
 namespace {
 
-constexpr int RPT = 4;
-constexpr int BQ = 16 * RPT;  // 64 q rows per tile
-constexpr int BKV = BK;       // 64 kv rows per tile
-constexpr int PS = BKV + 1;   // padded stride of the p / ds tiles
+constexpr int BQ = 64;       // q rows of the dkv kernel's q tiles
+constexpr int BKV = BK;      // kv rows of the dq kernel's kv tiles
+constexpr int PS = BKV + 1;  // padded stride of the p / ds tiles
 constexpr int MAX_SPANS = 128;
+
+// Rows per thread of the FMA kernels' own row tile (the dkv kernel's kv
+// rows, the dq kernel's q rows): 4 (64-row tiles), or 2 at d 256, where
+// four 64-row float32 tiles would not fit in shared memory.
+template <int D>
+__host__ __device__ constexpr int rpt() {
+  return D == 256 ? 2 : 4;
+}
 
 struct Params {
   const void *q, *k, *v, *dout;
@@ -111,13 +121,13 @@ struct Params {
   float scale, softcap;
 };
 
-// s[r][j] = A[ty*RPT + r] . B[tx + 16 j]; A, B tiles of row stride D + 1
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* A, const float* B, float (&s)[RPT][4],
+// s[r][j] = A[ty*R + r] . B[tx + 16 j]; A, B tiles of row stride D + 1
+template <int D, int R>
+__device__ __forceinline__ void dot_tile(const float* A, const float* B, float (&s)[R][4],
                                          int tx, int ty) {
   constexpr int LD = D + 1;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
 #pragma unroll 8
@@ -126,19 +136,19 @@ __device__ __forceinline__ void dot_tile(const float* A, const float* B, float (
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * LD + d];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float a = A[(ty * RPT + r) * LD + d];
+    for (int r = 0; r < R; ++r) {
+      const float a = A[(ty * R + r) * LD + d];
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[r][j] = fmaf(a, b[j], s[r][j]);
     }
   }
 }
 
-// acc[r][c] += sum_k P[ty*RPT + r][k] * M[k][tx + 16 c]; P of stride PS,
+// acc[r][c] += sum_k P[ty*R + r][k] * M[k][tx + 16 c]; P of stride PS,
 // M of stride D + 1, k over the 64 rows of M
-template <int D>
+template <int D, int R>
 __device__ __forceinline__ void acc_tile(const float* P, const float* M,
-                                         float (&acc)[RPT][D / 16], int tx, int ty) {
+                                         float (&acc)[R][D / 16], int tx, int ty) {
   constexpr int LD = D + 1;
 #pragma unroll 4
   for (int k = 0; k < 64; ++k) {
@@ -146,23 +156,23 @@ __device__ __forceinline__ void acc_tile(const float* P, const float* M,
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) mv[c] = M[k * LD + tx + 16 * c];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float p = P[(ty * RPT + r) * PS + k];
+    for (int r = 0; r < R; ++r) {
+      const float p = P[(ty * R + r) * PS + k];
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) acc[r][c] = fmaf(p, mv[c], acc[r][c]);
     }
   }
 }
 
-// Load rows [r0, r0 + 64) of one head into a tile of stride D + 1, as
+// Load rows [r0, r0 + ROWS) of one head into a tile of stride D + 1, as
 // float32: RoPE-rotated and rounded to T when ROPE (angles of row r at
 // cs + (bi * n + r) * D), times `mul`; rows >= n are zero.
-template <typename T, int D, bool ROPE>
+template <typename T, int D, bool ROPE, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const T* base, size_t rs, int r0, int n,
                                           const float* cs, const float* sn, int bi,
                                           float mul) {
   constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < 64 * D; e += NT) {
+  for (int e = threadIdx.x; e < ROWS * D; e += NT) {
     const int r = e / D, c = e - r * D, g = r0 + r;
     float x = 0.f;
     if (g < n) {
@@ -174,38 +184,16 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base, size_t rs, 
   }
 }
 
-__device__ __forceinline__ bool allowed(int i, int j, const int* sp_off, const int* sp_len,
-                                        int m) {
-  bool ok = i >= j;
-  for (int s = 0; s < m; ++s) ok = ok || (sp_len[s] > 0 && i >= sp_off[s] && j < sp_off[s] + sp_len[s]);
-  return ok;
-}
-
-// any pair of the (q rows [qs, qe], kv cols [kg, kg + 63]) tile visible /
-// every pair visible (global coordinates)
-__device__ __forceinline__ void tile_visibility(int qs, int qe, int kg, const int* sp_off,
-                                                const int* sp_len, int m, bool& any,
-                                                bool& full) {
-  any = qe >= kg;
-  full = qs >= kg + BKV - 1;
-  for (int s = 0; s < m; ++s) {
-    const int off = sp_off[s], ln = sp_len[s];
-    if (ln <= 0) continue;
-    any = any || (qe >= off && kg < off + ln);
-    full = full || (qs >= off && kg + BKV - 1 < off + ln);
-  }
-}
-
-// p and ds of this thread's 4 x 4 pairs of one tile, from the raw scores
+// p and ds of this thread's R x 4 pairs of one tile, from the raw scores
 // s and dp, the visibility `ok` and each pair's q-row lse and delta.
 // Writes p, and ds over s.
-__device__ __forceinline__ void grad_scores(float (&s)[RPT][4], const float (&dp)[RPT][4],
-                                            const bool (&ok)[RPT][4],
-                                            const float (&lse)[RPT][4],
-                                            const float (&delta)[RPT][4], float softcap,
-                                            float (&p)[RPT][4]) {
+template <int R>
+__device__ __forceinline__ void grad_scores(float (&s)[R][4], const float (&dp)[R][4],
+                                            const bool (&ok)[R][4], const float (&lse)[R][4],
+                                            const float (&delta)[R][4], float softcap,
+                                            float (&p)[R][4]) {
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       float x = s[r][j], chain = 1.f;
@@ -223,13 +211,13 @@ __device__ __forceinline__ void grad_scores(float (&s)[RPT][4], const float (&dp
 // Un-rotate acc (columns tx + 16 c of this thread's rows) with the inverse
 // RoPE: out = x cos - rot(x) sin. The partner column c ^ 1 sits in lane
 // tx ^ 1 of the same row group; every thread takes part in the shuffle.
-template <int D>
-__device__ __forceinline__ void unrotate(float (&acc)[RPT][D / 16], const float* cs,
+template <int D, int R>
+__device__ __forceinline__ void unrotate(float (&acc)[R][D / 16], const float* cs,
                                          const float* sn, int bi, int n, int row0, int tx,
                                          int ty) {
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int g = row0 + ty * RPT + r;
+  for (int r = 0; r < R; ++r) {
+    const int g = row0 + ty * R + r;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
       const float x = acc[r][c];
@@ -244,12 +232,12 @@ __device__ __forceinline__ void unrotate(float (&acc)[RPT][D / 16], const float*
   }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* base, size_t rs, const float (&acc)[RPT][D / 16],
+template <typename T, int D, int R>
+__device__ __forceinline__ void store_rows(T* base, size_t rs, const float (&acc)[R][D / 16],
                                            int row0, int n, int tx, int ty) {
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int g = row0 + ty * RPT + r;
+  for (int r = 0; r < R; ++r) {
+    const int g = row0 + ty * R + r;
     if (g >= n) continue;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) base[size_t(g) * rs + tx + 16 * c] = from_f<T>(acc[r][c]);
@@ -258,9 +246,11 @@ __device__ __forceinline__ void store_rows(T* base, size_t rs, const float (&acc
 
 template <int D>
 struct Smem {
-  static constexpr int LD = D + 1;
-  // dkv: K, V, Q, dO tiles + p, ds tiles; dq: Q, dO, K, V tiles + ds tile
-  static constexpr size_t kFloats = 4 * size_t(64) * LD + 2 * size_t(64) * PS + 2 * 64;
+  static constexpr int LD = D + 1, RT = 16 * rpt<D>();  // rows of the own tile
+  // dkv: K, V [RT] and Q, dO [64] tiles + p, ds [RT] tiles; dq: Q, dO [RT]
+  // and K, V [64] tiles + the ds [RT] tile; lse and delta [64]
+  static constexpr size_t kFloats =
+      (2 * size_t(RT) + 2 * 64) * LD + 2 * size_t(RT) * PS + 2 * 64;
   static constexpr size_t kBytes = kFloats * sizeof(float) + 2 * MAX_SPANS * sizeof(int);
 };
 
@@ -273,15 +263,15 @@ __device__ __forceinline__ void load_spans(const Params& P, int bi, int* sp_off,
 
 template <typename T, int D, bool ROPE>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
-  constexpr int LD = D + 1, DC = D / 16;
+  constexpr int LD = D + 1, DC = D / 16, R = rpt<D>(), KT = 16 * R;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + 64 * LD;
-  float* Qs = Vs + 64 * LD;
+  float* Vs = Ks + KT * LD;
+  float* Qs = Vs + KT * LD;
   float* dOs = Qs + 64 * LD;
   float* Ps = dOs + 64 * LD;
-  float* dSs = Ps + 64 * PS;
-  float* lse_s = dSs + 64 * PS;
+  float* dSs = Ps + KT * PS;
+  float* lse_s = dSs + KT * PS;
   float* delta_s = lse_s + 64;
   int* sp_off = reinterpret_cast<int*>(delta_s + 64);
   int* sp_len = sp_off + MAX_SPANS;
@@ -289,7 +279,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int H = P.H, nq = P.nq, nkv = P.nkv, m = P.m;
   const int bh = blockIdx.y, bi = bh / H, head = bh - bi * H;
-  const int k0 = blockIdx.x * BKV, kg = k0 + P.kv_off;
+  const int k0 = blockIdx.x * KT, kg = k0 + P.kv_off;
   const size_t rs = row_stride(P.nhd, H, D);
   const T* qb = static_cast<const T*>(P.q) + head_base(P.nhd, bi, head, H, nq, D);
   const T* ob = static_cast<const T*>(P.dout) + head_base(P.nhd, bi, head, H, nq, D);
@@ -299,8 +289,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
   const float* delta = P.delta + size_t(bh) * nq;
 
   load_spans(P, bi, sp_off, sp_len);
-  load_tile<T, D, ROPE>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
-  load_tile<T, D, false>(Vs, vb, rs, k0, nkv, nullptr, nullptr, bi, 1.f);
+  load_tile<T, D, ROPE, KT>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
+  load_tile<T, D, false, KT>(Vs, vb, rs, k0, nkv, nullptr, nullptr, bi, 1.f);
   __syncthreads();
 
   // first global q row that can see this kv tile: causally kg, or the
@@ -309,27 +299,27 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
   int lo_tok = kg;
   for (int s = 0; s < m; ++s) {
     const int off = sp_off[s], ln = sp_len[s];
-    if (ln > 0 && kg < off + ln && kg + BKV - 1 >= off) lo_tok = min(lo_tok, off);
+    if (ln > 0 && kg < off + ln && kg + KT - 1 >= off) lo_tok = min(lo_tok, off);
   }
   const int lo = lo_tok - P.q_off <= 0 ? 0 : (lo_tok - P.q_off) / BQ;
   const int n_q_tiles = (nq + BQ - 1) / BQ;
 
-  float dk[RPT][DC], dv[RPT][DC];
+  float dk[R][DC], dv[R][DC];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[r][c] = dv[r][c] = 0.f;
 
   for (int iq = lo; iq < n_q_tiles; ++iq) {
     const int q0 = iq * BQ, qs = q0 + P.q_off, qe = min(q0 + BQ, nq) - 1 + P.q_off;
     bool any, full;
-    tile_visibility(qs, qe, kg, sp_off, sp_len, m, any, full);
+    tile_visibility<KT>(qs, qe, kg, sp_off, sp_len, m, any, full);
     if (!any) continue;  // uniform across the block
-    full = full && q0 + BQ <= nq && k0 + BKV <= nkv;
+    full = full && q0 + BQ <= nq && k0 + KT <= nkv;
 
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D, ROPE>(Qs, qb, rs, q0, nq, P.cos, P.sin, bi, P.scale);
-    load_tile<T, D, false>(dOs, ob, rs, q0, nq, nullptr, nullptr, bi, 1.f);
+    load_tile<T, D, ROPE, BQ>(Qs, qb, rs, q0, nq, P.cos, P.sin, bi, P.scale);
+    load_tile<T, D, false, BQ>(dOs, ob, rs, q0, nq, nullptr, nullptr, bi, 1.f);
     if (tid < 64) {
       const bool in = q0 + tid < nq;
       lse_s[tid] = in ? lse[q0 + tid] : 0.f;
@@ -338,13 +328,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
     __syncthreads();
 
     // transposed scores: rows are this thread's kv rows, columns q rows
-    float s[RPT][4], dp[RPT][4], p[RPT][4], l[RPT][4], dl[RPT][4];
-    bool ok[RPT][4];
-    dot_tile<D>(Ks, Qs, s, tx, ty);
-    dot_tile<D>(Vs, dOs, dp, tx, ty);
+    float s[R][4], dp[R][4], p[R][4], l[R][4], dl[R][4];
+    bool ok[R][4];
+    dot_tile<D, R>(Ks, Qs, s, tx, ty);
+    dot_tile<D, R>(Vs, dOs, dp, tx, ty);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int jl = k0 + ty * RPT + r;
+    for (int r = 0; r < R; ++r) {
+      const int jl = k0 + ty * R + r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int il = q0 + tx + 16 * j;
@@ -354,36 +344,36 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
         dl[r][j] = delta_s[tx + 16 * j];
       }
     }
-    grad_scores(s, dp, ok, l, dl, P.softcap, p);
+    grad_scores<R>(s, dp, ok, l, dl, P.softcap, p);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        Ps[(ty * RPT + r) * PS + tx + 16 * j] = p[r][j];
-        dSs[(ty * RPT + r) * PS + tx + 16 * j] = s[r][j];
+        Ps[(ty * R + r) * PS + tx + 16 * j] = p[r][j];
+        dSs[(ty * R + r) * PS + tx + 16 * j] = s[r][j];
       }
     __syncthreads();
-    acc_tile<D>(Ps, dOs, dv, tx, ty);   // dv += p^T dO
-    acc_tile<D>(dSs, Qs, dk, tx, ty);   // dk += ds^T (q * scale)
+    acc_tile<D, R>(Ps, dOs, dv, tx, ty);   // dv += p^T dO
+    acc_tile<D, R>(dSs, Qs, dk, tx, ty);   // dk += ds^T (q * scale)
   }
 
-  if (ROPE) unrotate<D>(dk, P.cos, P.sin, bi, nkv, k0, tx, ty);
-  store_rows<T, D>(static_cast<T*>(P.dk) + head_base(P.nhd, bi, head, H, nkv, D), rs, dk, k0,
-                   nkv, tx, ty);
-  store_rows<T, D>(static_cast<T*>(P.dv) + head_base(P.nhd, bi, head, H, nkv, D), rs, dv, k0,
-                   nkv, tx, ty);
+  if (ROPE) unrotate<D, R>(dk, P.cos, P.sin, bi, nkv, k0, tx, ty);
+  store_rows<T, D, R>(static_cast<T*>(P.dk) + head_base(P.nhd, bi, head, H, nkv, D), rs, dk,
+                      k0, nkv, tx, ty);
+  store_rows<T, D, R>(static_cast<T*>(P.dv) + head_base(P.nhd, bi, head, H, nkv, D), rs, dv,
+                      k0, nkv, tx, ty);
 }
 
 template <typename T, int D, bool ROPE>
 __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
-  constexpr int LD = D + 1, DC = D / 16;
+  constexpr int LD = D + 1, DC = D / 16, R = rpt<D>(), QT = 16 * R;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + 64 * LD;
-  float* Ks = dOs + 64 * LD;
+  float* dOs = Qs + QT * LD;
+  float* Ks = dOs + QT * LD;
   float* Vs = Ks + 64 * LD;
   float* dSs = Vs + 64 * LD;
-  float* lse_s = dSs + 2 * 64 * PS;
+  float* lse_s = dSs + QT * PS;
   float* delta_s = lse_s + 64;
   int* sp_off = reinterpret_cast<int*>(delta_s + 64);
   int* sp_len = sp_off + MAX_SPANS;
@@ -391,7 +381,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int H = P.H, nq = P.nq, nkv = P.nkv, m = P.m;
   const int bh = blockIdx.y, bi = bh / H, head = bh - bi * H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * QT;
   const size_t rs = row_stride(P.nhd, H, D);
   const T* qb = static_cast<const T*>(P.q) + head_base(P.nhd, bi, head, H, nq, D);
   const T* ob = static_cast<const T*>(P.dout) + head_base(P.nhd, bi, head, H, nq, D);
@@ -399,56 +389,56 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
   const T* vb = static_cast<const T*>(P.v) + head_base(P.nhd, bi, head, H, nkv, D);
 
   load_spans(P, bi, sp_off, sp_len);
-  load_tile<T, D, ROPE>(Qs, qb, rs, q0, nq, P.cos, P.sin, bi, P.scale);
-  load_tile<T, D, false>(dOs, ob, rs, q0, nq, nullptr, nullptr, bi, 1.f);
-  if (tid < 64) {
+  load_tile<T, D, ROPE, QT>(Qs, qb, rs, q0, nq, P.cos, P.sin, bi, P.scale);
+  load_tile<T, D, false, QT>(dOs, ob, rs, q0, nq, nullptr, nullptr, bi, 1.f);
+  if (tid < QT) {
     const bool in = q0 + tid < nq;
     lse_s[tid] = in ? P.lse[size_t(bh) * nq + q0 + tid] : 0.f;
     delta_s[tid] = in ? P.delta[size_t(bh) * nq + q0 + tid] : 0.f;
   }
   __syncthreads();
 
-  const int qs = q0 + P.q_off, qe = min(q0 + BQ, nq) - 1 + P.q_off;
+  const int qs = q0 + P.q_off, qe = min(q0 + QT, nq) - 1 + P.q_off;
   int hi_tok = qe;
   for (int s = 0; s < m; ++s)
     if (sp_len[s] > 0 && qe >= sp_off[s]) hi_tok = max(hi_tok, sp_off[s] + sp_len[s] - 1);
   const int n_kv_tiles = (nkv + BKV - 1) / BKV;
   const int hi = hi_tok < P.kv_off ? 0 : min((hi_tok - P.kv_off) / BKV + 1, n_kv_tiles);
 
-  float l[RPT][4], dl[RPT][4];
+  float l[R][4], dl[R][4];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      l[r][j] = lse_s[ty * RPT + r];
-      dl[r][j] = delta_s[ty * RPT + r];
+      l[r][j] = lse_s[ty * R + r];
+      dl[r][j] = delta_s[ty * R + r];
     }
 
-  float dq[RPT][DC];
+  float dq[R][DC];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq[r][c] = 0.f;
 
   for (int it = 0; it < hi; ++it) {
     const int k0 = it * BKV, kg = k0 + P.kv_off;
     bool any, full;
-    tile_visibility(qs, qe, kg, sp_off, sp_len, m, any, full);
+    tile_visibility<BKV>(qs, qe, kg, sp_off, sp_len, m, any, full);
     if (!any) continue;  // uniform across the block
-    full = full && q0 + BQ <= nq && k0 + BKV <= nkv;
+    full = full && q0 + QT <= nq && k0 + BKV <= nkv;
 
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D, ROPE>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
-    load_tile<T, D, false>(Vs, vb, rs, k0, nkv, nullptr, nullptr, bi, 1.f);
+    load_tile<T, D, ROPE, BKV>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
+    load_tile<T, D, false, BKV>(Vs, vb, rs, k0, nkv, nullptr, nullptr, bi, 1.f);
     __syncthreads();
 
-    float s[RPT][4], dp[RPT][4], p[RPT][4];
-    bool ok[RPT][4];
-    dot_tile<D>(Qs, Ks, s, tx, ty);
-    dot_tile<D>(dOs, Vs, dp, tx, ty);
+    float s[R][4], dp[R][4], p[R][4];
+    bool ok[R][4];
+    dot_tile<D, R>(Qs, Ks, s, tx, ty);
+    dot_tile<D, R>(dOs, Vs, dp, tx, ty);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int il = q0 + ty * RPT + r;
+    for (int r = 0; r < R; ++r) {
+      const int il = q0 + ty * R + r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int jl = k0 + tx + 16 * j;
@@ -456,26 +446,27 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
                             allowed(il + P.q_off, jl + P.kv_off, sp_off, sp_len, m));
       }
     }
-    grad_scores(s, dp, ok, l, dl, P.softcap, p);
+    grad_scores<R>(s, dp, ok, l, dl, P.softcap, p);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dSs[(ty * RPT + r) * PS + tx + 16 * j] = s[r][j];
+      for (int j = 0; j < 4; ++j) dSs[(ty * R + r) * PS + tx + 16 * j] = s[r][j];
     __syncthreads();
-    acc_tile<D>(dSs, Ks, dq, tx, ty);  // dq += ds k
+    acc_tile<D, R>(dSs, Ks, dq, tx, ty);  // dq += ds k
   }
 
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq[r][c] *= P.scale;
-  if (ROPE) unrotate<D>(dq, P.cos, P.sin, bi, nq, q0, tx, ty);
-  store_rows<T, D>(static_cast<T*>(P.dq) + head_base(P.nhd, bi, head, H, nq, D), rs, dq, q0, nq,
-                   tx, ty);
+  if (ROPE) unrotate<D, R>(dq, P.cos, P.sin, bi, nq, q0, tx, ty);
+  store_rows<T, D, R>(static_cast<T*>(P.dq) + head_base(P.nhd, bi, head, H, nq, D), rs, dq, q0,
+                      nq, tx, ty);
 }
 
 template <typename T, int D>
 int launch(const Params& P, int b, cudaStream_t stream) {
+  constexpr int RT = 16 * rpt<D>();
   const int smem = int(Smem<D>::kBytes);
   const bool rope = P.cos != nullptr;  // a template flag: no branch in the loads
   auto dkv = rope ? flash_bwd_dkv<T, D, true> : flash_bwd_dkv<T, D, false>;
@@ -484,10 +475,10 @@ int launch(const Params& P, int b, cudaStream_t stream) {
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  dkv<<<dim3((P.nkv + BKV - 1) / BKV, b * P.H), NT, smem, stream>>>(P);
+  dkv<<<dim3((P.nkv + RT - 1) / RT, b * P.H), NT, smem, stream>>>(P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  dq<<<dim3((P.nq + BQ - 1) / BQ, b * P.H), NT, smem, stream>>>(P);
+  dq<<<dim3((P.nq + RT - 1) / RT, b * P.H), NT, smem, stream>>>(P);
   return int(cudaGetLastError());
 }
 
@@ -500,6 +491,8 @@ int dispatch_d(int d, const Params& P, int b, cudaStream_t stream) {
       return launch<T, 64>(P, b, stream);
     case 128:
       return launch<T, 128>(P, b, stream);
+    case 256:
+      return launch<T, 256>(P, b, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -516,7 +509,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int TB = 64;  // q rows and kv rows per tile
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(TB == BKV, "tile_visibility takes 64 kv columns");
 
 template <int D>
 struct Lay {
@@ -524,9 +516,11 @@ struct Lay {
   static constexpr int TILE = TB * LD;
   static constexpr int SLD = TB + 8;  // row stride of the ds^T tile
   // warps per 16 kv rows: each computes those rows' s^T and dp^T and owns
-  // DW = D / DS columns of dK, dV and dQ. At d 128 two such warps keep
-  // their sums beside the score fragments in registers without spilling.
-  static constexpr int DS = D > 64 ? 2 : 1;
+  // DW = D / DS columns of dK, dV and dQ. From d 128 one such warp per 64
+  // columns keeps its sums beside the score fragments in registers (d 128:
+  // 2 warps, no spills; d 256: 4 warps, 512 threads, at most 128
+  // registers a thread).
+  static constexpr int DS = D > 64 ? D / 64 : 1;
   static constexpr int DW = D / DS;
   static constexpr int TT = 32 * 4 * DS;  // threads of a block
   // K, V, 2 x Q and 2 x dO [64][D] tiles, the ds^T tile, 2 x 64 lse and
@@ -535,52 +529,6 @@ struct Lay {
       (6 * size_t(TILE) + size_t(TB) * SLD) * sizeof(bf16) + 4 * TB * sizeof(float) +
       2 * MAX_SPANS * sizeof(int);
 };
-
-// cp.async copies of rows [r0, r0 + 64) of one head (rows rs elements
-// apart) into a tile; rows >= n are zero-filled
-template <int D>
-__device__ __forceinline__ void async_rows(bf16* dst, const bf16* base, size_t rs, int r0,
-                                           int n) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < TB * CH; e += Lay<D>::TT) {
-    const int r = e / CH, c = e % CH, g = r0 + r;
-    const bool in = g < n;
-    cp_async16(dst + r * Lay<D>::LD + c * 8, base + (in ? size_t(g) * rs + c * 8 : 0), in);
-  }
-}
-
-// The same rows rotated by the interleaved RoPE in float32 and rounded to
-// bf16 (as `rope_load`), through registers; angles of row g at
-// cs + (bi * n + g) * D. The partner column c ^ 1 is in the same 16 bytes.
-template <int D>
-__device__ __forceinline__ void rope_rows(bf16* dst, const bf16* base, size_t rs, int r0, int n,
-                                          const float* cs, const float* sn, int bi) {
-  constexpr int CH = D / 8;
-  for (int e = threadIdx.x; e < TB * CH; e += Lay<D>::TT) {
-    const int r = e / CH, c = e % CH, g = r0 + r;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (g < n) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(base + size_t(g) * rs + c * 8);
-      const size_t a = (size_t(bi) * n + g) * D + c * 8;
-      const float4 c0 = *reinterpret_cast<const float4*>(cs + a);
-      const float4 c1 = *reinterpret_cast<const float4*>(cs + a + 4);
-      const float4 s0 = *reinterpret_cast<const float4*>(sn + a);
-      const float4 s1 = *reinterpret_cast<const float4*>(sn + a + 4);
-      const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-      const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-      const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
-      uint32_t o[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 x = unpack_bf16(in[i]);
-        o[i] = pack_bf16(x.x * cv[2 * i] - x.y * sv[2 * i],
-                         x.y * cv[2 * i + 1] + x.x * sv[2 * i + 1]);
-      }
-      out = make_uint4(o[0], o[1], o[2], o[3]);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Lay<D>::LD + c * 8) = out;
-  }
-}
 
 // lse (threads 0-63) and delta (64-127) of q rows [q0, q0 + 64); 0 past nq
 __device__ __forceinline__ void async_row_stats(float* ls, float* dls, const float* lse,
@@ -641,7 +589,7 @@ __device__ __forceinline__ int visible_from(int iq, int n_q_tiles, int kg, int n
     const int qs = iq * TB + P.q_off, qe = min(iq * TB + TB, nq) - 1 + P.q_off;
     if (qe >= kg) break;
     bool any, full;
-    tile_visibility(qs, qe, kg, sp_off, sp_len, P.m, any, full);
+    tile_visibility<TB>(qs, qe, kg, sp_off, sp_len, P.m, any, full);
     if (any) break;
   }
   return iq;
@@ -683,10 +631,10 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
 
   load_spans(P, bi, sp_off, sp_len);
   if (ROPE)
-    rope_rows<D>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi);
+    copy_rows_regs<D, LD, TB, L::TT, true>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
   else
-    async_rows<D>(Ks, kb, rs, k0, nkv);
-  async_rows<D>(Vs, vb, rs, k0, nkv);
+    copy_rows_async<D, LD, TB, L::TT>(Ks, kb, rs, k0, nkv);
+  copy_rows_async<D, LD, TB, L::TT>(Vs, vb, rs, k0, nkv);
   __syncthreads();  // the spans
 
   // first global q row that can see this kv tile: causally kg, or the
@@ -701,10 +649,11 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
   auto load_q = [&](int iq, int buf) {
     const int q0 = iq * TB;
     if (ROPE)
-      rope_rows<D>(Qs + buf * TILE, qb, rs, q0, nq, P.cos, P.sin, bi);
+      copy_rows_regs<D, LD, TB, L::TT, true>(Qs + buf * TILE, qb, rs, q0, nq, P.cos, P.sin, bi,
+                                             1.f);
     else
-      async_rows<D>(Qs + buf * TILE, qb, rs, q0, nq);
-    async_rows<D>(Os + buf * TILE, ob, rs, q0, nq);
+      copy_rows_async<D, LD, TB, L::TT>(Qs + buf * TILE, qb, rs, q0, nq);
+    copy_rows_async<D, LD, TB, L::TT>(Os + buf * TILE, ob, rs, q0, nq);
     async_row_stats(ls + buf * TB, dls + buf * TB, lse, delta, q0, nq);
   };
 
@@ -723,7 +672,7 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
     // full: every pair visible (causally without the span loop)
     bool any = true, full = q0 + P.q_off >= kg + TB - 1;
     if (!full)
-      tile_visibility(q0 + P.q_off, min(q0 + TB, nq) - 1 + P.q_off, kg, sp_off, sp_len, m, any,
+      tile_visibility<TB>(q0 + P.q_off, min(q0 + TB, nq) - 1 + P.q_off, kg, sp_off, sp_len, m, any,
                       full);
     full = full && q0 + TB <= nq && k0 + TB <= nkv;
     const bf16* Qb = Qs + buf * TILE;
@@ -911,6 +860,9 @@ int dispatch(int d, const Params& P, int b, float* dq_acc, cudaStream_t stream) 
     case 128:
       return rope ? launch<128, true>(P, b, dq_acc, stream)
                   : launch<128, false>(P, b, dq_acc, stream);
+    case 256:
+      return rope ? launch<256, true>(P, b, dq_acc, stream)
+                  : launch<256, false>(P, b, dq_acc, stream);
     default:
       return int(cudaErrorInvalidValue);
   }

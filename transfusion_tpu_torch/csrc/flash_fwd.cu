@@ -3,9 +3,12 @@
 // Replaces the head-major Pallas TPU forward of
 // transfusion_tpu/ops/pallas_attn_kernel.py — `_flash_fwd` and the three
 // kernels it routes to: `_kernel_batched_heads` (short sequences, full score
-// matrix), `_kernel` (blocked online softmax, K/V resident) and
-// `_kernel_streamed` (K/V streamed through the grid). Those splits are TPU
-// VMEM artifacts; one CUDA kernel meets all three contracts:
+// matrix; row 1 of PERF.md's kernel table), `_kernel` (blocked online
+// softmax, K/V resident; row 2) and `_kernel_streamed` (K/V streamed through
+// the grid; row 3) — and the token-major `_nhd_pallas` ->
+// `_kernel_batched_nhd` (row 5). The splits are TPU VMEM artifacts; here
+// every tile streams from device memory, so one design meets all four
+// contracts:
 //
 //   out[i] = softmax_j(cap * tanh((q_i * d^-1/2) . k_j / cap) | allowed) . v
 //   allowed(i, j) = i >= j  |  any_m[len_m > 0 & i >= off_m & j < off_m + len_m]
@@ -14,41 +17,85 @@
 // optional per-row logsumexp. A row that sees no column gets out = 0 and
 // lse ~ -1e30 (the contract ring attention merges through).
 //
-// Two layouts, chosen by `nhd`: head-major q/k/v/out [b, h, n, d] (the
-// route of `_flash_fwd`) and token-major [b, n, h*d] (the route of
-// `_nhd_pallas` -> `_kernel_batched_nhd`, row 5 of the kernel table). In
-// both, a head's row r lies at base + r * row_stride; the kernel computes
-// the base and stride from the layout, so the token-major route needs no
-// transpose copies. With cos/sin (float32 [b, n, d]) each q/k element is
-// rotated on load by the interleaved RoPE (pairs 2j, 2j+1) in float32 and
-// rounded to the input dtype, as `_rope_tile` does before the product.
-//
-// Layout: one block per (b*h, 64-row q tile); the block reads its own spans
-// (no scalar prefetch), loops over 64-column KV tiles only up to the last
-// tile visible through causality or a span rectangle, skips fully masked
-// tiles and skips mask evaluation on fully visible ones (`_blk_visibility`).
-// Ragged n is masked in-kernel rather than padded.
-//
-// What bounds it on the H100: prefill at the serving shapes is
-// compute-bound (4 b h n^2 d x visible-fraction FLOPs over ~2 b h n d
-// elements). This first version runs the two products as float32 FMAs from
-// shared memory, far below the 989 TFLOP/s of the bf16 tensor cores; the
-// block-skipping keeps the work to the visible fraction. Moving the
-// products to wgmma/mma.sync is later work (PERF.md).
+// Two layouts, chosen by `nhd`: head-major q/k/v/out [b, h, n, d] and
+// token-major [b, n, h*d]. In both, a head's row r lies at base + r *
+// row_stride, so the token-major route needs no transpose copies. With
+// cos/sin (float32 [b, n, d]) q and k are rotated on load by the
+// interleaved RoPE (pairs 2j, 2j+1) in float32 and rounded to the input
+// dtype, as `_rope_tile` does before the product.
 //
 // Numerics follow the JAX kernel: q is scaled in its own dtype before the
 // product, scores and softmax state are float32, probabilities are rounded
-// to the value dtype before the PV product, output is written in q's dtype.
+// to the value dtype before the PV product (their row sum is not), the
+// output is written in q's dtype.
+//
+// What bounds it on the H100: operations. Two products of n x n x d per
+// head over ~4 b h n d elements of traffic: at the main-path shapes (d 64,
+// n >= 256) far above the 295 FLOP/byte ridge of the bf16 tensor cores.
+//
+// bf16 (every main path): tensor cores, namespace `tc` below.
+//   * A block of 4 warps owns a q tile of one (b, h): 32 rows a warp (two
+//     m-tiles of 16: each K / V fragment read from shared memory feeds two
+//     products, as in FlashAttention-2) up to d 64, 16 rows a warp above,
+//     where two output accumulators would not fit in registers. The 1-D
+//     grid launches the last q tile of every head first: under causality
+//     it sees the most keys, so the longest blocks do not form the tail.
+//   * Q, the first K / V tile and the spans are loaded at once (cp.async;
+//     short sequences are bound by this latency); q is then scaled in
+//     place in its own dtype (under RoPE it is rotated and scaled through
+//     registers) and kept as mma A fragments in registers (at d 256 the
+//     output accumulator alone is 128 registers a thread, so Q is read
+//     from shared memory at each k-step instead). K and V stream in 64-row
+//     tiles through two shared-memory buffers filled by 16-byte cp.async
+//     copies, the next tile in flight while the current one is used; rows
+//     past n are zero-filled. Under RoPE K goes through registers, rotated
+//     as q.
+//   * S = Q K^T and O += P V on mma.sync m16n8k16 (bf16 in, float32 sums);
+//     P's C fragments, rounded to bf16, are the A fragments of the PV
+//     product as they stand (FlashAttention-2's register reuse). The online
+//     softmax runs in registers: row max and sum over the 4 lanes of a quad.
+//   * The mask without a span loop per element: the keys a row sees form a
+//     prefix (attn_tile `visible_ends`), so each thread finds once, for its
+//     two rows, how many kv columns they see. The block walks the kv tiles
+//     up to the last row's end, none of which is hidden from every row; a
+//     warp skips a tile none of its rows sees, takes no mask on a tile that
+//     its first row sees whole (the ends grow with the row), and otherwise
+//     masks with one compare per score.
+//   * The softcap's tanh is exact to ~1e-8: an odd Taylor polynomial
+//     through y^9 where every |y| = |s / cap| of the warp's tile is at most
+//     1/4 (|s| <= 12.5 at cap 50: every score of a model near its init, no
+//     special-function unit), else 1 - 2 / (1 + e^{2y}). tanh.approx
+//     (2^-11 relative, times the cap) would move lse by ~1e-3, beyond the
+//     card checks' 1e-4. exp is exp2 on the special-function unit.
+//
+// float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernel,
+// unchanged but for d 256: one block of 256 threads per (b*h, 64-row q
+// tile), float32 products from shared memory (no tensor cores: TF32 would
+// keep ~3 decimal digits), loops over the kv tiles up to the last one
+// visible, skips hidden tiles and the mask on fully visible ones.
 
 #include "attn_tile.cuh"
+#include "mma_tile.cuh"
 
 using namespace attn_tile;
 
 namespace {
 
+constexpr int MAX_SPANS = 128;
+
+struct Rope {
+  const float* cos;  // float32 [b, nq, d] or NULL
+  const float* sin;
+};
+
+// ---------------------------------------------------------------------------
+// float32: FMA kernel
+// ---------------------------------------------------------------------------
+
+namespace fp32 {
+
 constexpr int RPT = 4;
 constexpr int BQ = 16 * RPT;  // 64 query rows per block
-constexpr int MAX_SPANS = 128;
 
 template <typename T, int D, bool NHD, bool ROPE>
 __global__ void __launch_bounds__(NT)
@@ -109,15 +156,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int it = 0; it < hi; ++it) {
     const int k0 = it * BK, kg = k0 + kv_off;
-    // tile summary: any column visible / every (row, col) visible
-    bool any = q_end >= kg;
-    bool full = q_start >= kg + BK - 1;
-    for (int s = 0; s < m; ++s) {
-      const int off = sp_off[s], ln = sp_len[s];
-      if (ln <= 0) continue;
-      any = any || (q_end >= off && kg < off + ln);
-      full = full || (q_start >= off && kg + BK - 1 < off + ln);
-    }
+    bool any, full;
+    tile_visibility<BK>(q_start, q_end, kg, sp_off, sp_len, m, any, full);
     full = full && (k0 + BK <= nkv);
     if (!any) continue;  // uniform across the block
 
@@ -146,11 +186,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         float x = s[r][j];
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         if (!full) {
-          const int jl = k0 + tx + 16 * j, jg = jl + kv_off;
-          bool ok = i >= jg;
-          for (int sp = 0; sp < m; ++sp)
-            ok = ok || (sp_len[sp] > 0 && i >= sp_off[sp] && jg < sp_off[sp] + sp_len[sp]);
-          if (!(ok && jl < nkv)) x = NEG_INF;
+          const int jl = k0 + tx + 16 * j;
+          if (!(jl < nkv && allowed(i, jl + kv_off, sp_off, sp_len, m))) x = NEG_INF;
         }
         s[r][j] = x;
       }
@@ -172,55 +209,404 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-struct Rope {
-  const float* cos;  // float32 [b, nq, d] or NULL
-  const float* sin;
-};
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* spans, int m, Rope rope,
-           void* out, float* lse, int b, int h, int nq, int nkv, int q_off, int kv_off, int nhd,
+template <int D>
+int launch(const float* q, const float* k, const float* v, const int* spans, int m, Rope rope,
+           float* out, float* lse, int b, int h, int nq, int nkv, int q_off, int kv_off, int nhd,
            float scale, float softcap, cudaStream_t stream) {
   const size_t smem = Tile<D, RPT>::kFloats * sizeof(float) + 2 * MAX_SPANS * sizeof(int);
   // layout and RoPE are template flags: the head-major route compiles to
   // constant strides and loads without a branch
-  auto kern = !nhd ? flash_fwd_kernel<T, D, false, false>
-              : rope.cos != nullptr ? flash_fwd_kernel<T, D, true, true>
-                                    : flash_fwd_kernel<T, D, true, false>;
+  auto kern = !nhd ? flash_fwd_kernel<float, D, false, false>
+              : rope.cos != nullptr ? flash_fwd_kernel<float, D, true, true>
+                                    : flash_fwd_kernel<float, D, true, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((nq + BQ - 1) / BQ, b * h);
-  kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                   static_cast<const T*>(v), spans, m, rope.cos, rope.sin,
-                                   static_cast<T*>(out), lse, h, nq, nkv, q_off, kv_off, scale,
-                                   softcap);
+  kern<<<grid, NT, smem, stream>>>(q, k, v, spans, m, rope.cos, rope.sin, out, lse, h, nq, nkv,
+                                   q_off, kv_off, scale, softcap);
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v, const int* spans, int m,
-               Rope rope, void* out, float* lse, int b, int h, int nq, int nkv, int q_off,
-               int kv_off, int nhd, float scale, float softcap, cudaStream_t stream) {
+int dispatch(int d, const void* q, const void* k, const void* v, const int* spans, int m,
+             Rope rope, void* out, float* lse, int b, int h, int nq, int nkv, int q_off,
+             int kv_off, int nhd, float scale, float softcap, cudaStream_t stream) {
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(out);
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, spans, m, rope, out, lse, b, h, nq, nkv, q_off, kv_off,
-                           nhd, scale, softcap, stream);
+      return launch<32>(qf, kf, vf, spans, m, rope, of, lse, b, h, nq, nkv, q_off, kv_off, nhd,
+                        scale, softcap, stream);
     case 64:
-      return launch<T, 64>(q, k, v, spans, m, rope, out, lse, b, h, nq, nkv, q_off, kv_off,
-                           nhd, scale, softcap, stream);
+      return launch<64>(qf, kf, vf, spans, m, rope, of, lse, b, h, nq, nkv, q_off, kv_off, nhd,
+                        scale, softcap, stream);
     case 128:
-      return launch<T, 128>(q, k, v, spans, m, rope, out, lse, b, h, nq, nkv, q_off, kv_off,
-                            nhd, scale, softcap, stream);
+      return launch<128>(qf, kf, vf, spans, m, rope, of, lse, b, h, nq, nkv, q_off, kv_off, nhd,
+                         scale, softcap, stream);
+    case 256:
+      return launch<256>(qf, kf, vf, spans, m, rope, of, lse, b, h, nq, nkv, q_off, kv_off, nhd,
+                         scale, softcap, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
 }
 
+}  // namespace fp32
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace mma_tile;
+using bf16 = __nv_bfloat16;
+
+constexpr int BKV = 64;     // kv rows of a tile
+constexpr int TT = 128;     // threads: 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Lay {
+  // m-tiles of 16 q rows a warp: two up to d 64 (FlashAttention-2's 32
+  // rows a warp: each K / V fragment read from shared memory feeds two
+  // products), one above (the output accumulator would not fit)
+  static constexpr int MT = D <= 64 ? 2 : 1;
+  static constexpr int BQ = 64 * MT;  // q rows of a block
+  static constexpr int LD = D + 8;    // padded bf16 row stride of a tile
+  static constexpr int QTILE = BQ * LD, TILE = BKV * LD;
+  static constexpr bool QREG = D <= 128;  // Q's A fragments held in registers
+  // the Q tile, 2 x K and 2 x V tiles, the spans' offsets and lengths
+  static constexpr size_t kBytes =
+      (size_t(QTILE) + 4 * size_t(TILE)) * sizeof(bf16) + 2 * MAX_SPANS * sizeof(int);
+};
+
+struct Args {
+  const bf16 *q, *k, *v;
+  const int* spans;
+  const float *cos, *sin;
+  bf16* out;
+  float* lse;
+  int m, H, nq, nkv, q_off, kv_off;
+  float scale, softcap;
+};
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(y) for |y| <= 1/4: y + y^3 (-1/3 + y^2 (2/15 + y^2 (-17/315 +
+// y^2 62/2835))); the next term is < 2.1e-9 there
+__device__ __forceinline__ float tanh_small(float y) {
+  const float y2 = y * y;
+  float p = fmaf(y2, 62.f / 2835.f, -17.f / 315.f);
+  p = fmaf(y2, p, 2.f / 15.f);
+  p = fmaf(y2, p, -1.f / 3.f);
+  return fmaf(p * y2, y, y);
+}
+
+// tanh(y) = 1 - 2 / (1 + e^{2y}) (absolute error ~2e-7; e^{2y} kept finite)
+__device__ __forceinline__ float tanh_exp(float y) {
+  return 1.f - __fdividef(2.f, 1.f + exp2_ftz(fminf(y, 15.f) * (2.f * LOG2E)));
+}
+
+// The q tile, loaded raw, times `mul` and rounded to bf16, in place
+template <int D>
+__device__ __forceinline__ void scale_rows(bf16* tile, float mul) {
+  constexpr int CH = D / 8;
+  for (int e = threadIdx.x; e < Lay<D>::BQ * CH; e += TT) {
+    uint4* p = reinterpret_cast<uint4*>(tile + (e / CH) * Lay<D>::LD + (e % CH) * 8);
+    uint4 x = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack_bf16(w[i]);
+      w[i] = pack_bf16(f.x * mul, f.y * mul);
+    }
+    *p = x;
+  }
+}
+
+template <int D, bool NHD, bool ROPE>
+__global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
+  using L = Lay<D>;
+  constexpr int LD = L::LD, TILE = L::TILE, MT = L::MT, BQ = L::BQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + L::QTILE;  // two buffers
+  bf16* Vs = Ks + 2 * TILE;  // two buffers
+  int* sp_off = reinterpret_cast<int*>(Vs + 2 * TILE);
+  int* sp_len = sp_off + MAX_SPANS;
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * MT * w;  // this warp's q rows r0 .. r0 + 16 MT - 1 of the tile
+  const int H = A.H, nq = A.nq, nkv = A.nkv, m = A.m;
+  const int n_q_tiles = (nq + BQ - 1) / BQ;
+  const int BH = gridDim.x / n_q_tiles;
+  const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
+  const int q0 = (n_q_tiles - 1 - int(blockIdx.x / BH)) * BQ;  // last q tiles first
+  const size_t rs = row_stride(NHD, H, D);
+  const bf16* qb = A.q + head_base(NHD, bi, head, H, nq, D);
+  const bf16* kb = A.k + head_base(NHD, bi, head, H, nkv, D);
+  const bf16* vb = A.v + head_base(NHD, bi, head, H, nkv, D);
+  const float scale_t = __bfloat162float(__float2bfloat16(A.scale));
+
+  auto load_kv = [&](int it, int buf) {
+    const int k0 = it * BKV;
+    if (ROPE)
+      copy_rows_regs<D, LD, BKV, TT, true>(Ks + buf * TILE, kb, rs, k0, nkv, A.cos, A.sin, bi,
+                                           1.f);
+    else
+      copy_rows_async<D, LD, BKV, TT>(Ks + buf * TILE, kb, rs, k0, nkv);
+    copy_rows_async<D, LD, BKV, TT>(Vs + buf * TILE, vb, rs, k0, nkv);
+  };
+  // the first K / V tile, Q (raw without RoPE) and the spans in flight at
+  // once: short sequences are bound by this latency
+  load_kv(0, 0);
+  if (!ROPE) copy_rows_async<D, LD, BQ, TT>(Qs, qb, rs, q0, nq);
+  cp_async_commit();
+  for (int s = threadIdx.x; s < m; s += TT) {
+    sp_off[s] = A.spans[(size_t(bi) * m + s) * 3 + 1];
+    sp_len[s] = A.spans[(size_t(bi) * m + s) * 3 + 2];
+  }
+  if (ROPE) copy_rows_regs<D, LD, BQ, TT, true>(Qs, qb, rs, q0, nq, A.cos, A.sin, bi, scale_t);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!ROPE) scale_rows<D>(Qs, scale_t);  // q * scale in q's own dtype
+
+  // kv columns seen by this thread's rows (g and g + 8 of each m-tile),
+  // and by the block's last row
+  int end[2 * MT + 1];
+  {
+    int rows[2 * MT + 1];
+#pragma unroll
+    for (int r = 0; r < 2 * MT; ++r) rows[r] = A.q_off + q0 + r0 + 8 * r + g;
+    rows[2 * MT] = A.q_off + min(q0 + BQ, nq) - 1;
+    visible_ends<2 * MT + 1>(rows, sp_off, sp_len, m, A.kv_off, nkv, end);
+  }
+  const int end_first = __shfl_sync(0xffffffffu, end[0], 0);           // warp row r0
+  const int end_last = __shfl_sync(0xffffffffu, end[2 * MT - 1], 31);  // its last row
+  const int hi = (end[2 * MT] + BKV - 1) / BKV;  // kv tiles some row of the block sees
+  __syncthreads();  // Q scaled
+
+  uint32_t qa[MT][L::QREG ? D / 16 : 1][4];
+  if constexpr (L::QREG) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qa[mt][kk], ldsm_rows(Qs, LD, r0 + 16 * mt, 16 * kk, lane));
+  }
+
+  float o[MT][D / 8][4] = {};  // m-tile rows g, g + 8; columns 8c + 2t, + 1
+  float mrow[MT][2], lrow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) mrow[mt][h2] = NEG_INF, lrow[mt][h2] = 0.f;
+  const float cap = A.softcap, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+
+  int buf = 0;
+  for (int it = 0; it < hi; ++it) {
+    if (it + 1 < hi) load_kv(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the tile just started
+    __syncthreads();
+
+    const int k0 = it * BKV;
+    if (k0 < end_last && q0 + r0 < nq) {  // warp-uniform: a row of the warp sees it
+      const bf16* Kb = Ks + buf * TILE;
+      const bf16* Vb = Vs + buf * TILE;
+      // S = (Q * scale) K^T: rows g, g + 8 of each m-tile; columns 8j + 2t, + 1
+      float s[MT][8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (L::QREG) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) a[mt][x] = qa[mt][kk / 16][x];
+          } else {
+            ldsm_x4(a[mt], ldsm_rows(Qs, LD, r0 + 16 * mt, kk, lane));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          uint32_t kf[4];
+          ldsm_x4(kf, ldsm_cols(Kb, LD, 8 * j, kk, lane));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(s[mt][j], a[mt], kf[0], kf[1]);
+            mma(s[mt][j + 1], a[mt], kf[2], kf[3]);
+          }
+        }
+      }
+      if (cap > 0.f) {
+        bool big = false;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) big |= fabsf(s[mt][j][c] * inv_cap) > 0.25f;
+        if (__any_sync(0xffffffffu, big)) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) s[mt][j][c] = cap * tanh_exp(s[mt][j][c] * inv_cap);
+        } else {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) s[mt][j][c] = cap * tanh_small(s[mt][j][c] * inv_cap);
+        }
+      }
+      if (k0 + BKV > end_first) {  // a masked pair in the warp's rows
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (k0 + 8 * j + 2 * t + (c & 1) >= end[2 * mt + (c >> 1)]) s[mt][j][c] = NEG_INF;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        // online softmax; a row that has seen no visible column yet (max
+        // still NEG_INF) gets p = 0, not exp(0)
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[mt][j][c]);
+        float alpha[2], mlog[2];
+        bool live[2];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+          mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+          const float m_new = fmaxf(mrow[mt][h2], mx[h2]);
+          live[h2] = m_new > 0.5f * NEG_INF;
+          alpha[h2] = live[h2] ? exp2_ftz((mrow[mt][h2] - m_new) * LOG2E) : 1.f;
+          mrow[mt][h2] = m_new;
+          mlog[h2] = m_new * LOG2E;
+        }
+        float psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int h2 = c >> 1;
+            const float p = live[h2] ? exp2_ftz(fmaf(s[mt][j][c], LOG2E, -mlog[h2])) : 0.f;
+            s[mt][j][c] = p;
+            psum[h2] += p;
+          }
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) lrow[mt][h2] = lrow[mt][h2] * alpha[h2] + psum[h2];
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          o[mt][c][0] *= alpha[0];
+          o[mt][c][1] *= alpha[0];
+          o[mt][c][2] *= alpha[1];
+          o[mt][c][3] *= alpha[1];
+        }
+      }
+      // O += P V: P's C fragments, rounded to bf16, are A fragments
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) acc_to_a(pa[mt], s[mt][j], s[mt][j + 1]);
+#pragma unroll
+        for (int c = 0; c < D / 8; c += 2) {
+          uint32_t vf[4];
+          ldsm_x4_t(vf, ldsm_rows(Vb, LD, 8 * j, 8 * c, lane));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(o[mt][c], pa[mt], vf[0], vf[1]);
+            mma(o[mt][c + 1], pa[mt], vf[2], vf[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer's readers are done
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+
+  bf16* ob = A.out + head_base(NHD, bi, head, H, nq, D);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float l = lrow[mt][h2];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = q0 + r0 + 16 * mt + g + 8 * h2;
+      if (row >= nq) continue;
+      const float ls = fmaxf(l, 1e-30f);
+      bf16* dst = ob + size_t(row) * rs + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(dst + 8 * c) =
+            pack_bf16(o[mt][c][2 * h2] / ls, o[mt][c][2 * h2 + 1] / ls);
+      if (A.lse != nullptr && t == 0) A.lse[size_t(bh) * nq + row] = mrow[mt][h2] + logf(ls);
+    }
+}
+
+template <int D, bool NHD, bool ROPE>
+int launch(const Args& A, int b, cudaStream_t stream) {
+  const int smem = int(Lay<D>::kBytes);
+  constexpr int BQ = Lay<D>::BQ;
+  const long long blocks = (long long)b * A.H * ((A.nq + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  auto kern = flash_fwd_tc<D, NHD, ROPE>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  kern<<<unsigned(blocks), TT, smem, stream>>>(A);
+  return int(cudaGetLastError());
+}
+
+template <int D>
+int launch_layout(const Args& A, int b, int nhd, cudaStream_t stream) {
+  // layout and RoPE are template flags: the head-major route compiles to
+  // constant strides and loads without a branch
+  if (!nhd) return launch<D, false, false>(A, b, stream);
+  return A.cos != nullptr ? launch<D, true, true>(A, b, stream)
+                          : launch<D, true, false>(A, b, stream);
+}
+
+int dispatch(int d, const Args& A, int b, int nhd, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_layout<32>(A, b, nhd, stream);
+    case 64:
+      return launch_layout<64>(A, b, nhd, stream);
+    case 128:
+      return launch_layout<128>(A, b, nhd, stream);
+    case 256:
+      return launch_layout<256>(A, b, nhd, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q [b,h,nq,d], k/v [b,h,nkv,d] (nhd = 0) or q [b,nq,h*d], k/v [b,nkv,h*d]
-// (nhd = 1), contiguous, bf16 (is_bf16=1) or float32; spans int32 [b,m,3]
+// (nhd = 1), contiguous, bf16 (is_bf16=1; q, k, v and cos/sin 16-byte
+// aligned) or float32; d in {32, 64, 128, 256}; spans int32 [b,m,3]
 // (m <= 128); cos/sin float32 [b,nq,d] or NULL (no RoPE; only with nhd = 1,
 // where nq == nkv); out like q; lse float32 [b,h,nq] or NULL.
 // Returns the cudaError_t of the launch (0 = success).
@@ -233,10 +619,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int*
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && (nq != nkv || !nhd)))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Rope rope{cos, sin};
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, spans, m, rope, out, lse, b, h, nq, nkv,
-                                     q_off, kv_off, nhd, scale, softcap, s);
-  return dispatch_d<float>(d, q, k, v, spans, m, rope, out, lse, b, h, nq, nkv, q_off, kv_off,
-                           nhd, scale, softcap, s);
+  if (is_bf16) {
+    using tc::bf16;
+    const tc::Args A{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), spans, cos, sin, static_cast<bf16*>(out), lse,
+                     m, h, nq, nkv, q_off, kv_off, scale, softcap};
+    return tc::dispatch(d, A, b, nhd, s);
+  }
+  return fp32::dispatch(d, q, k, v, spans, m, Rope{cos, sin}, out, lse, b, h, nq, nkv, q_off,
+                       kv_off, nhd, scale, softcap, s);
 }

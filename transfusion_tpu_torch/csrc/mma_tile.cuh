@@ -14,8 +14,9 @@
 //
 // Tiles in shared memory are row-major bf16 with a row stride of
 // (cols + 8) elements: the 16-byte pad puts the 8 rows that one ldmatrix
-// phase reads on 8 different groups of 4 banks, for widths of 32, 64 and
-// 128 columns, in plain and transposed reads alike.
+// phase reads on 8 different groups of 4 banks, for widths of 32, 64, 128
+// and 256 columns (an odd number of 16-byte units a row), in plain and
+// transposed reads alike.
 
 #pragma once
 
@@ -119,6 +120,63 @@ __device__ __forceinline__ void cp_async_wait() {
 // aligned, device memory). The order of the additions varies between runs.
 __device__ __forceinline__ void atomic_add2(float* p, float x, float y) {
   atomicAdd(reinterpret_cast<float2*>(p), make_float2(x, y));
+}
+
+// cp.async copies, by the NTH threads of a block, of rows [r0, r0 + ROWS)
+// of one head (D bf16 each, rows rs elements apart) into a tile of row
+// stride LD; rows >= n are zero-filled
+template <int D, int LD, int ROWS, int NTH>
+__device__ __forceinline__ void copy_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                                size_t rs, int r0, int n) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < ROWS * CH; e += NTH) {
+    const int r = e / CH, c = e % CH, g = r0 + r;
+    const bool in = g < n;
+    cp_async16(dst + r * LD + c * 8, base + (in ? size_t(g) * rs + c * 8 : 0), in);
+  }
+}
+
+// The same rows through registers: with ROPE rotated by the interleaved
+// RoPE in float32 and rounded to bf16 (as attn_tile's `rope_load`; angles
+// of row g at cs + (bi * n + g) * D, the partner column c ^ 1 in the same
+// 16 bytes), then times `mul` and rounded to bf16 again (mul = 1 leaves a
+// bf16 value as it is; the forward scales q in its own dtype this way).
+template <int D, int LD, int ROWS, int NTH, bool ROPE>
+__device__ __forceinline__ void copy_rows_regs(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                               size_t rs, int r0, int n, const float* cs,
+                                               const float* sn, int bi, float mul) {
+  constexpr int CH = D / 8;
+  for (int e = threadIdx.x; e < ROWS * CH; e += NTH) {
+    const int r = e / CH, c = e % CH, g = r0 + r;
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (g < n) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(base + size_t(g) * rs + c * 8);
+      const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+      float cv[8], sv[8];
+      if (ROPE) {
+        const size_t a = (size_t(bi) * n + g) * D + c * 8;
+        const float4 c0 = *reinterpret_cast<const float4*>(cs + a);
+        const float4 c1 = *reinterpret_cast<const float4*>(cs + a + 4);
+        const float4 s0 = *reinterpret_cast<const float4*>(sn + a);
+        const float4 s1 = *reinterpret_cast<const float4*>(sn + a + 4);
+        const float cc[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        const float ss[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) cv[i] = cc[i], sv[i] = ss[i];
+      }
+      uint32_t o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float2 x = unpack_bf16(in[i]);
+        if (ROPE)
+          x = unpack_bf16(pack_bf16(x.x * cv[2 * i] - x.y * sv[2 * i],
+                                    x.y * cv[2 * i + 1] + x.x * sv[2 * i + 1]));
+        o[i] = pack_bf16(x.x * mul, x.y * mul);
+      }
+      out = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = out;
+  }
 }
 
 }  // namespace mma_tile

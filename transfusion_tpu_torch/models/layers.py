@@ -145,11 +145,6 @@ class Attention(nn.Module):
         q, k = self.to_qk(x).chunk(2, dim=-1)
         v = self.to_v(x)
         uncached_flash = flash_spec is not None and self.attn_impl == "flash" and cache is None
-        if uncached_flash and self.dim_head == 256:
-            raise NotImplementedError(
-                "head dim 256: the port's attention kernels take 32/64/128 "
-                "(ROADMAP.md Queue 2, 'head dim 256')"
-            )
         if uncached_flash and decode_bias is None and nhd_eligible(self.heads, n, self.dim_head):
             return self._forward_nhd(x, q, k, v, rope, value_residual, flash_spec)
         q, k, v = (self._split_heads(t) for t in (q, k, v))

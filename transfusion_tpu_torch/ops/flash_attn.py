@@ -38,7 +38,7 @@ from transfusion_tpu_torch.ops.norms import NEG_INF
 from transfusion_tpu_torch.ops.spans import span_allowed
 
 MAX_SPANS = 128  # the kernels keep a block's spans in shared memory
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_GRID_Y = 65535  # the kernels run one grid row per (batch, head)
 # The JAX route's envelopes (pallas_attn_kernel.py:1178-1214). The TPU picks
 # its kernel by what fits in VMEM; the CUDA kernels stream tiles from device
@@ -61,8 +61,7 @@ _BWD_ARGTYPES = [_P] * 7 + [_I] + [_P] * 6 + [_I] * 8 + [_F] * 2 + [_I, _P]
 
 def supported(n: int, d: int) -> bool:
     """`transfusion_flash_attention` takes the kernel for these shapes and
-    the dense path otherwise (pallas_attn_kernel.py:1224). Head dim 256 is
-    admitted here but has no CUDA kernel yet: callers raise for it."""
+    the dense path otherwise (pallas_attn_kernel.py:1224)."""
     return n * d <= _MAX_N_TIMES_D and d in (32, 64, 128, 256)
 
 
@@ -215,7 +214,7 @@ def _spans_arg(what, spans, b, device):
 
 def _aligned(t):
     """t, or a copy of it where its data is not 16-byte aligned (the bf16
-    backward reads rows, and RoPE angles, as 16-byte vectors)."""
+    kernels read rows, and RoPE angles, as 16-byte vectors)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -229,7 +228,8 @@ def _rope_args(cos, sin, b, n, d, device):
 
 def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=None,
                cos=None, sin=None):
-    """Launch csrc/flash_fwd.cu. heads=None: head-major q [b,h,nq,d], k/v
+    """Launch csrc/flash_fwd.cu: for bf16 the tensor-core kernel, for
+    float32 the FMA kernel. heads=None: head-major q [b,h,nq,d], k/v
     [b,h,nkv,d]; heads=h: token-major [b,n,h*d] with optional RoPE angles
     cos/sin [b,n,d]. Returns (out like q, lse float32 [b,h,nq] | None).
     Callers count the launch."""
@@ -247,7 +247,7 @@ def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=
     for name, t in (("k", k), ("v", v)):
         if tuple(t.shape) != shape_k:
             raise ValueError(f"{what} kernel: {name} shape {tuple(t.shape)}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     spans_t = _spans_arg(what, spans, b, q.device)
     cos, sin, cos_p, sin_p = _rope_args(cos, sin, b, nq, d, q.device)
     out = torch.empty_like(q)
