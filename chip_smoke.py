@@ -10,7 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
      print the card's name and power limit;
   2. kernels vs plain: each kernel against its plain PyTorch version on the
      same inputs, at synthetic shapes around the main paths' and at head
-     dims 32 to 256, whole rows masked, row 1's envelope (forwards:
+     dims 32 to 256, whole rows masked, row 1's envelope, 200 spans a row,
+     b * h past 65535, logits near the softcap, the decode kernel's every
+     path with whole chunks past lens and rows with no valid slot, and the
+     kernels a decode call launches (at most 2) (forwards:
      bf16 within 2e-2, float32 within 1e-4 max abs error; every row's max
      error also within 0.08 (bf16) / 1e-3 (float32) of that row's RMS;
      backwards: dq/dk/dv within 1e-2 (bf16) / 1e-4 (float32) of the
@@ -23,10 +26,13 @@ Phases (any failure exits non-zero and prints no result line):
   4. serving: the bench model at full width (dim 384, depth 8, 8x64 heads,
      bf16, seeded weights) through `generate_text_batch` (8 ragged prompts,
      128 new tokens, greedy; bf16 and int8 KV) and `sample(cache_kv=True)`
-     with CFG. Each path's warm-up captures the tensors of one prefill and
-     one decode call, and each kernel is held against its plain version on
-     them (as in phase 2). Then the path runs with the launch counters set
-     to 0 and must launch both kernels;
+     with CFG; then the 573M config (phase 6's) through `generate_text_batch`
+     on 8 long ragged prompts (850-8192 tokens, width 8192, cache capacity
+     8320, 32 new tokens, greedy; bf16 and int8 KV). Each path's warm-up
+     captures the tensors of one prefill and one decode call, and each
+     kernel is held against its plain version on them (as in phase 2; the
+     long prefill's plain version 1024 query rows at a time). Then the path
+     runs with the launch counters set to 0 and must launch both kernels;
   5. training: the same bench model through `Trainer.train_step`: (a)
      `bench.py`'s batch, 32 x [32 text][14x14x32 latent][8 text], n 256
      after the shift (every layer takes the token-major route), and (b) 8
@@ -56,8 +62,9 @@ Phases (any failure exits non-zero and prints no result line):
 `library_ms` in the kernels line is `torch.compile`d `flex_attention` with a
 tanh `score_mod` and the span block mask on the same tensors (for the
 token-major route: on the rotated, head-major q/k, so without the RoPE and
-layout work the kernels also do); it is a yardstick, and the port never
-calls it.
+layout work the kernels also do; for decode: the tanh plus the validity
+bias as `score_mod` and lens as the mask, bf16 and float32 caches only); it
+is a yardstick, and the port never calls it.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 with code 2 and prints no result.
@@ -107,6 +114,9 @@ LONG_CFG = dict(
 LONG_GROUPS, LONG_TAIL, LONG_N = 20, 270, 16385  # packed length before the shift
 LONG_STEPS = 4
 LONG_BLOCK_Q = 1024  # query rows per block of the plain versions at n 16384
+# phase 4's long-prompt serving run on LONG_CFG: 8 ragged prompts, width 8192
+LONG_PROMPTS = [8192, 7150, 6100, 5050, 4000, 2950, 1900, 850]
+LONG_NEW = 32
 
 
 class SmokeFailure(Exception):
@@ -207,9 +217,77 @@ def check_flash(torch, mods, a, iters=10, library=False, block_q=None):
                 sdpa_no_softcap_ms=sdpa, library_ms=lib)
 
 
-def check_decode(torch, mods, a, iters=20):
+def kernels_per_call(torch, fn, calls=10, attempts=5):
+    """(device kernels and copies a call of fn launches, their names),
+    counted by the profiler over `calls` calls after a warm-up call. The
+    profiler drops device events now and then (a window may even come back
+    empty), so a count is a lower bound: the most of up to `attempts`
+    windows, stopping at the first that saw any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best, names = 0.0, []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(seen) / calls > best:
+            best, names = len(seen) / calls, sorted({n[:60] for n in seen})
+        if best > 0:
+            break
+    return best, names
+
+
+def flex_decode_ms(torch, mods, a, iters=20):
+    """(ms, max abs error against the plain version) of torch.compile'd
+    flex_attention computing the decode kernel's function on the same
+    tensors: score_mod cap * tanh(s / cap) + bias[b, kv], lens as the
+    mask_mod. (None, None) for an int8 cache (no library call dequantizes
+    it inside the kernel), or where flex fails; the reason is logged."""
+    if a["k_scale"] is not None or a["k"].dtype != a["q"].dtype:
+        log("flex_attention yardstick for decode_attn: none for an int8 cache or a cache in "
+            "another dtype than q (no library call dequantizes it inside the kernel)")
+        return None, None
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        torch._dynamo.reset()
+        q, k, v, bias, cap = a["q"], a["k"], a["v"], a["bias"], float(a["softcap"])
+        b, h, nq, d = q.shape
+        n = k.shape[2]
+        lens = a["lens"]
+        if lens is None:
+            lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+
+        def mask_mod(bi, hi, qi, ki):
+            return ki < lens[bi]
+
+        def score_mod(score, bi, hi, qi, ki):
+            return torch.tanh(score / cap) * cap + bias[bi, ki]
+
+        block = create_block_mask(mask_mod, b, None, nq, n, device="cuda")
+        flex = torch.compile(flex_attention)
+        run = lambda: flex(q, k, v, score_mod=score_mod, block_mask=block)  # noqa: E731
+        got = run()
+        ref = mods["decode"].decode_attention_plain(
+            q, k, v, bias, softcap=cap, lens=a["lens"]).to(q.dtype)
+        live = lens > 0
+        err = (got[live].float() - ref[live].float()).abs().max().item()
+        return time_ms(run, iters), err
+    except Exception as e:  # a yardstick only: the port never calls it
+        log(f"flex_attention decode yardstick unavailable: {type(e).__name__}: {str(e)[:300]}")
+        return None, None
+
+
+def check_decode(torch, mods, a, iters=20, library=False, count=False):
     """Kernel 2 against its plain version on the arguments `a` of one
-    decode_attention call (q, k, v, bias, k_scale, v_scale, softcap, lens)."""
+    decode_attention call (q, k, v, bias, k_scale, v_scale, softcap, lens);
+    with `count`, also the kernels a call launches (at most 2: the split
+    kernel and the merge)."""
     da = mods["decode"]
     args = tuple(a[n] for n in ("q", "k", "v", "bias", "k_scale", "v_scale", "softcap", "lens"))
     q, k, lens = a["q"], a["k"], a["lens"]
@@ -219,6 +297,13 @@ def check_decode(torch, mods, a, iters=20):
     err, rel = compare(torch, out, ref)
     ms = time_ms(lambda: da.decode_attention(*args), iters)
     plain = time_ms(lambda: da.decode_attention_plain(*args), max(2, iters // 4))
+    extra = {}
+    if count:
+        n, names = kernels_per_call(torch, lambda: da.decode_attention(*args))
+        extra["kernels_per_call"] = n
+        require(1 <= n <= 2, f"decode_attention launched {n} kernels a call (at most 2): {names}")
+    if library:
+        extra["library_ms"], extra["library_max_abs_err"] = flex_decode_ms(torch, mods, a, iters)
     b, h, nq, d = q.shape
     int8 = a["k_scale"] is not None
     slots = int(lens.sum().item()) if lens is not None else b * k.shape[2]
@@ -226,7 +311,8 @@ def check_decode(torch, mods, a, iters=20):
     nbytes = slots * per_slot + 2 * b * h * nq * d * q.element_size() + 4 * b
     kind = "int8" if int8 else str(k.dtype).split(".")[-1]
     bnd, by = bound_ms(nbytes, 4 * h * nq * d * slots, kind)
-    return dict(err=err, row_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    return dict(err=err, row_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                **extra)
 
 
 def visible_pairs(torch, mods, b, nq, nkv, spans, q_off, kv_off, block=2048):
@@ -399,10 +485,19 @@ def flash_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, l
 
 
 def bwd_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, g_lse=False,
-             iters=5, library=False):
+             iters=5, library=False, near_cap=False):
+    """near_cap: q row i is +-45 d^-1/2 (k_i + k_{i-1}) (rows alternate)
+    with keys of norm d^1/2, so its logits q.k d^-1/2 on keys i and i - 1
+    are equal and near +-45 (cap 50): the softmax of a + row splits between
+    them (not one-hot, whose dp - delta cancels to rounding noise)."""
     g = torch.Generator(device="cuda").manual_seed(n + d + 1)
-    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=g).to(dtype)
-                   for _ in range(4))
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=g) for _ in range(4))
+    if near_cap:
+        k = k / k.norm(dim=-1, keepdim=True) * d**0.5
+        pair = k + torch.cat([torch.zeros_like(k[:, :, :1]), k[:, :, :-1]], 2)
+        sign = 2.0 * (torch.arange(n, device="cuda") % 2) - 1.0
+        q = sign[:, None] * 45.0 * d**-0.5 * pair
+    q, k, v, do = q.to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
     a = dict(q=q, k=k, v=v, do=do, spans=spans, causal=True, softcap=50.0, q_offset=q_offset,
              kv_offset=kv_offset)
     if g_lse:
@@ -421,7 +516,8 @@ def nhd_case(torch, mods, b, h, n, d, dtype, spans, iters=5):
                                        softcap=50.0, do=do), iters)
 
 
-def decode_case(torch, mods, b, h, nq, cap, d, dtype, lens_list, int8, iters=20):
+def decode_case(torch, mods, b, h, nq, cap, d, dtype, lens_list, int8, iters=20, library=False,
+                count=False):
     g = torch.Generator(device="cuda").manual_seed(nq + cap)
     q = torch.randn(b, h, nq, d, device="cuda", generator=g).to(dtype)
     k, v = (torch.randn(b, h, cap, d, device="cuda", generator=g).to(dtype) for _ in range(2))
@@ -434,7 +530,8 @@ def decode_case(torch, mods, b, h, nq, cap, d, dtype, lens_list, int8, iters=20)
         v, vs = mods["layers"]._quantize_rows(v)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
     return check_decode(torch, mods, dict(
-        q=q, k=k, v=v, bias=bias, k_scale=ks, v_scale=vs, softcap=50.0, lens=lens), iters)
+        q=q, k=k, v=v, bias=bias, k_scale=ks, v_scale=vs, softcap=50.0, lens=lens), iters,
+        library, count)
 
 
 RESULTS = {"flash_fwd": [], "flash_bwd": [], "flash_fwd_nhd": [], "flash_bwd_nhd": [],
@@ -490,14 +587,49 @@ def phase_kernels(torch, mods):
     for nq in (1, 196):
         for int8 in (False, True):
             record("decode_attn", f"b4 h8 nq{nq} cap8192 d64 bf16{' int8' if int8 else ''}",
-                   decode_case(torch, mods, 4, 8, nq, 8192, 64, bf16, lens4, int8), bf16)
+                   decode_case(torch, mods, 4, 8, nq, 8192, 64, bf16, lens4, int8,
+                               count=True), bf16)
     record("decode_attn", "b4 h8 nq196 cap8192 d64 f32",
            decode_case(torch, mods, 4, 8, 196, 8192, 64, f32, lens4, False, iters=3), f32)
-    # long-context text serving: where the kernel loses to its plain version
+    # every path of the split kernel at every head dim: row 1's lens leaves
+    # whole chunks past it, row 2 has no valid slot (exactly 0)
+    for d in (32, 128, 256):
+        for dtype in (bf16, f32):
+            for int8 in (False, True):
+                for nq in (1, 196):
+                    kind = f"{str(dtype).split('.')[-1]}{' int8' if int8 else ''}"
+                    record("decode_attn", f"b3 h2 nq{nq} cap1000 d{d} {kind} lens 1000/37/0",
+                           decode_case(torch, mods, 3, 2, nq, 1000, d, dtype, [1000, 37, 0], int8,
+                                       iters=3), dtype)
+    # long-context text serving (where the unsplit kernel lost to its plain
+    # version 3.3x), with the flex_attention yardstick for bf16 and float32
     lens8 = [8192 - 37 * i for i in range(8)]
-    for int8 in (False, True):
-        record("decode_attn", f"long context: b8 h8 nq1 cap8192 d64 bf16{' int8' if int8 else ''}",
-               decode_case(torch, mods, 8, 8, 1, 8192, 64, bf16, lens8, int8), bf16)
+    for dtype, int8 in ((bf16, False), (bf16, True), (f32, False)):
+        kind = f"{str(dtype).split('.')[-1]}{' int8' if int8 else ''}"
+        record("decode_attn", f"long context: b8 h8 nq1 cap8192 d64 {kind}",
+               decode_case(torch, mods, 8, 8, 1, 8192, 64, dtype, lens8, int8,
+                           library=not int8, count=True), dtype)
+
+    # the flash route past the first versions' limits: 200 spans a row,
+    # b * h = 65536 + 16; the backward with logits near +-cap
+    spans200 = [(3 + 5 * i, i % 5) for i in range(200)]
+    for dtype in (bf16, f32):
+        kind = str(dtype).split(".")[-1]
+        record("flash_fwd", f"b2 h2 n1024 d64 {kind} spans200 lse",
+               flash_case(torch, mods, 2, 2, 1024, 64, dtype, spans_of(2, spans200), lse=True,
+                          iters=3), dtype)
+        record("flash_bwd", f"b2 h2 n1024 d64 {kind} spans200",
+               bwd_case(torch, mods, 2, 2, 1024, 64, dtype, spans_of(2, spans200), iters=3),
+               dtype)
+        record("flash_fwd", f"b4097 h16 n40 d32 {kind} spans1 (b*h 65552) lse",
+               flash_case(torch, mods, 4097, 16, 40, 32, dtype, spans_of(4097, [(5, 10)]),
+                          lse=True, iters=3), dtype)
+        record("flash_bwd", f"b4097 h16 n40 d32 {kind} spans1 (b*h 65552)",
+               bwd_case(torch, mods, 4097, 16, 40, 32, dtype, spans_of(4097, [(5, 10)]),
+                        iters=3), dtype)
+        record("flash_bwd", f"b2 h2 n300 d64 {kind} spans1 logits ~+-45 (cap 50)",
+               bwd_case(torch, mods, 2, 2, 300, 64, dtype, spans_of(2, [(33, 196)]), iters=3,
+                        near_cap=True), dtype)
 
     # training: the token-major route at the bench shape (the bench
     # packing's span at 40, length 196, and an empty one) and in float32
@@ -689,23 +821,66 @@ def shape_str(t):
     return "x".join(map(str, t.shape))
 
 
-def check_main_path(torch, mods, name, calls, dtype, library=False):
-    """Hold each kernel against its plain version on the tensors the main
-    path gave it (captured from one call of the serving run)."""
+def check_main_path(torch, mods, name, calls, dtype, library=False, block_q=None):
+    """Hold each kernel against its plain version (the forward's computed
+    block_q query rows at a time) on the tensors the main path gave it
+    (captured from one call of the serving run); count the decode call's
+    kernels; with `library`, time the flex_attention yardsticks too."""
     require(set(calls) == {"flash_fwd", "decode_attn"}, f"{name}: captured only {sorted(calls)}")
     out = {}
     fa, dc = calls["flash_fwd"], calls["decode_attn"]
     qs = shape_str
-    out["flash_fwd"] = record("flash_fwd", f"main path, {name}: prefill q {qs(fa['q'])} "
-                              f"spans {'none' if fa['spans'] is None else qs(fa['spans'])}",
-                              check_flash(torch, mods, fa, library=library), dtype)
     kv = "int8" if dc["k_scale"] is not None else str(dc["k"].dtype).split(".")[-1]
     prefix = "prefix" if bias_is_prefix(dc["bias"]) else "non-prefix"
     out["decode_attn"] = record("decode_attn", f"main path, {name}: q {qs(dc['q'])} "
                                 f"cache {qs(dc['k'])} {kv}, {prefix} bias, "
                                 f"lens {dc['lens'].tolist()}",
-                                check_decode(torch, mods, dc), dtype)
+                                check_decode(torch, mods, dc, library=library, count=True), dtype)
+    out["flash_fwd"] = record("flash_fwd", f"main path, {name}: prefill q {qs(fa['q'])} "
+                              f"spans {'none' if fa['spans'] is None else qs(fa['spans'])}",
+                              check_flash(torch, mods, fa, library=library, block_q=block_q),
+                              dtype)
     return out
+
+
+def serve_text(torch, mods, model, name, prompts, new, quant, cap, vocab, library=False,
+               block_q=None):
+    """One `generate_text_batch` path: a warm-up run that also captures one
+    prefill and one decode call (each held against its plain version; its
+    cache has the timed run's capacity `cap`), the prefill alone, then `new`
+    tokens with the launch counters set to 0. Returns (report, launches,
+    main-path results)."""
+    b = len(prompts)
+    run = lambda k: model.generate_text_batch(  # noqa: E731
+        prompts, max_new_tokens=k, temperature=0.0, kv_quantize=quant)
+    with capturing(torch, mods, {"flash_fwd": lambda a: True,
+                                 "decode_attn": lambda a: True}) as calls:
+        run(2)
+    torch.cuda.synchronize()
+    require(calls["decode_attn"]["k"].shape[2] == cap, f"{name}: warm-up cache capacity")
+    main = check_main_path(torch, mods, name, calls, torch.bfloat16, library=library,
+                           block_q=block_q)
+    del calls
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run(1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks, counts = counted(mods, lambda: run(new))
+    t_all = time.perf_counter() - t0
+    toks = toks.cpu()
+    require(tuple(toks.shape) == (b, new), f"{name}: tokens shape {tuple(toks.shape)}")
+    require(bool(((toks >= 0) & (toks < vocab)).all()), f"{name}: non-text token")
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0,
+            f"{name}: kernel launches {counts}")
+    report = dict(
+        seconds=t_all, tokens_per_s=b * new / t_all,
+        ms_per_decode_step=(t_all - t_prefill) / (new - 1) * 1e3,
+        prefill_plus_one_step_ms=t_prefill * 1e3, launches=counts,
+    )
+    log(json.dumps({"serving": name, **report}))
+    return report, counts, main
 
 
 def phase_serving(torch, Transfusion, mods):
@@ -717,43 +892,17 @@ def phase_serving(torch, Transfusion, mods):
     model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 256, size=n) for n in serving_lengths()]
-    b, new = len(prompts), 128
+    new = 128
     totals = dict.fromkeys(KERNELS, 0)
     report, main = {}, {}
 
     for name, quant in (("generate_text_batch bf16 KV", False),
                         ("generate_text_batch int8 KV", True)):
-        run = lambda k: model.generate_text_batch(  # noqa: E731
-            prompts, max_new_tokens=k, temperature=0.0, kv_quantize=quant)
-        # warm-up; its cache has the timed run's capacity (the width 1024
-        # plus 2 or 128 new tokens both round up to 1152)
-        with capturing(torch, mods, {"flash_fwd": lambda a: True,
-                                     "decode_attn": lambda a: True}) as calls:
-            run(2)
-        torch.cuda.synchronize()
-        require(calls["decode_attn"]["k"].shape[2] == 1152, f"{name}: warm-up cache capacity")
-        main[name] = check_main_path(torch, mods, name, calls, torch.bfloat16,
-                                     library=not quant)
-        t0 = time.perf_counter()
-        run(1)
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        toks, counts = counted(mods, lambda: run(new))
-        t_all = time.perf_counter() - t0
-        toks = toks.cpu()
-        require(tuple(toks.shape) == (b, new), f"{name}: tokens shape {tuple(toks.shape)}")
-        require(bool(((toks >= 0) & (toks < 256)).all()), f"{name}: non-text token")
-        require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0,
-                f"{name}: kernel launches {counts}")
+        # the width 1024 plus 2 or 128 new tokens both round up to 1152
+        report[name], counts, main[name] = serve_text(
+            torch, mods, model, name, prompts, new, quant, 1152, 256, library=not quant)
         for k in totals:
             totals[k] += counts[k]
-        report[name] = dict(
-            seconds=t_all, tokens_per_s=b * new / t_all,
-            ms_per_decode_step=(t_all - t_prefill) / (new - 1) * 1e3,
-            prefill_plus_one_step_ms=t_prefill * 1e3, launches=counts,
-        )
-        log(json.dumps({"serving": name, **report[name]}))
 
     name = "sample cache_kv cfg 3.0"
     prompt = [np.asarray(list(rng.integers(0, 256, size=24)) + [model.som_ids[0]], np.int32)]
@@ -782,6 +931,23 @@ def phase_serving(torch, Transfusion, mods):
     report[name] = dict(seconds=t_img, images=len(lats), s_per_image=t_img / len(lats),
                         launches=counts)
     log(json.dumps({"serving": name, **report[name]}))
+    del model
+    torch.cuda.empty_cache()
+
+    # long prompts on the 573M config: where the split of the cache shows
+    # (the unsplit kernel ran 128 blocks, each streaming ~8k slots alone)
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **LONG_CFG)
+    prompts = [rng.integers(0, LONG_CFG["num_text_tokens"], size=n) for n in LONG_PROMPTS]
+    for quant in (False, True):
+        name = f"573M long prompts generate_text_batch {'int8' if quant else 'bf16'} KV"
+        # width 8192 plus 2 or LONG_NEW new tokens both round up to 8320
+        report[name], counts, main[name] = serve_text(
+            torch, mods, model, name, prompts, LONG_NEW, quant, 8320,
+            LONG_CFG["num_text_tokens"], block_q=LONG_BLOCK_Q)
+        for k in totals:
+            totals[k] += counts[k]
+    del model
+    torch.cuda.empty_cache()
     return totals, main
 
 

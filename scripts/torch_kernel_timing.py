@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's flash-attention kernels in one checkout, for comparing
-two commits on one card.
+"""Time the port's attention kernels in one checkout, for comparing two
+commits on one card.
 
-    python3 scripts/torch_kernel_timing.py [--tree PATH] [--only fwd|bwd]
-    python3 scripts/torch_kernel_timing.py --compare PARENT [--only fwd|bwd]
+    python3 scripts/torch_kernel_timing.py [--tree PATH] [--only fwd|bwd|decode]
+    python3 scripts/torch_kernel_timing.py --compare PARENT [--only fwd|bwd|decode]
 
 PATH is the root of a checkout (default: the one this script is in); its
 `transfusion_tpu_torch` is imported and its kernels are built there. Prints
@@ -23,8 +23,16 @@ seeded bf16 inputs, at the main-path shapes of the kernel table's rows:
            (40, 196) + (0, 0) (training run (a));
   backward:
     row 6: `flash_attention_nhd_backward` at row 5's shape;
+    row 7: `flash_attention_backward`, b2 h8 n256 d32, 1 span (its envelope;
+           no main path reaches it);
     row 8: `flash_attention_backward`, b8 h8 n1024 d64, 4 spans (run (b));
-    row 9: `flash_attention_backward` at row 3's shape.
+    row 9: `flash_attention_backward` at row 3's shape;
+  cached decode (row 4, `decode_attention`, d 64, bf16 q; lens from the
+  serving runs, valid slots a prefix):
+    text: b8 h8 nq1 cap1152, the bench model's ragged prompts + 64 tokens;
+    ODE: b2 h8 nq196 cap512 (CFG rows), lens 222;
+    long: b8 h8 nq1 cap8192, lens 8192 - 37 i, bf16 and int8 caches (the
+          cache, 134 MB in bf16, does not fit in L2; the shorter ones do).
 A backward call includes its delta = rowsum(dO o) and, where the checkout
 has one, its dq scratch. --compare PARENT runs this script on PARENT (a
 checkout unpacked with `git archive`) and on this checkout in turns
@@ -51,12 +59,26 @@ FWD_SHAPES = (
      False, 10),
     ("row 5 nhd b32 h8 n256 d64 rope spans2", 32, 8, 256, [(40, 196), (0, 0)], True, 100),
 )
+# (name, b, h, n, d, spans, token-major, iterations)
 BWD_SHAPES = (
-    ("row 6 nhd b32 h8 n256 d64 rope spans2", 32, 8, 256, [(40, 196), (0, 0)], True, 50),
-    ("row 8 b8 h8 n1024 d64 spans4", 8, 8, 1024, [(40 + 244 * i, 196) for i in range(4)],
+    ("row 6 nhd b32 h8 n256 d64 rope spans2", 32, 8, 256, 64, [(40, 196), (0, 0)], True, 50),
+    ("row 7 b2 h8 n256 d32 spans1", 2, 8, 256, 32, [(40, 196)], False, 100),
+    ("row 8 b8 h8 n1024 d64 spans4", 8, 8, 1024, 64, [(40 + 244 * i, 196) for i in range(4)],
      False, 50),
-    ("row 9 b1 h16 n16384 d64 spans20", 1, 16, 16384, [(600 + 798 * i, 196) for i in range(20)],
-     False, 10),
+    ("row 9 b1 h16 n16384 d64 spans20", 1, 16, 16384, 64,
+     [(600 + 798 * i, 196) for i in range(20)], False, 10),
+)
+
+
+# (name, b, h, nq, cap, lens, int8, iterations)
+DECODE_SHAPES = (
+    ("row 4 text b8 h8 nq1 cap1152 d64 bf16", 8, 8, 1, 1152,
+     [n + 64 for n in (37, 160, 283, 406, 530, 653, 776, 900)], False, 200),
+    ("row 4 ODE b2 h8 nq196 cap512 d64 bf16", 2, 8, 196, 512, [222, 222], False, 200),
+    ("row 4 long b8 h8 nq1 cap8192 d64 bf16", 8, 8, 1, 8192, [8192 - 37 * i for i in range(8)],
+     False, 100),
+    ("row 4 long b8 h8 nq1 cap8192 d64 int8", 8, 8, 1, 8192, [8192 - 37 * i for i in range(8)],
+     True, 100),
 )
 
 
@@ -134,8 +156,8 @@ def ptxas_report():
 def time_backward(torch, out):
     from transfusion_tpu_torch.ops import flash_attn, flash_attn_nhd
 
-    for name, b, h, n, span_list, nhd, iters in BWD_SHAPES:
-        (q, k, v, do), spans, cos, sin = inputs(torch, b, h, n, span_list, nhd, 4)
+    for name, b, h, n, d, span_list, nhd, iters in BWD_SHAPES:
+        (q, k, v, do), spans, cos, sin = inputs(torch, b, h, n, span_list, nhd, 4, d)
         if nhd:
             o, lse = flash_attn_nhd._forward(q, k, v, h, cos, sin, spans, 50.0)
 
@@ -153,6 +175,28 @@ def time_backward(torch, out):
         torch.cuda.empty_cache()
 
 
+def time_decode(torch, out):
+    from transfusion_tpu_torch.models.layers import _quantize_rows
+    from transfusion_tpu_torch.ops import decode_attn
+
+    for name, b, h, nq, cap, lens, int8, iters in DECODE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(cap + nq)
+        q, k, v = (torch.randn(b, h, n, 64, device="cuda", generator=g).to(torch.bfloat16)
+                   for n in (nq, cap, cap))
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        bias = torch.where(torch.arange(cap, device="cuda")[None, :] < lens_t[:, None], 0.0,
+                           -1e30).float().contiguous()
+        ks = vs = None
+        if int8:
+            k, ks = _quantize_rows(k)
+            v, vs = _quantize_rows(v)
+            ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+        out[name] = mean_ms(torch, lambda: decode_attn.decode_attention(
+            q, k, v, bias, ks, vs, 50.0, lens_t), iters, warmup=5)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def compare(parent, only):
     """Run the parent and this checkout in turns; one JSON line per shape."""
     runs = []
@@ -166,7 +210,7 @@ def compare(parent, only):
             sys.stderr.write(res.stderr)
             return res.returncode
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-    for name in (s[0] for s in FWD_SHAPES + BWD_SHAPES):
+    for name in (s[0] for s in FWD_SHAPES + BWD_SHAPES + DECODE_SHAPES):
         if name in runs[0]:
             print(json.dumps({"shape": name, "parent_ms": [runs[0][name], runs[3][name]],
                               "change_ms": [runs[1][name], runs[2][name]],
@@ -178,7 +222,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--compare", metavar="PARENT")
-    ap.add_argument("--only", choices=("fwd", "bwd"))
+    ap.add_argument("--only", choices=("fwd", "bwd", "decode"))
     args = ap.parse_args()
     import torch
 
@@ -191,11 +235,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     out = {"tree": os.path.abspath(args.tree), "card": card}
-    if args.only != "bwd":
+    if args.only in (None, "fwd"):
         time_forward(torch, out)
         out["ptxas flash_fwd [kernel, registers, spill stores, spill loads]"] = ptxas_report()
-    if args.only != "fwd":
+    if args.only in (None, "bwd"):
         time_backward(torch, out)
+    if args.only in (None, "decode"):
+        time_decode(torch, out)
     print(json.dumps(out), flush=True)
     return 0
 

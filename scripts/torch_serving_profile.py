@@ -8,7 +8,14 @@ seeded weights) through two windows under `torch.profiler`:
 
   * text: `generate_text_batch` on 8 ragged prompts (lengths 37..900),
     32 new tokens, greedy;
-  * image: `sample(cache_kv=True)` with CFG 3.0, 16 midpoint steps, 14x14.
+  * image: `sample(cache_kv=True)` with CFG 3.0, 16 midpoint steps, 14x14;
+
+then the 573M config of `scripts/probe_573m.py` (dim 1024, depth 12, 16x64
+heads, vocab 50k, bf16, seeded weights) through one window:
+
+  * long text: `generate_text_batch` on 8 ragged prompts of 850-8192 tokens
+    (width 8192, cache capacity 8320), 32 new tokens, greedy, bf16 KV, as
+    `chip_smoke.py` phase 4 runs it.
 
 For each window it prints one JSON line: wall seconds, summed device
 kernel time, the device's busy share (kernel time / wall; an upper bound,
@@ -30,6 +37,15 @@ BENCH_CFG = dict(
     num_text_tokens=256, dim_latent=32, modality_default_shape=(14, 14),
     transformer=dict(dim=384, depth=8, dim_head=64, heads=8, attn_impl="flash"),
 )
+# scripts/probe_573m.py:29-41, as chip_smoke.py's LONG_CFG (its training
+# options do not act when serving)
+LONG_CFG = dict(
+    num_text_tokens=50_000, dim_latent=32, modality_default_shape=(14, 14), pad_multiple=64,
+    ce_chunk_size=256,
+    transformer=dict(dim=1024, depth=12, dim_head=64, heads=16, attn_impl="flash",
+                     remat=True, remat_policy="full"),
+)
+LONG_PROMPTS = (8192, 7150, 6100, 5050, 4000, 2950, 1900, 850)
 
 
 def profile(torch, name, fn):
@@ -78,6 +94,13 @@ def main() -> int:
     profile(torch, "sample cache_kv cfg 3.0 one 14x14 image", lambda: model.sample(
         prompt=prompt, max_length=196, text_temperature=0.0, cache_kv=True, cfg_scale=3.0,
         modality_steps=16, fixed_modality_shape=(14, 14)))
+    del model
+    torch.cuda.empty_cache()
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **LONG_CFG)
+    prompts = [rng.integers(0, 50_000, size=n) for n in LONG_PROMPTS]
+    profile(torch, "573M generate_text_batch b8 prompts 850-8192 32 new tokens bf16 KV",
+            lambda: model.generate_text_batch(prompts, max_new_tokens=32, temperature=0.0,
+                                              kv_quantize=False))
     return 0
 
 

@@ -78,6 +78,95 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, tol, int8, nq):
     assert (out[1] == 0).all()
 
 
+def decode_args(b, h, nq, cap, d, dtype, lens, int8, seed=1, hole=True):
+    q = randn(b, h, nq, d, seed=seed, dtype=dtype)
+    k, v = (randn(b, h, cap, d, seed=s, dtype=dtype) for s in (seed + 1, seed + 2))
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    valid = torch.arange(cap, device="cuda")[None, :] < lens[:, None]
+    if hole:
+        valid[-1, 20:60] = False
+    bias = torch.where(valid, 0.0, -1e30).float().contiguous()
+    ks = vs = None
+    if int8:
+        k, ks = _quantize_rows(k)
+        v, vs = _quantize_rows(v)
+        ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    return q, k, v, bias, ks, vs, 50.0, lens
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq", [1, 5, 196])
+@pytest.mark.parametrize("d", [32, 128, 256])
+def test_decode_kernel_head_dims_match_plain(cuda_device, dtype, tol, int8, nq, d):
+    """Every path of the split kernel at head dims 32-256: one query row a
+    block (nq 1, 5), the tensor cores (nq 196, bf16 q with a bf16 or int8
+    cache) and the FMA tiles (nq 196, float32). Row 1 has no valid slot
+    (exactly 0), row 0's lens leaves whole chunks past it, row 2 has a hole
+    in its bias."""
+    args = decode_args(3, 2, nq, 1000, d, dtype, [100, 0, 1000], int8)
+    before = decode_attn.decode_attention.launches
+    out = decode_attn.decode_attention(*args)
+    ref = decode_attn.decode_attention_plain(*args).to(dtype)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    assert out.dtype == dtype and not out.isnan().any()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+def test_decode_kernel_long_cache_matches_plain(cuda_device, kv):
+    """Long-context text decode, b8 h8 nq1 cap8192 d64, lens 8192 - 37 i:
+    where the unsplit kernel streamed each row's history alone."""
+    dtype = torch.float32 if kv == "float32" else torch.bfloat16
+    lens = [8192 - 37 * i for i in range(8)]
+    args = decode_args(8, 8, 1, 8192, 64, dtype, lens, kv == "int8", hole=False)
+    out = decode_attn.decode_attention(*args)
+    ref = decode_attn.decode_attention_plain(*args).to(dtype)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= (1e-4 if kv == "float32" else 2e-2)
+
+
+def token_major(q):
+    """q [b, h, nq, d] as the model hands it in: a view of [b, nq, h, d]."""
+    return q.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nq", [5, 196])
+def test_decode_kernel_takes_a_token_major_q(cuda_device, dtype, tol, nq):
+    """q as a [b, h, nq, d] view of [b, nq, h, d]: read in place, and the
+    output written in the same layout."""
+    q, *rest = decode_args(3, 2, nq, 1000, 64, dtype, [100, 0, 1000], False)
+    q = token_major(q)
+    out = decode_attn.decode_attention(q, *rest)
+    ref = decode_attn.decode_attention_plain(q, *rest).to(dtype)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("nq,cap", [(1, 64), (1, 8192), (196, 384)])
+def test_decode_launches_at_most_two_kernels(cuda_device, nq, cap):
+    """The split kernel and, with more than one chunk, the merge: nothing
+    else (q, token-major as the model hands it in, and the output stay in
+    q's dtype and layout), counted by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = decode_args(2, 8, nq, cap, 64, torch.bfloat16, [cap, cap // 2], False)
+    args = (token_major(args[0]), *args[1:])
+    decode_attn.decode_attention(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            decode_attn.decode_attention(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    splits, _ = decode_attn.split_plan(2, 8, nq, cap, decode_attn._sm_count(0))
+    assert len(kernels) == 4 * (1 if splits == 1 else 2), kernels
+
+
 def test_kernel_wrappers_count_and_validate(cuda_device):
     q, k, v = (randn(1, 2, 64, 32, seed=s) for s in range(3))
     before = flash_attn.flash_attention.launches
@@ -177,9 +266,6 @@ def test_long_sequence_kernels_match_blocked_plain(cuda_device):
     assert_grads_close(got, want, 1e-2)
     assert flash_attn.flash_attention.launches_by_row[3] == rows_f[3] + 1
     assert flash_attn.flash_attention_backward.launches_by_row[9] == rows_b[9] + 1
-    wide = torch.empty(2, 32768, 8, d, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="grid rows"):
-        flash_attn.flash_attention(wide, wide, wide, causal=True)
 
 
 @pytest.mark.parametrize("dtype,tol,rel", [(torch.float32, 1e-4, 1e-4),
@@ -269,3 +355,60 @@ def test_training_step_on_card_matches_cpu(cuda_device):
         assert (a is None) == (b is None)
         if a is not None:
             assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol,rel", [(torch.float32, 1e-4, 1e-4),
+                                           (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("case", ["spans200", "bh65552"])
+def test_flash_kernels_take_any_span_count_and_b_times_h(cuda_device, dtype, tol, rel, case):
+    """Past the first versions' limits (128 spans a row, b * h 65535): 200
+    spans a row (lengths 0-4, some rectangles overlapping causally), and
+    b * h = 65536 + 16 at a small n; forward (out, lse) and backward
+    against the plain versions."""
+    if case == "spans200":
+        b, h, n, d = 2, 2, 1024, 64
+        spans = torch.tensor([[[0, 3 + 5 * i, (i + r) % 5] for i in range(200)] for r in range(b)],
+                             device=cuda_device)
+    else:
+        b, h, n, d = 4097, 16, 40, 32
+        spans = torch.tensor([[[0, 5, 10]]] * b, device=cuda_device)
+    q, k, v, do = (randn(b, h, n, d, seed=s, dtype=dtype) for s in range(4))
+    out, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True, return_lse=True)
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, spans)
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, do, spans)
+    delta = (do.float() * out.float()).sum(-1)
+    want = flash_attn.flash_attention_backward_plain(q, k, v, do, lse, delta, spans)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    assert_grads_close(got, want, rel)
+
+
+def near_cap_qk(b, h, n, d, seed=0):
+    """q row i is +-45 d^-1/2 (k_i + k_{i-1}) (rows alternate) with keys of
+    norm d^1/2: its logits q.k d^-1/2 on keys i and i - 1 are equal and
+    near +-45, so the softmax of a + row splits between them (a one-hot
+    softmax's dp - delta would cancel to rounding noise)."""
+    k = randn(b, h, n, d, seed=seed)
+    k = k / k.norm(dim=-1, keepdim=True) * d**0.5
+    pair = k + torch.cat([torch.zeros_like(k[:, :, :1]), k[:, :, :-1]], 2)
+    sign = 2.0 * (torch.arange(n, device="cuda") % 2) - 1.0
+    return sign[:, None] * 45.0 * d**-0.5 * pair, k
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_backward_near_the_softcap_matches_plain(cuda_device, dtype, rel):
+    """Logits near +-cap (|q.k| d^-1/2 in 35-60 at cap 50), where a 2^-11
+    tanh would move the recomputed p by ~2 % against the forward's lse."""
+    b, h, n, d = 2, 2, 300, 64
+    q, k = (t.to(dtype) for t in near_cap_qk(b, h, n, d))
+    v, do = (randn(b, h, n, d, seed=s, dtype=dtype) for s in (3, 4))
+    logits = (q.float() * k.float()).sum(-1).abs() * d**-0.5  # each row on its own key
+    assert ((logits > 35) & (logits < 60)).float().mean().item() > 0.9
+    spans = torch.tensor(SPANS, device=cuda_device)
+    out, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True, return_lse=True)
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, do, spans)
+    delta = (do.float() * out.float()).sum(-1)
+    want = flash_attn.flash_attention_backward_plain(q, k, v, do, lse, delta, spans)
+    torch.cuda.synchronize()
+    assert_grads_close(got, want, rel)

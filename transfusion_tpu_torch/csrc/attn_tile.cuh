@@ -1,6 +1,6 @@
 // Shared tile machinery of the port's attention kernels (flash_fwd.cu,
-// flash_bwd.cu, decode_attn.cu): conversions, layouts, the mask, and the
-// FMA tile of the float32 forward and of the decode kernel (the bf16
+// flash_bwd.cu, decode_attn.cu): conversions, layouts, the mask, the
+// softcap's tanh, and the FMA tile of the float32 forward and of the decode kernel (the bf16
 // forward and backward run on the tensor cores, mma_tile.cuh).
 //
 // The FMA tile: a block of 256 threads holds a tile of ROWS = 16 * RPT
@@ -74,46 +74,27 @@ __device__ __forceinline__ float rope_load(const T* row, int c, const float* cs,
   return round_to<T>(x * cs[c] + rot * sn[c]);
 }
 
-// The transfusion mask at global coordinates (`_span_allowed`,
-// pallas_attn_kernel.py:54), spans as (off, len) in shared memory.
-__device__ __forceinline__ bool allowed(int i, int j, const int* sp_off, const int* sp_len,
-                                        int m) {
-  bool ok = i >= j;
-  for (int s = 0; s < m; ++s) ok = ok || (sp_len[s] > 0 && i >= sp_off[s] && j < sp_off[s] + sp_len[s]);
-  return ok;
-}
-
-// any pair of the (q rows [qs, qe], kv cols [kg, kg + W - 1]) tile visible /
-// every pair visible (global coordinates)
-template <int W>
-__device__ __forceinline__ void tile_visibility(int qs, int qe, int kg, const int* sp_off,
-                                                const int* sp_len, int m, bool& any,
-                                                bool& full) {
-  any = qe >= kg;
-  full = qs >= kg + W - 1;
-  for (int s = 0; s < m; ++s) {
-    const int off = sp_off[s], ln = sp_len[s];
-    if (ln <= 0) continue;
-    any = any || (qe >= off && kg < off + ln);
-    full = full || (qs >= off && kg + W - 1 < off + ln);
-  }
-}
-
-// The keys a query row sees form a prefix: a span's rectangle admits the
-// columns j < off + len of every row i >= off, and causality j < i + 1, so
-// allowed(i, j) <=> j < max(i + 1, max over spans with len > 0 and off <= i
-// of off + len), which is nondecreasing in i. visible_ends gives, for R
-// global rows i[r], that end less kv_off, clamped to [0, nkv]: the number
-// of local kv columns row i[r] sees.
+// The transfusion mask (`_span_allowed`, pallas_attn_kernel.py:54) at
+// global coordinates: allowed(i, j) = i >= j | any span with len > 0,
+// i >= off and j < off + len. The keys a query row sees form a prefix: a
+// span's rectangle admits the columns j < off + len of every row i >= off,
+// and causality j < i + 1, so allowed(i, j) <=> j < end(i) = max(i + 1,
+// max over spans with len > 0 and off <= i of off + len), which is
+// nondecreasing in i. The kernels reduce the mask to these ends and read
+// the spans (int32 [m][3] of one batch row: type, off, len) straight from
+// device memory, so any span count takes the same fixed shared memory.
+//
+// visible_ends gives, for R global rows i[r], end(i[r]) less kv_off,
+// clamped to [0, nkv]: the number of local kv columns row i[r] sees.
 template <int R>
-__device__ __forceinline__ void visible_ends(const int (&i)[R], const int* sp_off,
-                                             const int* sp_len, int m, int kv_off, int nkv,
-                                             int (&end)[R]) {
+__device__ __forceinline__ void visible_ends(const int (&i)[R], const int* __restrict__ sp,
+                                             int m, int kv_off, int nkv, int (&end)[R]) {
   long long e[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) e[r] = i[r] + 1LL;
+#pragma unroll 4
   for (int s = 0; s < m; ++s) {
-    const int off = sp_off[s], ln = sp_len[s];
+    const int off = __ldg(sp + 3 * s + 1), ln = __ldg(sp + 3 * s + 2);
     if (ln <= 0) continue;
 #pragma unroll
     for (int r = 0; r < R; ++r)
@@ -124,6 +105,72 @@ __device__ __forceinline__ void visible_ends(const int (&i)[R], const int* sp_of
     const long long x = e[r] - kv_off;
     end[r] = int(x < 0 ? 0 : x > nkv ? nkv : x);
   }
+}
+
+// The first global row that sees global column j: j itself (causality), or
+// the offset of a span whose rectangle reaches j. Every later row sees j
+// too (the ends are nondecreasing).
+__device__ __forceinline__ int first_row_seeing(int j, const int* __restrict__ sp, int m) {
+  int lo = j;
+#pragma unroll 4
+  for (int s = 0; s < m; ++s) {
+    const int off = __ldg(sp + 3 * s + 1), ln = __ldg(sp + 3 * s + 2);
+    if (ln > 0 && j < (long long)off + ln) lo = min(lo, off);
+  }
+  return lo;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(y) for |y| <= 1/4: y + y^3 (-1/3 + y^2 (2/15 + y^2 (-17/315 +
+// y^2 62/2835))); the next term is < 2.1e-9 there
+__device__ __forceinline__ float tanh_small(float y) {
+  const float y2 = y * y;
+  float p = fmaf(y2, 62.f / 2835.f, -17.f / 315.f);
+  p = fmaf(y2, p, 2.f / 15.f);
+  p = fmaf(y2, p, -1.f / 3.f);
+  return fmaf(p * y2, y, y);
+}
+
+// tanh(y) = 1 - 2 / (1 + e^{2y}) (absolute error ~2e-7; e^{2y} kept finite)
+__device__ __forceinline__ float tanh_exp(float y) {
+  return 1.f - __fdividef(2.f, 1.f + exp2_ftz(fminf(y, 15.f) * (2.f * LOG2E)));
+}
+
+// The softcap of every kernel (forward, backward, decode): x = cap *
+// tanh(x / cap) over the N values a lane holds, cap > 0. tanh is exact to
+// ~2e-7: the odd polynomial where every |x / cap| of the warp is <= 1/4
+// (|x| <= 12.5 at cap 50, every score of a model near its init; no
+// special-function unit), else 1 - 2 / (1 + e^{2y}). tanh.approx (2^-11
+// relative, times the cap) would move an lse by ~1e-3 and make the
+// backward's p disagree with the forward's. The choice is warp-uniform:
+// all 32 lanes of the warp must call it together.
+template <int N>
+__device__ __forceinline__ void softcap_tile(float (&x)[N], float cap) {
+  const float inv = 1.f / cap;
+  bool big = false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) big |= fabsf(x[i] * inv) > 0.25f;
+  if (__any_sync(0xffffffffu, big)) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = cap * tanh_exp(x[i] * inv);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = cap * tanh_small(x[i] * inv);
+  }
+}
+
+// a multi-dimensional float register array as one of its N values
+template <int N, typename T>
+__device__ __forceinline__ float (&flat(T& x))[N] {
+  static_assert(sizeof(T) == N * sizeof(float), "flat: N must count every value of x");
+  return reinterpret_cast<float(&)[N]>(x);
 }
 
 template <int D, int RPT>

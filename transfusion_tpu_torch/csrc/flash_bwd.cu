@@ -36,9 +36,10 @@
 //
 // bf16 (every training path): tensor cores, in namespace `tc` below.
 //   * One block per (b*h, 64-row kv tile) holds K and V and walks the
-//     64-row q tiles that can see it (from the first that causality or a
-//     span's rectangle reaches, `:646-655`), skipping tiles with no
-//     visible pair. Q, K, V and dO tiles sit in shared memory as bf16
+//     64-row q tiles that can see it: the keys a row sees form a prefix
+//     whose end grows with the row (attn_tile `visible_ends`), so these are
+//     the tiles from the one holding the first row that sees the kv tile's
+//     first column (`first_row_seeing`) to the end. Q, K, V and dO tiles sit in shared memory as bf16
 //     (16-byte row pad: ldmatrix without bank conflicts), filled by 16-byte
 //     cp.async copies into two buffers, so the next Q / dO tile streams in
 //     while the current one is consumed; rows past n are zero-filled. Under
@@ -58,11 +59,14 @@
 //     power of two at d 32): s = scale (q.k), dk = scale (ds^T q),
 //     dq = scale (ds k). dq/dk are un-rotated from the accumulator
 //     fragment, which holds columns 2c and 2c+1 in one thread.
-//   * One elementwise pass per pair: tanh once (tanh.approx on the
-//     special-function unit; the chain reuses it), exp as exp2 of
-//     (s - lse) log2 e. The mask is evaluated per element only on tiles
-//     that hold a masked pair, in the fragment's own coordinates; tiles
-//     that causality makes full skip the span loop. Where dp - delta
+//   * One elementwise pass per pair: the forward's exact tanh once (attn_tile
+//     `softcap_tile`, so that p agrees with the lse the forward saved even
+//     near the cap; the chain reuses it), exp as exp2 of (s - lse) log2 e.
+//     The mask is one compare per pair against its q row's visible end
+//     (`row_ends` computes every row's once per call from the spans in
+//     device memory, any span count; a q tile's 64 come in by cp.async
+//     beside its lse and delta), and none on a tile whose first q row sees
+//     the whole kv tile. Where dp - delta
 //     cancels to within 2^-10 (a row that sees one key, or keys of equal
 //     v), ds is float32 rounding noise; that dp is then taken from
 //     sequential float32 FMAs, as the plain version's product takes it,
@@ -73,17 +77,19 @@
 //     one-dimensional, (b*h) fastest: kv tile 0 of every head, the longest
 //     walk under causality, starts first.
 //
-// float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernels,
-// unchanged but for d 256: float32 products from shared memory, no tensor cores (TF32
-// would keep ~3 decimal digits), deterministic. Two kernels, no atomics:
+// float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernels:
+// float32 products from shared memory, no tensor cores (TF32 would keep ~3
+// decimal digits), deterministic. Two kernels, no atomics, the mask from
+// the visible ends as above:
 //   flash_bwd_dkv: one block per (b*h, 64-row kv tile; 32 rows at d 256,
 //     where four 64-row float32 tiles would not fit); loops over the q
-//     tiles from the first that can see the kv tile (causality, or a span
-//     whose rectangle reaches it, `:646-655`) to the end, skipping tiles
-//     with no visible pair; accumulates dk and dv in registers.
+//     tiles from the first that can see the kv tile to the end;
+//     accumulates dk and dv in registers.
 //   flash_bwd_dq: one block per (b*h, 64-row q tile; 32 at d 256); loops
 //     over the kv tiles up to the last one visible (as the forward),
 //     accumulates dq.
+// Every grid is one-dimensional, (b*h) fastest, so b*h is not capped at
+// grid.y's 65535.
 // Both recompute p from the forward's lse. q is scaled in float32, dq again
 // at the end. With cos/sin, q and k are rotated on load and dq/dk
 // un-rotated with the negated sin before the store (`:1408-1410`): the
@@ -102,7 +108,6 @@ namespace {
 constexpr int BQ = 64;       // q rows of the dkv kernel's q tiles
 constexpr int BKV = BK;      // kv rows of the dq kernel's kv tiles
 constexpr int PS = BKV + 1;  // padded stride of the p / ds tiles
-constexpr int MAX_SPANS = 128;
 
 // Rows per thread of the FMA kernels' own row tile (the dkv kernel's kv
 // rows, the dq kernel's q rows): 4 (64-row tiles), or 2 at d 256, where
@@ -116,6 +121,7 @@ struct Params {
   const void *q, *k, *v, *dout;
   const float *lse, *delta, *cos, *sin;
   const int* spans;
+  int* ends;  // int32 [b, nq]: each q row's visible end, written by `row_ends`
   void *dq, *dk, *dv;
   int m, H, nq, nkv, q_off, kv_off, nhd;
   float scale, softcap;
@@ -186,19 +192,20 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base, size_t rs, 
 
 // p and ds of this thread's R x 4 pairs of one tile, from the raw scores
 // s and dp, the visibility `ok` and each pair's q-row lse and delta.
-// Writes p, and ds over s.
+// Writes p, and ds over s. Called by every thread of the block.
 template <int R>
 __device__ __forceinline__ void grad_scores(float (&s)[R][4], const float (&dp)[R][4],
                                             const bool (&ok)[R][4], const float (&lse)[R][4],
                                             const float (&delta)[R][4], float softcap,
                                             float (&p)[R][4]) {
+  if (softcap > 0.f) softcap_tile(flat<R * 4>(s), softcap);
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      float x = s[r][j], chain = 1.f;
+      const float x = s[r][j];
+      float chain = 1.f;
       if (softcap > 0.f) {
-        x = tanhf(x / softcap) * softcap;
         const float t = x / softcap;
         chain = 1.f - t * t;
       }
@@ -248,17 +255,24 @@ template <int D>
 struct Smem {
   static constexpr int LD = D + 1, RT = 16 * rpt<D>();  // rows of the own tile
   // dkv: K, V [RT] and Q, dO [64] tiles + p, ds [RT] tiles; dq: Q, dO [RT]
-  // and K, V [64] tiles + the ds [RT] tile; lse and delta [64]
+  // and K, V [64] tiles + the ds [RT] tile; lse and delta [64]; the q
+  // tile's visible ends (dkv, int [64])
   static constexpr size_t kFloats =
       (2 * size_t(RT) + 2 * 64) * LD + 2 * size_t(RT) * PS + 2 * 64;
-  static constexpr size_t kBytes = kFloats * sizeof(float) + 2 * MAX_SPANS * sizeof(int);
+  static constexpr size_t kBytes = kFloats * sizeof(float) + 64 * sizeof(int);
 };
 
-__device__ __forceinline__ void load_spans(const Params& P, int bi, int* sp_off, int* sp_len) {
-  for (int s = threadIdx.x; s < P.m; s += NT) {
-    sp_off[s] = P.spans[(size_t(bi) * P.m + s) * 3 + 1];
-    sp_len[s] = P.spans[(size_t(bi) * P.m + s) * 3 + 2];
-  }
+// The visible end (attn_tile `visible_ends`, local kv columns) of every q
+// row, once per call: the dK/dV kernels walk many q tiles per kv tile, and
+// a span loop per tile would stall them (20 spans at n 16384: +13 %). One
+// thread per (batch row, q row).
+__global__ void __launch_bounds__(256) row_ends(const Params P, int b) {
+  const size_t i = blockIdx.x * size_t(256) + threadIdx.x;
+  if (i >= size_t(b) * P.nq) return;
+  const int bi = int(i / P.nq), rows[1] = {P.q_off + int(i % P.nq)};
+  int end[1];
+  visible_ends<1>(rows, P.spans + size_t(bi) * P.m * 3, P.m, P.kv_off, P.nkv, end);
+  P.ends[i] = end[0];
 }
 
 template <typename T, int D, bool ROPE>
@@ -273,13 +287,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
   float* dSs = Ps + KT * PS;
   float* lse_s = dSs + KT * PS;
   float* delta_s = lse_s + 64;
-  int* sp_off = reinterpret_cast<int*>(delta_s + 64);
-  int* sp_len = sp_off + MAX_SPANS;
+  int* end_s = reinterpret_cast<int*>(delta_s + 64);
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int H = P.H, nq = P.nq, nkv = P.nkv, m = P.m;
-  const int bh = blockIdx.y, bi = bh / H, head = bh - bi * H;
-  const int k0 = blockIdx.x * KT, kg = k0 + P.kv_off;
+  const int H = P.H, nq = P.nq, nkv = P.nkv;
+  // one-dimensional grid, (b*h) fastest: no 65535 cap on b*h
+  const int BH = gridDim.x / ((nkv + KT - 1) / KT);
+  const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
+  const int k0 = int(blockIdx.x / BH) * KT, kg = k0 + P.kv_off;
   const size_t rs = row_stride(P.nhd, H, D);
   const T* qb = static_cast<const T*>(P.q) + head_base(P.nhd, bi, head, H, nq, D);
   const T* ob = static_cast<const T*>(P.dout) + head_base(P.nhd, bi, head, H, nq, D);
@@ -287,20 +302,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
   const T* vb = static_cast<const T*>(P.v) + head_base(P.nhd, bi, head, H, nkv, D);
   const float* lse = P.lse + size_t(bh) * nq;
   const float* delta = P.delta + size_t(bh) * nq;
+  const int* sp = P.spans + size_t(bi) * P.m * 3;
 
-  load_spans(P, bi, sp_off, sp_len);
   load_tile<T, D, ROPE, KT>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
   load_tile<T, D, false, KT>(Vs, vb, rs, k0, nkv, nullptr, nullptr, bi, 1.f);
-  __syncthreads();
 
-  // first global q row that can see this kv tile: causally kg, or the
-  // offset of any span whose rectangle (rows >= off, cols < off + len)
-  // reaches the tile
-  int lo_tok = kg;
-  for (int s = 0; s < m; ++s) {
-    const int off = sp_off[s], ln = sp_len[s];
-    if (ln > 0 && kg < off + ln && kg + KT - 1 >= off) lo_tok = min(lo_tok, off);
-  }
+  // the q tiles from the one holding the first row that sees kv column kg
+  // on: each has a visible pair (the ends grow with the row)
+  const int lo_tok = first_row_seeing(kg, sp, P.m);
   const int lo = lo_tok - P.q_off <= 0 ? 0 : (lo_tok - P.q_off) / BQ;
   const int n_q_tiles = (nq + BQ - 1) / BQ;
 
@@ -311,19 +320,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
     for (int c = 0; c < DC; ++c) dk[r][c] = dv[r][c] = 0.f;
 
   for (int iq = lo; iq < n_q_tiles; ++iq) {
-    const int q0 = iq * BQ, qs = q0 + P.q_off, qe = min(q0 + BQ, nq) - 1 + P.q_off;
-    bool any, full;
-    tile_visibility<KT>(qs, qe, kg, sp_off, sp_len, m, any, full);
-    if (!any) continue;  // uniform across the block
-    full = full && q0 + BQ <= nq && k0 + KT <= nkv;
-
-    __syncthreads();  // the previous tile's readers are done
+    const int q0 = iq * BQ;
+    __syncthreads();  // K / V are written / the previous tile's readers are done
     load_tile<T, D, ROPE, BQ>(Qs, qb, rs, q0, nq, P.cos, P.sin, bi, P.scale);
     load_tile<T, D, false, BQ>(dOs, ob, rs, q0, nq, nullptr, nullptr, bi, 1.f);
     if (tid < 64) {
       const bool in = q0 + tid < nq;
       lse_s[tid] = in ? lse[q0 + tid] : 0.f;
       delta_s[tid] = in ? delta[q0 + tid] : 0.f;
+      end_s[tid] = in ? P.ends[size_t(bi) * nq + q0 + tid] : 0;
     }
     __syncthreads();
 
@@ -337,9 +342,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
       const int jl = k0 + ty * R + r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int il = q0 + tx + 16 * j;
-        ok[r][j] = full || (il < nq && jl < nkv &&
-                            allowed(il + P.q_off, jl + P.kv_off, sp_off, sp_len, m));
+        ok[r][j] = jl < end_s[tx + 16 * j];  // 0 past nq
         l[r][j] = lse_s[tx + 16 * j];
         dl[r][j] = delta_s[tx + 16 * j];
       }
@@ -375,20 +378,18 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
   float* dSs = Vs + 64 * LD;
   float* lse_s = dSs + QT * PS;
   float* delta_s = lse_s + 64;
-  int* sp_off = reinterpret_cast<int*>(delta_s + 64);
-  int* sp_len = sp_off + MAX_SPANS;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int H = P.H, nq = P.nq, nkv = P.nkv, m = P.m;
-  const int bh = blockIdx.y, bi = bh / H, head = bh - bi * H;
-  const int q0 = blockIdx.x * QT;
+  const int H = P.H, nq = P.nq, nkv = P.nkv;
+  const int BH = gridDim.x / ((nq + QT - 1) / QT);  // as in the dkv kernel
+  const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
+  const int q0 = int(blockIdx.x / BH) * QT;
   const size_t rs = row_stride(P.nhd, H, D);
   const T* qb = static_cast<const T*>(P.q) + head_base(P.nhd, bi, head, H, nq, D);
   const T* ob = static_cast<const T*>(P.dout) + head_base(P.nhd, bi, head, H, nq, D);
   const T* kb = static_cast<const T*>(P.k) + head_base(P.nhd, bi, head, H, nkv, D);
   const T* vb = static_cast<const T*>(P.v) + head_base(P.nhd, bi, head, H, nkv, D);
 
-  load_spans(P, bi, sp_off, sp_len);
   load_tile<T, D, ROPE, QT>(Qs, qb, rs, q0, nq, P.cos, P.sin, bi, P.scale);
   load_tile<T, D, false, QT>(dOs, ob, rs, q0, nq, nullptr, nullptr, bi, 1.f);
   if (tid < QT) {
@@ -398,12 +399,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
   }
   __syncthreads();
 
-  const int qs = q0 + P.q_off, qe = min(q0 + QT, nq) - 1 + P.q_off;
-  int hi_tok = qe;
-  for (int s = 0; s < m; ++s)
-    if (sp_len[s] > 0 && qe >= sp_off[s]) hi_tok = max(hi_tok, sp_off[s] + sp_len[s] - 1);
-  const int n_kv_tiles = (nkv + BKV - 1) / BKV;
-  const int hi = hi_tok < P.kv_off ? 0 : min((hi_tok - P.kv_off) / BKV + 1, n_kv_tiles);
+  // kv columns seen by this thread's rows and by the block's last row
+  // (the loop bound: every kv tile below it has a visible pair)
+  int end[R + 1];
+  {
+    int rows[R + 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r) rows[r] = P.q_off + q0 + ty * R + r;
+    rows[R] = P.q_off + min(q0 + QT, nq) - 1;
+    visible_ends<R + 1>(rows, P.spans + size_t(bi) * P.m * 3, P.m, P.kv_off, nkv, end);
+  }
+  const int hi = (end[R] + BKV - 1) / BKV;
 
   float l[R][4], dl[R][4];
 #pragma unroll
@@ -421,12 +427,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
     for (int c = 0; c < DC; ++c) dq[r][c] = 0.f;
 
   for (int it = 0; it < hi; ++it) {
-    const int k0 = it * BKV, kg = k0 + P.kv_off;
-    bool any, full;
-    tile_visibility<BKV>(qs, qe, kg, sp_off, sp_len, m, any, full);
-    if (!any) continue;  // uniform across the block
-    full = full && q0 + QT <= nq && k0 + BKV <= nkv;
-
+    const int k0 = it * BKV;
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D, ROPE, BKV>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
     load_tile<T, D, false, BKV>(Vs, vb, rs, k0, nkv, nullptr, nullptr, bi, 1.f);
@@ -437,15 +438,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
     dot_tile<D, R>(Qs, Ks, s, tx, ty);
     dot_tile<D, R>(dOs, Vs, dp, tx, ty);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int il = q0 + ty * R + r;
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int jl = k0 + tx + 16 * j;
-        ok[r][j] = full || (il < nq && jl < nkv &&
-                            allowed(il + P.q_off, jl + P.kv_off, sp_off, sp_len, m));
-      }
-    }
+      for (int j = 0; j < 4; ++j) ok[r][j] = q0 + ty * R + r < nq && k0 + tx + 16 * j < end[r];
     grad_scores<R>(s, dp, ok, l, dl, P.softcap, p);
 #pragma unroll
     for (int r = 0; r < R; ++r)
@@ -475,10 +470,13 @@ int launch(const Params& P, int b, cudaStream_t stream) {
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  dkv<<<dim3((P.nkv + RT - 1) / RT, b * P.H), NT, smem, stream>>>(P);
+  const long long bh = (long long)b * P.H;
+  const long long dkv_blocks = bh * ((P.nkv + RT - 1) / RT), dq_blocks = bh * ((P.nq + RT - 1) / RT);
+  if (std::max(dkv_blocks, dq_blocks) > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  dkv<<<unsigned(dkv_blocks), NT, smem, stream>>>(P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  dq<<<dim3((P.nq + RT - 1) / RT, b * P.H), NT, smem, stream>>>(P);
+  dq<<<unsigned(dq_blocks), NT, smem, stream>>>(P);
   return int(cudaGetLastError());
 }
 
@@ -508,7 +506,6 @@ using namespace mma_tile;
 using bf16 = __nv_bfloat16;
 
 constexpr int TB = 64;  // q rows and kv rows per tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Lay {
@@ -523,20 +520,29 @@ struct Lay {
   static constexpr int DS = D > 64 ? D / 64 : 1;
   static constexpr int DW = D / DS;
   static constexpr int TT = 32 * 4 * DS;  // threads of a block
-  // K, V, 2 x Q and 2 x dO [64][D] tiles, the ds^T tile, 2 x 64 lse and
-  // 2 x 64 delta, the spans
+  // K, V, 2 x Q and 2 x dO [64][D] tiles, the ds^T tile, 2 x 64 lse,
+  // 2 x 64 delta and 2 x 64 visible ends
   static constexpr size_t kBytes =
       (6 * size_t(TILE) + size_t(TB) * SLD) * sizeof(bf16) + 4 * TB * sizeof(float) +
-      2 * MAX_SPANS * sizeof(int);
+      2 * TB * sizeof(int);
 };
 
-// lse (threads 0-63) and delta (64-127) of q rows [q0, q0 + 64); 0 past nq
-__device__ __forceinline__ void async_row_stats(float* ls, float* dls, const float* lse,
-                                                const float* delta, int q0, int nq) {
-  if (threadIdx.x >= 2 * TB) return;
-  const int r = threadIdx.x & (TB - 1), g = q0 + r;
-  const bool in = g < nq, first = threadIdx.x < TB;
-  cp_async4((first ? ls : dls) + r, (first ? lse : delta) + (in ? g : 0), in);
+// lse, delta and visible end of q rows [q0, q0 + 64); 0 past nq
+template <int NTH>
+__device__ __forceinline__ void async_row_stats(float* ls, float* dls, int* es, const float* lse,
+                                                const float* delta, const int* ends, int q0,
+                                                int nq) {
+  for (int e = threadIdx.x; e < 3 * TB; e += NTH) {
+    const int r = e % TB, g = q0 + r;
+    const bool in = g < nq;
+    const int gi = in ? g : 0;
+    if (e < TB)
+      cp_async4(ls + r, lse + gi, in);
+    else if (e < 2 * TB)
+      cp_async4(dls + r, delta + gi, in);
+    else
+      cp_async4(es + r, ends + gi, in);
+  }
 }
 
 // (x0, x1) = columns (a, a + 1) of a row, un-rotated: x cos - rot(x) sin
@@ -547,22 +553,13 @@ __device__ __forceinline__ void unrotate_pair(float& x0, float& x1, const float*
   x0 = y0;
 }
 
-// tanh on the special-function unit (max relative error ~2^-11), as
-// production flash kernels evaluate softcaps
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// From the raw products s = q.k and dp of one pair: p (returned) and ds
+// From the capped logit x of one pair and its raw dp: p (returned) and ds
 // (over dp). `ok`: the pair is visible.
-__device__ __forceinline__ float grad_pair(float s, float& dp, bool ok, float lse, float delta,
-                                           float scale, float cap, float inv_cap) {
-  float x = s * scale, chain = 1.f;
+__device__ __forceinline__ float grad_pair(float x, float& dp, bool ok, float lse, float delta,
+                                           float cap, float inv_cap) {
+  float chain = 1.f;
   if (cap > 0.f) {
-    const float th = tanh_approx(x * inv_cap);
-    x = th * cap;
+    const float th = x * inv_cap;
     chain = 1.f - th * th;
   }
   const float p = ok ? exp2f((x - lse) * LOG2E) : 0.f;
@@ -579,22 +576,6 @@ __device__ __forceinline__ float dot_fma(const bf16* x, const bf16* y) {
   return acc;
 }
 
-// The first q tile in [iq, n_q_tiles) with a pair visible to the kv tile
-// at global column kg (n_q_tiles if none). A tile whose last q row sees
-// the first kv column causally is visible without the span loop.
-__device__ __forceinline__ int visible_from(int iq, int n_q_tiles, int kg, int nq,
-                                            const Params& P, const int* sp_off,
-                                            const int* sp_len) {
-  for (; iq < n_q_tiles; ++iq) {
-    const int qs = iq * TB + P.q_off, qe = min(iq * TB + TB, nq) - 1 + P.q_off;
-    if (qe >= kg) break;
-    bool any, full;
-    tile_visibility<TB>(qs, qe, kg, sp_off, sp_len, P.m, any, full);
-    if (any) break;
-  }
-  return iq;
-}
-
 // dK and dV of one (b*h, kv tile), and dQ += ds K of each of its q tiles
 // into dq_acc.
 template <int D, bool ROPE>
@@ -609,14 +590,13 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
   bf16* Ss = Os + 2 * TILE;  // ds^T [kv][q]
   float* ls = reinterpret_cast<float*>(Ss + TB * SLD);  // two buffers of lse
   float* dls = ls + 2 * TB;                              // two buffers of delta
-  int* sp_off = reinterpret_cast<int*>(dls + 2 * TB);
-  int* sp_len = sp_off + MAX_SPANS;
+  int* es = reinterpret_cast<int*>(dls + 2 * TB);        // two buffers of visible ends
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   // this warp's 16 rows of the tile (kv rows of s^T, dK, dV; q rows of dQ)
   // and the first of the DW columns of dK, dV and dQ it owns
   const int rw = 16 * (w & 3), cw = (w >> 2) * DW;
-  const int H = P.H, nq = P.nq, nkv = P.nkv, m = P.m;
+  const int H = P.H, nq = P.nq, nkv = P.nkv;
   const int BH = gridDim.x / ((nkv + TB - 1) / TB);
   const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
   const int k0 = (blockIdx.x / BH) * TB, kg = k0 + P.kv_off;
@@ -628,22 +608,18 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
   const float* lse = P.lse + size_t(bh) * nq;
   const float* delta = P.delta + size_t(bh) * nq;
   const float scale = P.scale, cap = P.softcap, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+  const int* sp = P.spans + size_t(bi) * P.m * 3;
+  const int* ends = P.ends + size_t(bi) * nq;
 
-  load_spans(P, bi, sp_off, sp_len);
   if (ROPE)
     copy_rows_regs<D, LD, TB, L::TT, true>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
   else
     copy_rows_async<D, LD, TB, L::TT>(Ks, kb, rs, k0, nkv);
   copy_rows_async<D, LD, TB, L::TT>(Vs, vb, rs, k0, nkv);
-  __syncthreads();  // the spans
 
-  // first global q row that can see this kv tile: causally kg, or the
-  // offset of any span whose rectangle reaches the tile
-  int lo_tok = kg;
-  for (int s = 0; s < m; ++s) {
-    const int off = sp_off[s], ln = sp_len[s];
-    if (ln > 0 && kg < off + ln && kg + TB - 1 >= off) lo_tok = min(lo_tok, off);
-  }
+  // the q tiles from the one holding the first row that sees kv column kg
+  // on: each has a visible pair (the ends grow with the row)
+  const int lo_tok = first_row_seeing(kg, sp, P.m);
   const int n_q_tiles = (nq + TB - 1) / TB;
   const int lo = lo_tok - P.q_off <= 0 ? 0 : (lo_tok - P.q_off) / TB;
   auto load_q = [&](int iq, int buf) {
@@ -654,31 +630,28 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
     else
       copy_rows_async<D, LD, TB, L::TT>(Qs + buf * TILE, qb, rs, q0, nq);
     copy_rows_async<D, LD, TB, L::TT>(Os + buf * TILE, ob, rs, q0, nq);
-    async_row_stats(ls + buf * TB, dls + buf * TB, lse, delta, q0, nq);
+    async_row_stats<L::TT>(ls + buf * TB, dls + buf * TB, es + buf * TB, lse, delta, ends, q0,
+                           nq);
   };
 
   float dk[DW / 8][4] = {}, dv[DW / 8][4] = {};
-  int iq = visible_from(lo, n_q_tiles, kg, nq, P, sp_off, sp_len), buf = 0;
-  if (iq < n_q_tiles) load_q(iq, 0);
+  int buf = 0;
+  if (lo < n_q_tiles) load_q(lo, 0);
   cp_async_commit();  // K, V and the first Q / dO tile
-  while (iq < n_q_tiles) {
-    const int nxt = visible_from(iq + 1, n_q_tiles, kg, nq, P, sp_off, sp_len);
-    if (nxt < n_q_tiles) load_q(nxt, buf ^ 1);
+  for (int iq = lo; iq < n_q_tiles; ++iq) {
+    if (iq + 1 < n_q_tiles) load_q(iq + 1, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // all but the tile just started
     __syncthreads();
 
     const int q0 = iq * TB;
-    // full: every pair visible (causally without the span loop)
-    bool any = true, full = q0 + P.q_off >= kg + TB - 1;
-    if (!full)
-      tile_visibility<TB>(q0 + P.q_off, min(q0 + TB, nq) - 1 + P.q_off, kg, sp_off, sp_len, m, any,
-                      full);
-    full = full && q0 + TB <= nq && k0 + TB <= nkv;
     const bf16* Qb = Qs + buf * TILE;
     const bf16* Ob = Os + buf * TILE;
     const float* lb = ls + buf * TB;
     const float* db = dls + buf * TB;
+    const int* eb = es + buf * TB;  // 0 past nq
+    // full: every pair visible (the tile's first row sees the whole kv tile)
+    const bool full = eb[0] >= k0 + TB && q0 + TB <= nq;
 
     // transposed scores: rows are kv rows rw + (g, g + 8), columns q rows
     float st[8][4] = {}, dpt[8][4] = {};
@@ -721,6 +694,12 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
             dpt[j][c] = dot_fma<D>(Ob + (8 * j + 2 * t + (c & 1)) * LD,
                                    Vs + (rw + g + 8 * (c >> 1)) * LD);
     }
+    // the capped logits: scale on the float32 sums, the shared exact tanh
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[j][c] *= scale;
+    if (cap > 0.f) softcap_tile(flat<32>(st), cap);
     // the mask, in the fragment's coordinates, only on a tile with a
     // masked pair
     auto grads = [&](auto masked) {
@@ -729,10 +708,8 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int qi = 8 * j + 2 * t + (c & 1), kj = rw + g + 8 * (c >> 1);
-          const bool ok = !decltype(masked)::value ||
-                          (q0 + qi < nq && k0 + kj < nkv &&
-                           allowed(q0 + qi + P.q_off, kg + kj, sp_off, sp_len, m));
-          st[j][c] = grad_pair(st[j][c], dpt[j][c], ok, lb[qi], db[qi], scale, cap, inv_cap);
+          const bool ok = !decltype(masked)::value || k0 + kj < eb[qi];
+          st[j][c] = grad_pair(st[j][c], dpt[j][c], ok, lb[qi], db[qi], cap, inv_cap);
         }
     };
     if (full)
@@ -791,7 +768,6 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
       }
     }
     __syncthreads();  // this buffer's (and ds^T's) readers are done
-    iq = nxt;
     buf ^= 1;
   }
   cp_async_wait<0>();
@@ -875,24 +851,27 @@ int dispatch(int d, const Params& P, int b, float* dq_acc, cudaStream_t stream) 
 // q/dout/dq [b,h,nq,d], k/v/dk/dv [b,h,nkv,d] (nhd = 0) or the token-major
 // [b,n,h*d] (nhd = 1), contiguous, bf16 (is_bf16=1; q, k, v, dout and
 // cos/sin 16-byte aligned) or float32; lse and delta float32 [b,h,nq];
-// spans int32 [b,m,3] (m <= 128); cos/sin float32 [b,nq,d] or NULL (needs
+// spans int32 [b,m,3] (any m); cos/sin float32 [b,nq,d] or NULL (needs
 // nq == nkv when given); dq_acc: for bf16 a zeroed float32 [b,h,nq,d]
-// scratch, for float32 NULL.
+// scratch, for float32 NULL; ends: an int32 [b,nq] scratch (each q row's
+// visible end, written here first).
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, const int* spans, int m,
                          const float* cos, const float* sin, void* dq, void* dk, void* dv,
-                         float* dq_acc, int b, int h, int nq, int nkv, int d, int q_off,
-                         int kv_off, int nhd, float scale, float softcap, int is_bf16,
-                         void* stream) {
-  if (m < 0 || m > MAX_SPANS || nq <= 0 || nkv <= 0 || b * h > 65535)
-    return int(cudaErrorInvalidValue);  // one grid row per (batch, head)
+                         float* dq_acc, int* ends, int b, int h, int nq, int nkv, int d,
+                         int q_off, int kv_off, int nhd, float scale, float softcap,
+                         int is_bf16, void* stream) {
+  if (m < 0 || nq <= 0 || nkv <= 0 || ends == nullptr) return int(cudaErrorInvalidValue);
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && nq != nkv))
     return int(cudaErrorInvalidValue);
   if ((dq_acc != nullptr) != (is_bf16 != 0)) return int(cudaErrorInvalidValue);
-  const Params P{q,   k,  v,  dout, lse, delta, cos,    sin,  spans, dq,    dk,
-                 dv,  m,  h,  nq,   nkv, q_off, kv_off, nhd,  scale, softcap};
+  const Params P{q,  k,  v,  dout, lse,   delta,  cos, sin,   spans,  ends, dq,
+                 dk, dv, m,  h,    nq,    nkv,    q_off, kv_off, nhd, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t rows = size_t(b) * nq;
+  row_ends<<<unsigned((rows + 255) / 256), 256, 0, s>>>(P, b);
+  if (cudaError_t err = cudaGetLastError(); err != cudaSuccess) return int(err);
   if (is_bf16) return tc::dispatch(d, P, b, dq_acc, s);
   return dispatch_d<float>(d, P, b, s);
 }

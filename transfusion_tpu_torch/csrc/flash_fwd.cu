@@ -40,8 +40,8 @@
 //     where two output accumulators would not fit in registers. The 1-D
 //     grid launches the last q tile of every head first: under causality
 //     it sees the most keys, so the longest blocks do not form the tail.
-//   * Q, the first K / V tile and the spans are loaded at once (cp.async;
-//     short sequences are bound by this latency); q is then scaled in
+//   * Q and the first K / V tile are in flight (cp.async) while the spans
+//     are read (short sequences are bound by this latency); q is then scaled in
 //     place in its own dtype (under RoPE it is rotated and scaled through
 //     registers) and kept as mma A fragments in registers (at d 256 the
 //     output accumulator alone is 128 registers a thread, so Q is read
@@ -56,23 +56,25 @@
 //     softmax runs in registers: row max and sum over the 4 lanes of a quad.
 //   * The mask without a span loop per element: the keys a row sees form a
 //     prefix (attn_tile `visible_ends`), so each thread finds once, for its
-//     two rows, how many kv columns they see. The block walks the kv tiles
+//     two rows, how many kv columns they see, reading the spans from device
+//     memory (any span count; no shared memory for them). The block walks the kv tiles
 //     up to the last row's end, none of which is hidden from every row; a
 //     warp skips a tile none of its rows sees, takes no mask on a tile that
 //     its first row sees whole (the ends grow with the row), and otherwise
 //     masks with one compare per score.
-//   * The softcap's tanh is exact to ~1e-8: an odd Taylor polynomial
-//     through y^9 where every |y| = |s / cap| of the warp's tile is at most
-//     1/4 (|s| <= 12.5 at cap 50: every score of a model near its init, no
-//     special-function unit), else 1 - 2 / (1 + e^{2y}). tanh.approx
-//     (2^-11 relative, times the cap) would move lse by ~1e-3, beyond the
-//     card checks' 1e-4. exp is exp2 on the special-function unit.
+//   * The softcap's tanh is exact (attn_tile `softcap_tile`, shared with
+//     the backward and decode): tanh.approx (2^-11 relative, times the cap)
+//     would move lse by ~1e-3, beyond the card checks' 1e-4. exp is exp2
+//     on the special-function unit.
 //
-// float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernel,
-// unchanged but for d 256: one block of 256 threads per (b*h, 64-row q
-// tile), float32 products from shared memory (no tensor cores: TF32 would
-// keep ~3 decimal digits), loops over the kv tiles up to the last one
-// visible, skips hidden tiles and the mask on fully visible ones.
+// float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernel:
+// one block of 256 threads per (b*h, 64-row q tile), float32 products from
+// shared memory (no tensor cores: TF32 would keep ~3 decimal digits), loops
+// over the kv tiles up to the last one the block's last row sees, masks
+// with one compare per score against its row's visible end.
+//
+// Both grids are one-dimensional, (b*h) fastest, so b*h is not capped at
+// grid.y's 65535.
 
 #include "attn_tile.cuh"
 #include "mma_tile.cuh"
@@ -80,8 +82,6 @@
 using namespace attn_tile;
 
 namespace {
-
-constexpr int MAX_SPANS = 128;
 
 struct Rope {
   const float* cos;  // float32 [b, nq, d] or NULL
@@ -106,21 +106,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   using TileT = Tile<D, RPT>;
   extern __shared__ float smem[];
   TileT tile(smem);
-  int* sp_off = reinterpret_cast<int*>(smem + TileT::kFloats);
-  int* sp_len = sp_off + MAX_SPANS;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, bi = bh / H, head = bh - bi * H;
-  const int q0 = blockIdx.x * BQ;
+  // one-dimensional grid, (b*h) fastest: no 65535 cap on b*h
+  const int BH = gridDim.x / ((nq + BQ - 1) / BQ);
+  const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
+  const int q0 = int(blockIdx.x / BH) * BQ;
   const size_t rs = row_stride(NHD, H, D);
   const T* qb = q + head_base(NHD, bi, head, H, nq, D);
   const T* kb = k + head_base(NHD, bi, head, H, nkv, D);
   const T* vb = v + head_base(NHD, bi, head, H, nkv, D);
-
-  for (int s = tid; s < m; s += NT) {
-    sp_off[s] = spans[(size_t(bi) * m + s) * 3 + 1];
-    sp_len[s] = spans[(size_t(bi) * m + s) * 3 + 2];
-  }
   // q * scale in q's own dtype (the JAX kernel scales before the product)
   const float scale_t = round_to<T>(scale);
   for (int e = tid; e < BQ * D; e += NT) {
@@ -133,17 +128,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     tile.Qs[r * TileT::QS + c] = x;
   }
-  __syncthreads();
 
-  // KV loop bound: causal visibility plus every span rectangle this tile's
-  // rows reach, in global coordinates
-  const int q_start = q0 + q_off;
-  const int q_end = min(q0 + BQ, nq) - 1 + q_off;
-  int hi_tok = q_end;
-  for (int s = 0; s < m; ++s)
-    if (sp_len[s] > 0 && q_end >= sp_off[s]) hi_tok = max(hi_tok, sp_off[s] + sp_len[s] - 1);
-  const int n_tiles = (nkv + BK - 1) / BK;
-  const int hi = hi_tok < kv_off ? 0 : min((hi_tok - kv_off) / BK + 1, n_tiles);
+  // kv columns seen by this thread's rows and by the block's last row (the
+  // loop bound: the ends grow with the row, so every tile below it has a
+  // visible pair)
+  int end[RPT + 1];
+  {
+    int rows[RPT + 1];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) rows[r] = q_off + q0 + ty * RPT + r;
+    rows[RPT] = q_off + min(q0 + BQ, nq) - 1;
+    visible_ends<RPT + 1>(rows, spans + size_t(bi) * m * 3, m, kv_off, nkv, end);
+  }
+  const int hi = (end[RPT] + BK - 1) / BK;
 
   float m_i[RPT], l_i[RPT], acc[RPT][TileT::DC];
 #pragma unroll
@@ -155,13 +152,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   for (int it = 0; it < hi; ++it) {
-    const int k0 = it * BK, kg = k0 + kv_off;
-    bool any, full;
-    tile_visibility<BK>(q_start, q_end, kg, sp_off, sp_len, m, any, full);
-    full = full && (k0 + BK <= nkv);
-    if (!any) continue;  // uniform across the block
-
-    __syncthreads();  // previous tile's readers are done with Ks/Vs/Ps
+    const int k0 = it * BK;
+    __syncthreads();  // Q is written / the previous tile's readers are done
     for (int e = tid; e < BK * D; e += NT) {
       const int r = e / D, c = e - r * D, gk = k0 + r;
       float kx = 0.f, vx = 0.f;
@@ -178,20 +170,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     float s[RPT][4];
     tile.scores(s, tx, ty);
+    if (softcap > 0.f) softcap_tile(flat<RPT * 4>(s), softcap);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int i = q_start + ty * RPT + r;
+    for (int r = 0; r < RPT; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[r][j];
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        if (!full) {
-          const int jl = k0 + tx + 16 * j;
-          if (!(jl < nkv && allowed(i, jl + kv_off, sp_off, sp_len, m))) x = NEG_INF;
-        }
-        s[r][j] = x;
-      }
-    }
+      for (int j = 0; j < 4; ++j)
+        if (k0 + tx + 16 * j >= end[r]) s[r][j] = NEG_INF;
     tile.template softmax_update<true, T>(s, m_i, l_i, acc, tx, ty);
     __syncthreads();
     tile.pv(acc, tx, ty);
@@ -213,7 +197,7 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, const int* spans, int m, Rope rope,
            float* out, float* lse, int b, int h, int nq, int nkv, int q_off, int kv_off, int nhd,
            float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = Tile<D, RPT>::kFloats * sizeof(float) + 2 * MAX_SPANS * sizeof(int);
+  const size_t smem = Tile<D, RPT>::kFloats * sizeof(float);
   // layout and RoPE are template flags: the head-major route compiles to
   // constant strides and loads without a branch
   auto kern = !nhd ? flash_fwd_kernel<float, D, false, false>
@@ -222,9 +206,10 @@ int launch(const float* q, const float* k, const float* v, const int* spans, int
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((nq + BQ - 1) / BQ, b * h);
-  kern<<<grid, NT, smem, stream>>>(q, k, v, spans, m, rope.cos, rope.sin, out, lse, h, nq, nkv,
-                                   q_off, kv_off, scale, softcap);
+  const long long blocks = (long long)b * h * ((nq + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  kern<<<unsigned(blocks), NT, smem, stream>>>(q, k, v, spans, m, rope.cos, rope.sin, out, lse, h,
+                                               nq, nkv, q_off, kv_off, scale, softcap);
   return int(cudaGetLastError());
 }
 
@@ -266,7 +251,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BKV = 64;     // kv rows of a tile
 constexpr int TT = 128;     // threads: 4 warps
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Lay {
@@ -278,9 +262,8 @@ struct Lay {
   static constexpr int LD = D + 8;    // padded bf16 row stride of a tile
   static constexpr int QTILE = BQ * LD, TILE = BKV * LD;
   static constexpr bool QREG = D <= 128;  // Q's A fragments held in registers
-  // the Q tile, 2 x K and 2 x V tiles, the spans' offsets and lengths
-  static constexpr size_t kBytes =
-      (size_t(QTILE) + 4 * size_t(TILE)) * sizeof(bf16) + 2 * MAX_SPANS * sizeof(int);
+  // the Q tile, 2 x K and 2 x V tiles
+  static constexpr size_t kBytes = (size_t(QTILE) + 4 * size_t(TILE)) * sizeof(bf16);
 };
 
 struct Args {
@@ -292,27 +275,6 @@ struct Args {
   int m, H, nq, nkv, q_off, kv_off;
   float scale, softcap;
 };
-
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh(y) for |y| <= 1/4: y + y^3 (-1/3 + y^2 (2/15 + y^2 (-17/315 +
-// y^2 62/2835))); the next term is < 2.1e-9 there
-__device__ __forceinline__ float tanh_small(float y) {
-  const float y2 = y * y;
-  float p = fmaf(y2, 62.f / 2835.f, -17.f / 315.f);
-  p = fmaf(y2, p, 2.f / 15.f);
-  p = fmaf(y2, p, -1.f / 3.f);
-  return fmaf(p * y2, y, y);
-}
-
-// tanh(y) = 1 - 2 / (1 + e^{2y}) (absolute error ~2e-7; e^{2y} kept finite)
-__device__ __forceinline__ float tanh_exp(float y) {
-  return 1.f - __fdividef(2.f, 1.f + exp2_ftz(fminf(y, 15.f) * (2.f * LOG2E)));
-}
 
 // The q tile, loaded raw, times `mul` and rounded to bf16, in place
 template <int D>
@@ -339,8 +301,6 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + L::QTILE;  // two buffers
   bf16* Vs = Ks + 2 * TILE;  // two buffers
-  int* sp_off = reinterpret_cast<int*>(Vs + 2 * TILE);
-  int* sp_len = sp_off + MAX_SPANS;
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * MT * w;  // this warp's q rows r0 .. r0 + 16 MT - 1 of the tile
@@ -364,20 +324,11 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
       copy_rows_async<D, LD, BKV, TT>(Ks + buf * TILE, kb, rs, k0, nkv);
     copy_rows_async<D, LD, BKV, TT>(Vs + buf * TILE, vb, rs, k0, nkv);
   };
-  // the first K / V tile, Q (raw without RoPE) and the spans in flight at
-  // once: short sequences are bound by this latency
+  // the first K / V tile and Q (raw without RoPE) in flight while the
+  // spans are read: short sequences are bound by this latency
   load_kv(0, 0);
   if (!ROPE) copy_rows_async<D, LD, BQ, TT>(Qs, qb, rs, q0, nq);
   cp_async_commit();
-  for (int s = threadIdx.x; s < m; s += TT) {
-    sp_off[s] = A.spans[(size_t(bi) * m + s) * 3 + 1];
-    sp_len[s] = A.spans[(size_t(bi) * m + s) * 3 + 2];
-  }
-  if (ROPE) copy_rows_regs<D, LD, BQ, TT, true>(Qs, qb, rs, q0, nq, A.cos, A.sin, bi, scale_t);
-  cp_async_wait<0>();
-  __syncthreads();
-  if (!ROPE) scale_rows<D>(Qs, scale_t);  // q * scale in q's own dtype
-
   // kv columns seen by this thread's rows (g and g + 8 of each m-tile),
   // and by the block's last row
   int end[2 * MT + 1];
@@ -386,8 +337,12 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
 #pragma unroll
     for (int r = 0; r < 2 * MT; ++r) rows[r] = A.q_off + q0 + r0 + 8 * r + g;
     rows[2 * MT] = A.q_off + min(q0 + BQ, nq) - 1;
-    visible_ends<2 * MT + 1>(rows, sp_off, sp_len, m, A.kv_off, nkv, end);
+    visible_ends<2 * MT + 1>(rows, A.spans + size_t(bi) * m * 3, m, A.kv_off, nkv, end);
   }
+  if (ROPE) copy_rows_regs<D, LD, BQ, TT, true>(Qs, qb, rs, q0, nq, A.cos, A.sin, bi, scale_t);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!ROPE) scale_rows<D>(Qs, scale_t);  // q * scale in q's own dtype
   const int end_first = __shfl_sync(0xffffffffu, end[0], 0);           // warp row r0
   const int end_last = __shfl_sync(0xffffffffu, end[2 * MT - 1], 31);  // its last row
   const int hi = (end[2 * MT] + BKV - 1) / BKV;  // kv tiles some row of the block sees
@@ -408,7 +363,7 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) mrow[mt][h2] = NEG_INF, lrow[mt][h2] = 0.f;
-  const float cap = A.softcap, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+  const float cap = A.softcap;
 
   int buf = 0;
   for (int it = 0; it < hi; ++it) {
@@ -446,30 +401,7 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
           }
         }
       }
-      if (cap > 0.f) {
-        bool big = false;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) big |= fabsf(s[mt][j][c] * inv_cap) > 0.25f;
-        if (__any_sync(0xffffffffu, big)) {
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) s[mt][j][c] = cap * tanh_exp(s[mt][j][c] * inv_cap);
-        } else {
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) s[mt][j][c] = cap * tanh_small(s[mt][j][c] * inv_cap);
-        }
-      }
+      if (cap > 0.f) softcap_tile(flat<MT * 32>(s), cap);
       if (k0 + BKV > end_first) {  // a masked pair in the warp's rows
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
@@ -606,16 +538,15 @@ int dispatch(int d, const Args& A, int b, int nhd, cudaStream_t stream) {
 
 // q [b,h,nq,d], k/v [b,h,nkv,d] (nhd = 0) or q [b,nq,h*d], k/v [b,nkv,h*d]
 // (nhd = 1), contiguous, bf16 (is_bf16=1; q, k, v and cos/sin 16-byte
-// aligned) or float32; d in {32, 64, 128, 256}; spans int32 [b,m,3]
-// (m <= 128); cos/sin float32 [b,nq,d] or NULL (no RoPE; only with nhd = 1,
+// aligned) or float32; d in {32, 64, 128, 256}; spans int32 [b,m,3] (any
+// m); cos/sin float32 [b,nq,d] or NULL (no RoPE; only with nhd = 1,
 // where nq == nkv); out like q; lse float32 [b,h,nq] or NULL.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* spans, int m,
                          const float* cos, const float* sin, void* out, float* lse, int b,
                          int h, int nq, int nkv, int d, int q_off, int kv_off, int nhd,
                          float scale, float softcap, int is_bf16, void* stream) {
-  if (m < 0 || m > MAX_SPANS || nq <= 0 || nkv <= 0 || b * h > 65535)
-    return int(cudaErrorInvalidValue);  // one grid row per (batch, head)
+  if (m < 0 || nq <= 0 || nkv <= 0) return int(cudaErrorInvalidValue);
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && (nq != nkv || !nhd)))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -167,7 +167,8 @@ class Transformer(nn.Module):
         if attn_impl not in ("dense", "flash"):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r}: context-parallel attention is "
-                "ROADMAP.md slice 3; the port has 'dense' and 'flash'"
+                "queued in ROADMAP.md (Queue 1 item 9, parallelism); the port "
+                "has 'dense' and 'flash'"
             )
         self.dim, self.depth = dim, depth
         self.dim_head, self.heads = dim_head, heads

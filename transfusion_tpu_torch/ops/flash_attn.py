@@ -37,9 +37,7 @@ from transfusion_tpu_torch.ops import _build
 from transfusion_tpu_torch.ops.norms import NEG_INF
 from transfusion_tpu_torch.ops.spans import span_allowed
 
-MAX_SPANS = 128  # the kernels keep a block's spans in shared memory
 HEAD_DIMS = (32, 64, 128, 256)
-MAX_GRID_Y = 65535  # the kernels run one grid row per (batch, head)
 # The JAX route's envelopes (pallas_attn_kernel.py:1178-1214). The TPU picks
 # its kernel by what fits in VMEM; the CUDA kernels stream tiles from device
 # memory and take every shape up to the overall cap, so here the envelopes
@@ -55,8 +53,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #           kv_off, nhd, scale, softcap, is_bf16, stream)
 _FWD_ARGTYPES = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 8 + [_F] * 2 + [_I, _P]
 # flash_bwd(q, k, v, dout, lse, delta, spans, m, cos, sin, dq, dk, dv, dq_acc,
-#           b, h, nq, nkv, d, q_off, kv_off, nhd, scale, softcap, is_bf16, stream)
-_BWD_ARGTYPES = [_P] * 7 + [_I] + [_P] * 6 + [_I] * 8 + [_F] * 2 + [_I, _P]
+#           ends, b, h, nq, nkv, d, q_off, kv_off, nhd, scale, softcap, is_bf16,
+#           stream)
+_BWD_ARGTYPES = [_P] * 7 + [_I] + [_P] * 7 + [_I] * 8 + [_F] * 2 + [_I, _P]
 
 
 def supported(n: int, d: int) -> bool:
@@ -185,12 +184,10 @@ def flash_attention_backward_plain(q, k, v, do, lse, delta, spans=None, softcap=
 
 def _check(what, q, k, v, b, h, nq, nkv, d, q_off, kv_off, rest=()):
     """Refuse what the kernels cannot take. They index device memory with
-    64-bit offsets (any element count), but run one grid row per
-    (batch, head) and take lengths and global positions as 32-bit ints."""
+    64-bit offsets (any element count, any b * h, any span count), but take
+    lengths and global positions as 32-bit ints."""
     if d not in HEAD_DIMS:
         raise ValueError(f"{what} kernel: head dim {d} not in {HEAD_DIMS}")
-    if b * h > MAX_GRID_Y:
-        raise ValueError(f"{what} kernel: b * h = {b * h} > {MAX_GRID_Y} (grid rows)")
     if min(q_off, kv_off) < -(2**31) or max(q_off + nq, kv_off + nkv) > 2**31:
         raise ValueError(f"{what} kernel: positions [{q_off}, {q_off + nq}) / "
                          f"[{kv_off}, {kv_off + nkv}) do not fit in int32")
@@ -207,8 +204,6 @@ def _spans_arg(what, spans, b, device):
     spans_t = spans.to(device=device, dtype=torch.int32).contiguous()
     if spans_t.ndim != 3 or spans_t.shape[0] != b or spans_t.shape[2] != 3:
         raise ValueError(f"{what} kernel: spans shape {tuple(spans.shape)}")
-    if spans_t.shape[1] > MAX_SPANS:
-        raise ValueError(f"{what} kernel: {spans_t.shape[1]} spans > {MAX_SPANS}")
     return spans_t
 
 
@@ -266,7 +261,8 @@ def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=
 
 def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, heads=None,
                cos=None, sin=None):
-    """Launch csrc/flash_bwd.cu in either layout (see `launch_fwd`): for
+    """Launch csrc/flash_bwd.cu in either layout (see `launch_fwd`): the
+    kernel that writes each q row's visible end into a scratch, then for
     bf16 the tensor-core dK/dV kernel, which adds dq into a zeroed float32
     scratch, and the kernel that stores dq from it; for float32 the dK/dV
     and dQ kernels. Returns (dq, dk, dv) like q, k, v. Callers count the
@@ -292,12 +288,13 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
     dq_acc = None
     if q.dtype == torch.bfloat16:
         dq_acc = torch.zeros((b, h, nq, d), dtype=torch.float32, device=q.device)
+    ends = torch.empty((b, nq), dtype=torch.int32, device=q.device)  # each q row's visible end
     fn = _build.load("flash_bwd", _BWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), spans_t.data_ptr(), spans_t.shape[1], cos_p, sin_p,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if dq_acc is None else dq_acc.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), ends.data_ptr(),
         b, h, nq, nkv, d, int(q_offset), int(kv_offset), int(nhd),
         float(d**-0.5), float(softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
