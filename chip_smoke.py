@@ -21,8 +21,11 @@ Phases (any failure exits non-zero and prints no result line):
      plain ms and the card's bound;
   3. reference: a small float32 model on the card (kernels) against the
      same weights on the CPU (plain versions): prefill logits, greedy
-     tokens and sampled latents must agree, and one training step's loss
-     and every gradient (head-major and token-major attention) within 1e-4;
+     tokens and sampled latents must agree (cached and uncached `sample`
+     with CFG 3.0, `sample_batch` over a text, a [som] and a modality
+     prompt, `generate_modality_only`: tokens equal, latents within 1e-3),
+     and one training step's loss and every gradient (head-major and
+     token-major attention) within 1e-4;
   4. serving: the bench model at full width (dim 384, depth 8, 8x64 heads,
      bf16, seeded weights) through `generate_text_batch` (8 ragged prompts,
      128 new tokens, greedy; bf16 and int8 KV) and `sample(cache_kv=True)`
@@ -33,6 +36,20 @@ Phases (any failure exits non-zero and prints no result line):
      kernel is held against its plain version on them (as in phase 2; the
      long prefill's plain version 1024 query rows at a time). Then the path
      runs with the launch counters set to 0 and must launch both kernels;
+  4b. sampling: the same bench model through uncached `sample()` (CFG 3.0,
+     16 midpoint steps, 14x14, 16 text tokens after the image; one captured
+     flash call against its plain version, its route logged; latents
+     against `sample(cache_kv=True)` within atol 0.15 + rtol 0.05),
+     `sample_batch` over 8 requests (16 pool rows: 4 prompts of 24-200
+     tokens ending in [som], 4 of 16-900 text tokens; 196 + 32 tokens
+     each, text chunks of 32; decode calls at nq 1 and 196 over the 16
+     rows captured and held against the plain version; every chunk runs
+     with CUDA's sync debug mode at 'error' and is read back by one fetch;
+     each request against its solo `sample(cache_kv=True)`: latents within
+     the bf16 limits, sampled tokens at least 95 % equal to the greedy
+     choice of a forward of their own history), `generate_modality_only`
+     (b8 14x14) and the adaptive ODE (`sample_batch` of 2 requests in
+     float32, which must finish within max_steps);
   5. training: the same bench model through `Trainer.train_step`: (a)
      `bench.py`'s batch, 32 x [32 text][14x14x32 latent][8 text], n 256
      after the shift (every layer takes the token-major route), and (b) 8
@@ -426,30 +443,34 @@ def check_flash_bwd(torch, mods, a, iters=5, library=False, block_q=None):
 def check_nhd(torch, mods, a, iters=5, library=False):
     """The token-major forward and backward kernels against their plain
     versions on the arguments `a` of one flash_attention_nhd call plus its
-    output cotangent a['do']. Returns (forward result, backward result)."""
+    output cotangent a['do'] (without one, the forward alone). Returns
+    (forward result, backward result or None)."""
     fn = mods["nhd"]
     q, k, v, h, cos, sin = a["q"], a["k"], a["v"], a["h"], a["cos"], a["sin"]
-    spans, cap, do = a["spans"], a["softcap"], a["do"]
+    spans, cap, do = a["spans"], a["softcap"], a.get("do")
     out, lse = fn._forward(q, k, v, h, cos, sin, spans, cap)
     ref, ref_lse = fn.flash_attention_nhd_plain(q, k, v, h, cos, sin, spans, cap)
-    got = fn.flash_attention_nhd_backward(q, k, v, out, lse, do, h, cos, sin, spans, cap)
     b, n, hd = q.shape
     d = hd // h
-    delta = (do.float() * out.float()).view(b, n, h, d).sum(-1).transpose(1, 2)
-    pargs = (q, k, v, do, lse, delta, h, cos, sin, spans, cap)
-    want = fn.flash_attention_nhd_backward_plain(*pargs)
+    if do is not None:
+        got = fn.flash_attention_nhd_backward(q, k, v, out, lse, do, h, cos, sin, spans, cap)
+        delta = (do.float() * out.float()).view(b, n, h, d).sum(-1).transpose(1, 2)
+        pargs = (q, k, v, do, lse, delta, h, cos, sin, spans, cap)
+        want = fn.flash_attention_nhd_backward_plain(*pargs)
     torch.cuda.synchronize()
     f_err, f_row = compare(torch, out, ref)
     live = ref_lse > -1e29
     f_err = max(f_err, (lse[live] - ref_lse[live]).abs().max().item())
-    b_err, b_rel, b_row = grad_compare(torch, got, want)
     kw = dict(cos=cos, sin=sin, spans=spans, causal=a["causal"], softcap=cap)
     f_ms = time_ms(lambda: fn.flash_attention_nhd(q, k, v, h, **kw), iters)
     f_plain = time_ms(lambda: fn.flash_attention_nhd_plain(q, k, v, h, cos, sin, spans, cap),
                       max(2, iters // 3))
-    bargs = (q, k, v, out, lse, do, h, cos, sin, spans, cap)
-    b_ms = time_ms(lambda: fn.flash_attention_nhd_backward(*bargs), iters)
-    b_plain = time_ms(lambda: fn.flash_attention_nhd_backward_plain(*pargs), max(2, iters // 3))
+    if do is not None:
+        b_err, b_rel, b_row = grad_compare(torch, got, want)
+        bargs = (q, k, v, out, lse, do, h, cos, sin, spans, cap)
+        b_ms = time_ms(lambda: fn.flash_attention_nhd_backward(*bargs), iters)
+        b_plain = time_ms(lambda: fn.flash_attention_nhd_backward_plain(*pargs),
+                          max(2, iters // 3))
     vis = visible_pairs(torch, mods, b, n, n, spans, 0, 0)
     itemsize = q.element_size()
     rope_bytes = 0 if cos is None else 2 * 4 * b * n * d
@@ -467,9 +488,11 @@ def check_nhd(torch, mods, a, iters=5, library=False):
             qr = fn._rope_tokens(q, cos, sin, h).to(q.dtype)
             kr = fn._rope_tokens(k, cos, sin, h).to(k.dtype)
         lib_f, lib_b = flex_ms(torch, heads(qr), heads(kr), heads(v), spans, cap,
-                               do=heads(do), iters=iters)
+                               do=None if do is None else heads(do), iters=iters)
     fwd = dict(err=f_err, row_rel_err=f_row, ms=f_ms, plain_ms=f_plain, bound_ms=fb,
                bound_by=fby, library_ms=lib_f)
+    if do is None:
+        return fwd, None
     bwd = dict(err=b_err, rel_err=b_rel, row_rel_err=b_row, ms=b_ms, plain_ms=b_plain,
                bound_ms=bb, bound_by=bby, library_ms=lib_b)
     return fwd, bwd
@@ -666,7 +689,23 @@ def phase_kernels(torch, mods):
 # ---------------------------------------------------------------------------
 
 
-def phase_reference(torch, Transfusion):
+def items_err(a, b, what):
+    """The largest latent difference of two sample item lists whose text
+    items must be equal."""
+    import numpy as np
+
+    require(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} items")
+    err = 0.0
+    for x, y in zip(a, b):
+        if isinstance(x, tuple):
+            require(isinstance(y, tuple) and x[1].shape == y[1].shape, f"{what}: item kinds")
+            err = max(err, float(np.abs(x[1] - y[1]).max()))
+        else:
+            require(np.array_equal(x, y), f"{what}: tokens {x} vs {y}")
+    return err
+
+
+def phase_reference(torch, Transfusion, mods):
     import numpy as np
 
     gpu = Transfusion(device="cuda", dtype=torch.float32, seed=3, **SMALL_CFG)
@@ -689,8 +728,37 @@ def phase_reference(torch, Transfusion):
     lat = [next(o[1] for o in m.sample(**kw) if isinstance(o, tuple)) for m in (gpu, cpu)]
     lat_err = float(np.abs(lat[0] - lat[1]).max())
     require(lat_err <= 1e-3, f"sampled latents card vs cpu: {lat_err}")
+
+    # the uncached loop (the flash kernel on every joint forward), the
+    # batched one (flash prefill, decode ticks, the grouped ODE) and the
+    # modality-only ODE (dense attention in both packages)
+    kw = dict(kw, cache_kv=False)
+    out_g, counts = counted(mods, lambda: gpu.sample(**kw))
+    out_c = cpu.sample(**kw)
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] == 0,
+            f"uncached sample: launches {counts}")
+    unc_err = items_err(out_g, out_c, "uncached sample card vs cpu")
+    prompts = [[np.asarray([3, 4, 5])], [np.asarray([6, gpu.som_ids[0]])],
+               (0, np.random.default_rng(1).standard_normal((4, 4, 8)).astype(np.float32))]
+    bkw = dict(max_length=20, modality_steps=4, init_modality_noise=noise, cfg_scale=3.0,
+               text_temperature=0.0)
+    outs_g, b_counts = counted(mods, lambda: gpu.sample_batch(prompts, **bkw))
+    require(b_counts["flash_fwd"] > 0 and b_counts["decode_attn"] > 0,
+            f"sample_batch: launches {b_counts}")
+    outs_c = cpu.sample_batch(prompts, **bkw)
+    batch_err = max(items_err(g, c, f"sample_batch request {i} card vs cpu")
+                    for i, (g, c) in enumerate(zip(outs_g, outs_c)))
+    lat0 = noise.reshape(1, 4, 4, 8)
+    gen_err = (gpu.generate_modality_only(noise=lat0, modality_steps=4).cpu()
+               - cpu.generate_modality_only(noise=lat0, modality_steps=4)).abs().max().item()
+    require(max(unc_err, batch_err, gen_err) <= 1e-3,
+            f"card vs cpu: uncached {unc_err}, sample_batch {batch_err}, modality-only {gen_err}")
     log(json.dumps({"reference": "small f32 model, card vs cpu", "tokens_equal": True,
-                    "prefill_logits_err": err, "latents_err": lat_err}))
+                    "prefill_logits_err": err, "latents_err": lat_err,
+                    "uncached_sample_latents_err": unc_err,
+                    "sample_batch_latents_err": batch_err,
+                    "generate_modality_only_err": gen_err,
+                    "launches": {"uncached sample": counts, "sample_batch": b_counts}}))
 
 
 def phase_reference_training(torch, Transfusion, Trainer, mods):
@@ -780,26 +848,29 @@ SPIED = {"flash_fwd": "flash_attention", "decode_attn": "decode_attention",
 def capturing(torch, mods, want):
     """While open, keep a copy of the arguments of the first call the model
     makes to each wrapper named in `want` (as `models/layers.py` binds it)
-    that want[name] accepts, and, when its output takes part in a backward
-    pass, the output's cotangent as 'do'. The call itself goes on to the
-    wrapper unchanged."""
-    layers, seen, originals = mods["layers"], {}, {}
-    for name, accept in want.items():
-        attr = SPIED[name]
-        orig = originals[attr] = getattr(layers, attr)
+    that want[key] accepts, and, when its output takes part in a backward
+    pass, the output's cotangent as 'do'. A key is a kernel name, or
+    'name:tag' for a further capture of the same wrapper. The call itself
+    goes on to the wrapper unchanged."""
+    layers, seen, wanted = mods["layers"], {}, {}
+    for key, accept in want.items():
+        wanted.setdefault(SPIED[key.split(":")[0]], []).append((key, accept))
+    originals = {attr: getattr(layers, attr) for attr in wanted}
+    for attr, keys in wanted.items():
+        orig = originals[attr]
 
-        def spy(*args, _orig=orig, _sig=inspect.signature(orig), _name=name, _accept=accept,
-                **kw):
+        def spy(*args, _orig=orig, _sig=inspect.signature(orig), _keys=keys, **kw):
             bound = _sig.bind(*args, **kw)
             bound.apply_defaults()
-            first = _name not in seen and _accept(bound.arguments)
-            if first:
-                seen[_name] = {k: x.detach().clone() if isinstance(x, torch.Tensor) else x
-                               for k, x in bound.arguments.items()}
+            first = [key for key, accept in _keys if key not in seen and accept(bound.arguments)]
+            for key in first:
+                seen[key] = {k: x.detach().clone() if isinstance(x, torch.Tensor) else x
+                             for k, x in bound.arguments.items()}
             out = _orig(*args, **kw)
             if first and isinstance(out, torch.Tensor) and out.requires_grad:
-                def keep(g, _n=_name):
-                    seen[_n]["do"] = g.detach().clone()
+                def keep(g, _first=first):
+                    for key in _first:
+                        seen[key]["do"] = g.detach().clone()
                 out.register_hook(keep)
             return out
 
@@ -952,6 +1023,279 @@ def phase_serving(torch, Transfusion, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: uncached and batched sampling at full width
+# ---------------------------------------------------------------------------
+
+# sample_batch's requests: four prompts of text ending in [som], four of
+# plain text
+BATCH_IMAGE_TEXT = [24, 81, 143, 200]
+BATCH_TEXT = [16, 311, 605, 900]
+BF16_CONTRACT = dict(atol=0.15, rtol=0.05)  # tests/test_sample_batch.py:233-280
+
+
+def bf16_agreement(got, want, what):
+    """(token agreement over the common prefix of each pair of text items,
+    the first sampled position where they differ, largest latent error as a
+    share of the bf16 limit) of two item lists, item by item while their
+    kinds agree. Latents of equal shape must hold atol 0.15 + rtol 0.05."""
+    import numpy as np
+
+    agree, first, worst = [], None, 0.0
+    seen = 0
+    for g, w in zip(got, want):
+        if isinstance(g, tuple) != isinstance(w, tuple):
+            break
+        if isinstance(g, tuple):
+            if g[1].shape == w[1].shape:
+                excess = np.abs(g[1] - w[1]) / (BF16_CONTRACT["atol"]
+                                                + BF16_CONTRACT["rtol"] * np.abs(w[1]))
+                worst = max(worst, float(excess.max()))
+        else:
+            n = min(len(g), len(w))
+            if n:
+                eq = np.asarray(g[:n]) == np.asarray(w[:n])
+                agree.append(float(eq.mean()))
+                if first is None and not eq.all():
+                    first = seen + int(np.argmin(eq))
+            seen += len(g)
+    require(worst <= 1.0, f"{what}: latents outside the bf16 contract ({worst:.3f} of it)")
+    return agree, first, worst
+
+
+def text_len(items):
+    return sum(len(it) for it in items if not isinstance(it, tuple))
+
+
+def forced_agreement(torch, model, items, sampled):
+    """The share of the last `sampled` text tokens of `items` that equal the
+    greedy choice (argmax over the vocabulary, as the samplers take it) of
+    one uncached joint forward of the same history, past modalities clean.
+    Each position is judged on the same history, so one flipped token does
+    not count against every token after it."""
+    packed = model.pack([items], wrap_sos_eos=False, add_meta=False).to_torch(model.device)
+    times = torch.ones((1, packed.spans.shape[1]), device=model.device)
+    logits = model.core.joint(packed, times)[0][0].float()
+    pos = torch.nonzero(packed.text[0] >= 0)[:, 0][-sampled:]
+    return (logits[pos - 1].argmax(-1) == packed.text[0, pos]).float().mean().item()
+
+
+@contextlib.contextmanager
+def chunk_watch(torch, mods):
+    """While open, time and count sample_batch's text chunks: each runs with
+    CUDA's sync debug mode at 'error' (a synchronising call inside a chunk
+    raises), and the host fetches made right after it are counted."""
+    sb = mods["sample_batch"]
+    decode = mods["counters"]["decode_attn"]
+    chunk, fetch = sb._chunk_tick_impl, sb._fetch
+    stats = dict(chunks=0, ticks=0, fetches_after_chunk=0, chunk_seconds=0.0,
+                 decode_launches=0, fetches=0)
+    last = {"t0": None}
+
+    def spy_chunk(*args, **kw):
+        t0 = time.perf_counter()
+        before = decode.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = chunk(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        stats["chunks"] += 1
+        stats["ticks"] += kw["k"]
+        stats["decode_launches"] += decode.launches - before
+        last["t0"] = t0
+        return out
+
+    def spy_fetch(t):
+        out = fetch(t)
+        stats["fetches"] += 1
+        if last["t0"] is not None:  # the chunk's own fetch ends its time
+            stats["fetches_after_chunk"] += 1
+            stats["chunk_seconds"] += time.perf_counter() - last["t0"]
+            last["t0"] = None
+        return out
+
+    sb._chunk_tick_impl, sb._fetch = spy_chunk, spy_fetch
+    try:
+        yield stats
+    finally:
+        sb._chunk_tick_impl, sb._fetch = chunk, fetch
+
+
+def phase_sampling(torch, Transfusion, mods):
+    """The bench model through uncached `sample()`, `sample_batch` (R 8, 16
+    pool rows), `generate_modality_only` and the adaptive ODE, each kernel
+    held against its plain version on a call captured from its path.
+    Returns the launch totals."""
+    import numpy as np
+
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
+    rng = np.random.default_rng(1)
+    noise = rng.standard_normal((196, 32)).astype(np.float32)
+    totals = dict.fromkeys(KERNELS, 0)
+
+    # uncached sample(): every text step and flow evaluation re-forwards the
+    # bucket-packed sequence through the flash kernel
+    name = "sample uncached cfg 3.0"
+    prompt = [np.asarray(list(rng.integers(0, 256, 24)) + [model.som_ids[0]], np.int32)]
+    kw = dict(prompt=prompt, max_length=196 + 16, text_temperature=0.0, cfg_scale=3.0,
+              modality_steps=16, fixed_modality_shape=(14, 14), init_modality_noise=noise)
+    with capturing(torch, mods, {"flash_fwd": lambda a: True,
+                                 "flash_fwd_nhd": lambda a: True}) as calls:
+        model.sample(**{**kw, "modality_steps": 2, "max_length": 197})
+    torch.cuda.synchronize()
+    require(calls, f"{name}: no flash call captured")
+    if "flash_fwd_nhd" in calls:
+        a = calls["flash_fwd_nhd"]
+        route = 5
+        record("flash_fwd_nhd", f"main path, {name}: q {shape_str(a['q'])} rope spans "
+               f"{shape_str(a['spans'])} (row 5)", check_nhd(torch, mods, a)[0], torch.bfloat16)
+    else:
+        a = calls["flash_fwd"]
+        b, h, nq, d = a["q"].shape
+        route = mods["flash"].tpu_row(h, nq, a["k"].shape[2], d, bwd=False)
+        record("flash_fwd", f"main path, {name}: q {shape_str(a['q'])} (row {route})",
+               check_flash(torch, mods, a), torch.bfloat16)
+    del calls
+    t0 = time.perf_counter()
+    items, counts = counted(mods, lambda: model.sample(**kw))
+    dt = time.perf_counter() - t0
+    require(counts["flash_fwd"] + counts["flash_fwd_nhd"] > 0 and counts["decode_attn"] == 0,
+            f"{name}: launches {counts}")
+    lats = [it[1] for it in items if isinstance(it, tuple)]
+    require(len(lats) == 1 and lats[0].shape == (14, 14, 32) and np.isfinite(lats[0]).all(),
+            f"{name}: latents")
+    cached = model.sample(cache_kv=True, kv_quantize=False, **kw)
+    agree, first, worst = bf16_agreement(items, cached, f"{name} vs cache_kv")
+    for k in totals:
+        totals[k] += counts[k]
+    log(json.dumps({"sampling": name, "seconds": dt, "s_per_image": dt, "flash_route_row": route,
+                    "latents_vs_cached_of_bf16_limit": worst,
+                    "token_agreement_vs_cached": agree, "first_differing_token": first,
+                    "launches": counts}))
+
+    # sample_batch: R 8 requests, 2R = 16 pool rows
+    name = "sample_batch R 8 cfg 3.0"
+    prompts = ([[np.asarray(list(rng.integers(0, 256, n)) + [model.som_ids[0]], np.int32)]
+                for n in BATCH_IMAGE_TEXT]
+               + [[rng.integers(0, 256, n).astype(np.int32)] for n in BATCH_TEXT])
+    bkw = dict(max_length=196 + 32, text_chunk=32, text_temperature=0.0, cfg_scale=3.0,
+               modality_steps=16, fixed_modality_shape=(14, 14), init_modality_noise=noise,
+               kv_quantize=False)
+    rows = 2 * len(prompts)
+    with capturing(torch, mods, {
+            "decode_attn:nq1": lambda a: (a["q"].shape[0], a["q"].shape[2]) == (rows, 1),
+            "decode_attn:nq196": lambda a: (a["q"].shape[0], a["q"].shape[2]) == (rows, 196),
+    }) as calls:
+        model.sample_batch(prompts, **{**bkw, "modality_steps": 2, "max_length": 198})
+    torch.cuda.synchronize()
+    require(set(calls) == {"decode_attn:nq1", "decode_attn:nq196"},
+            f"{name}: captured only {sorted(calls)}")
+    for key, a in calls.items():
+        valid = a["bias"] > -1e29
+        below = torch.arange(valid.shape[1], device="cuda")[None, :] < a["lens"][:, None]
+        holes = int((below & ~valid).any(1).sum())
+        record(
+            "decode_attn", f"main path, {name}: q {shape_str(a['q'])} cache {shape_str(a['k'])}, "
+            f"{holes} of {rows} rows with invalid slots below lens, lens {a['lens'].tolist()}",
+            check_decode(torch, mods, a, count=True), torch.bfloat16)
+    del calls
+    t0 = time.perf_counter()
+    with chunk_watch(torch, mods) as stats:
+        outs, counts = counted(mods, lambda: model.sample_batch(prompts, **bkw))
+    dt = time.perf_counter() - t0
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0, f"{name}: launches {counts}")
+    require(stats["chunks"] > 0 and stats["fetches_after_chunk"] == stats["chunks"],
+            f"{name}: chunk fetches {stats}")
+    images = sum(isinstance(o, tuple) for out in outs for o in out)
+    # each request against its solo sample(cache_kv=True): latents within the
+    # bf16 limits, and the sampled tokens of both judged position by position
+    # against a forward of their own history (in bf16 about one greedy
+    # choice in 50-100 is a near-tie that rounding flips, for any path; the
+    # rest of a continuation then differs, so agreement over the common
+    # prefix of a 228-token continuation measures where the first flip fell)
+    forced, forced_solo, prefix, firsts, worst = [], [], [], [], 0.0
+    t_solo = time.perf_counter()
+    solo_kw = {k: v for k, v in bkw.items() if k != "text_chunk"}
+    for p, got in zip(prompts, outs):
+        solo = model.sample(p, cache_kv=True, **solo_kw)
+        a_, f_, w_ = bf16_agreement(got, solo, f"{name}: a request vs its solo sample")
+        prefix += a_
+        firsts.append(f_)
+        worst = max(worst, w_)
+        start = model._prompt_to_items(p)
+        new_images = sum(isinstance(o, tuple) for o in got) - sum(
+            isinstance(o, tuple) for o in start)
+        for items, out in ((got, forced), (solo, forced_solo)):
+            # sampled tokens: the text past the prompt, less one eom an image
+            sampled = text_len(items) - text_len(start) - new_images
+            if sampled > 0:
+                out.append(forced_agreement(torch, model, items, sampled))
+    t_solo = time.perf_counter() - t_solo
+    require(forced and float(np.mean(forced)) >= 0.95,
+            f"{name}: per-position token agreement {forced} (solo's own: {forced_solo})")
+    for k in totals:
+        totals[k] += counts[k]
+    log(json.dumps({
+        "sampling": name, "seconds": dt, "requests_per_s": len(prompts) / dt,
+        "images": images, "s_per_image": dt / max(images, 1),
+        "ms_per_text_tick": stats["chunk_seconds"] / stats["ticks"] * 1e3,
+        "decode_launches_per_tick": stats["decode_launches"] / stats["ticks"],
+        "host_fetches_per_chunk": stats["fetches_after_chunk"] / stats["chunks"],
+        "chunks": stats["chunks"], "ticks": stats["ticks"], "host_fetches": stats["fetches"],
+        "token_agreement_per_position": float(np.mean(forced)),
+        "solo_token_agreement_per_position": float(np.mean(forced_solo)),
+        "token_agreement_over_common_prefix_vs_solo": prefix,
+        "first_differing_token_vs_solo": firsts,
+        "latents_vs_solo_of_bf16_limit": worst, "solo_seconds": t_solo, "launches": counts}))
+
+    # generate_modality_only: dense attention in both packages (no kernel)
+    t0 = time.perf_counter()
+    lat = model.generate_modality_only(batch_size=8, fixed_modality_shape=(14, 14),
+                                       generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    require(tuple(lat.shape) == (8, 14, 14, 32) and bool(torch.isfinite(lat).all()),
+            "generate_modality_only: latents")
+    log(json.dumps({"sampling": "generate_modality_only b8 14x14",
+                    "seconds": time.perf_counter() - t0}))
+
+    del model
+    torch.cuda.empty_cache()
+
+    # the adaptive ODE, per row, through sample_batch's grouped ODE, on the
+    # same weights in float32: in bf16 the flow's rounding sits above the
+    # 1e-5 tolerance and the controller took ~3000 Heun iterations (~100 s)
+    name = "sample_batch R 2 adaptive ODE, float32"
+    model = Transfusion(device="cuda", dtype=torch.float32, seed=0, odeint_method="adaptive",
+                        **BENCH_CFG)
+    sb = mods["sample_batch"]
+    rows_solver, evals = sb.odeint_adaptive_rows, [0]
+
+    def counting_solver(fn, y0, *a, **k):
+        def f(t, y):
+            evals[0] += 1
+            return fn(t, y)
+        return rows_solver(f, y0, *a, **k)
+
+    sb.odeint_adaptive_rows = counting_solver
+    try:
+        t0 = time.perf_counter()
+        outs, counts = counted(mods, lambda: model.sample_batch(prompts[:2], **{
+            **bkw, "max_length": 197}))
+        dt = time.perf_counter() - t0
+    finally:
+        sb.odeint_adaptive_rows = rows_solver
+    lats = [o[1] for out in outs for o in out if isinstance(o, tuple)]
+    require(len(lats) == 2 and all(np.isfinite(x).all() for x in lats), f"{name}: latents")
+    for k in totals:
+        totals[k] += counts[k]
+    # fewer than max_steps (4096) iterations: t reached 1 by accepted steps,
+    # not by the closing Euler step
+    require(evals[0] // 2 < 4096, f"{name}: {evals[0] // 2} iterations ran out of steps")
+    log(json.dumps({"sampling": name, "seconds": dt, "flow_evaluations": evals[0],
+                    "heun_iterations": evals[0] // 2, "launches": counts}))
+    del model
+    torch.cuda.empty_cache()
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -1192,7 +1536,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from transfusion_tpu_torch import Transfusion
-        from transfusion_tpu_torch.models import layers, transfusion
+        from transfusion_tpu_torch.models import layers, sample_batch, transfusion
         from transfusion_tpu_torch.ops import (
             _build,
             decode_attn,
@@ -1213,7 +1557,8 @@ def main() -> int:
         "decode_attn": decode_attn.decode_attention,
     }
     mods = dict(flash=flash_attn, nhd=flash_attn_nhd, decode=decode_attn, layers=layers,
-                spans=spans, rope=rope, transfusion=transfusion, counters=counters)
+                spans=spans, rope=rope, transfusion=transfusion, sample_batch=sample_batch,
+                counters=counters)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1237,9 +1582,10 @@ def main() -> int:
         return out
 
     timed_phase(phase_kernels, torch, mods)
-    timed_phase(phase_reference, torch, Transfusion)
+    timed_phase(phase_reference, torch, Transfusion, mods)
     timed_phase(phase_reference_training, torch, Transfusion, Trainer, mods)
     launches, main_path = timed_phase(phase_serving, torch, Transfusion, mods)
+    sampling_launches = timed_phase(phase_sampling, torch, Transfusion, mods)
     train_launches, train_path = timed_phase(phase_training, torch, Transfusion, Trainer, mods)
     long_launches, long_path = timed_phase(phase_long_training, torch, Transfusion, Trainer,
                                            mods)
@@ -1252,8 +1598,8 @@ def main() -> int:
     timed = {**train_path, **main_path["generate_text_batch bf16 KV"], **long_path}
     kernels = []
     for name, meta in KERNELS.items():
-        total = (launches.get(name, 0) + train_launches.get(name, 0)
-                 + long_launches.get(name, 0))
+        total = (launches.get(name, 0) + sampling_launches.get(name, 0)
+                 + train_launches.get(name, 0) + long_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]
         kernels.append(dict(

@@ -4,11 +4,16 @@
     python3 scripts/torch_serving_profile.py
 
 Runs the bench model at full width (dim 384, depth 8, 8x64 heads, bf16,
-seeded weights) through two windows under `torch.profiler`:
+seeded weights) through four windows under `torch.profiler`:
 
   * text: `generate_text_batch` on 8 ragged prompts (lengths 37..900),
     32 new tokens, greedy;
   * image: `sample(cache_kv=True)` with CFG 3.0, 16 midpoint steps, 14x14;
+  * uncached image: `sample()` (cache_kv=False) on the same prompt, 16 text
+    tokens after the image;
+  * batched: `sample_batch` over 8 requests (4 prompts of 24-200 text
+    tokens ending in [som], 4 of 16-900 text tokens; 16 pool rows), CFG
+    3.0, 196 + 32 tokens each, text chunks of 32, greedy;
 
 then the 573M config of `scripts/probe_573m.py` (dim 1024, depth 12, 16x64
 heads, vocab 50k, bf16, seeded weights) through one window:
@@ -21,7 +26,10 @@ For each window it prints one JSON line: wall seconds, summed device
 kernel time, the device's busy share (kernel time / wall; an upper bound,
 since overlapping kernels would count twice — the port uses one stream),
 the number of kernel launches, and the ten kernels with the most device
-time. Needs a CUDA device.
+time. Then one line of launches per call, each counted by the profiler
+over one call captured from the windows' warm-ups: a `sample_batch` text
+chunk (per tick), one flow evaluation of its grouped ODE, and one of the
+uncached sampler's ODE. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ LONG_CFG = dict(
                      remat=True, remat_policy="full"),
 )
 LONG_PROMPTS = (8192, 7150, 6100, 5050, 4000, 2950, 1900, 850)
+BATCH_IMAGE_TEXT = (24, 81, 143, 200)  # chip_smoke.py's sample_batch requests
+BATCH_TEXT = (16, 311, 605, 900)
 
 
 def profile(torch, name, fn):
@@ -75,6 +85,44 @@ def profile(torch, name, fn):
     }), flush=True)
 
 
+def launches_of(torch, fn, attempts=3):
+    """Device kernels one call of fn launches: the most seen over a few
+    profiled calls (the profiler now and then drops events)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    best = 0
+    for _ in range(attempts):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(ev.device_type == torch.autograd.DeviceType.CUDA
+                             for ev in prof.events()))
+    return best
+
+
+class FirstCall:
+    """Keeps the arguments of the first call of module.attr that `accept`
+    takes, while the call goes on unchanged."""
+
+    def __init__(self, module, attr, accept=lambda *a, **k: True):
+        self.module, self.attr, self.accept = module, attr, accept
+        self.orig, self.args = getattr(module, attr), None
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            if self.args is None and self.accept(*args, **kw):
+                self.args = (args, kw)
+            return self.orig(*args, **kw)
+
+        setattr(self.module, self.attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -94,6 +142,32 @@ def main() -> int:
     profile(torch, "sample cache_kv cfg 3.0 one 14x14 image", lambda: model.sample(
         prompt=prompt, max_length=196, text_temperature=0.0, cache_kv=True, cfg_scale=3.0,
         modality_steps=16, fixed_modality_shape=(14, 14)))
+
+    from transfusion_tpu_torch.models import sample_batch as sb
+    from transfusion_tpu_torch.models import transfusion as tf
+
+    with FirstCall(tf, "odeint") as uncached_ode:
+        profile(torch, "sample uncached cfg 3.0 one 14x14 image, 16 text tokens after it",
+                lambda: model.sample(prompt=prompt, max_length=196 + 16, text_temperature=0.0,
+                                     cfg_scale=3.0, modality_steps=16,
+                                     fixed_modality_shape=(14, 14)))
+    prompts = ([[np.asarray(list(rng.integers(0, 256, n)) + [model.som_ids[0]])]
+                for n in BATCH_IMAGE_TEXT] + [[rng.integers(0, 256, n)] for n in BATCH_TEXT])
+    with FirstCall(sb, "_chunk_tick_impl", lambda *a, **k: k["k"] == 32) as chunk, \
+            FirstCall(sb, "odeint") as pooled_ode:
+        profile(torch, "sample_batch R 8 (16 pool rows) cfg 3.0, 196 + 32 tokens each",
+                lambda: model.sample_batch(prompts, max_length=196 + 32, text_chunk=32,
+                                           text_temperature=0.0, cfg_scale=3.0,
+                                           modality_steps=16, fixed_modality_shape=(14, 14)))
+    per_call = {}
+    (args, kw) = chunk.args
+    per_call["sample_batch text tick"] = launches_of(
+        torch, lambda: sb._chunk_tick_impl(*args, **kw)) / kw["k"]
+    for name, cap in (("sample_batch ODE evaluation, 16 rows", pooled_ode),
+                      ("uncached sample ODE evaluation", uncached_ode)):
+        (flow, y0, grid), _ = cap.args
+        per_call[name] = launches_of(torch, lambda: flow(grid[0], y0))
+    print(json.dumps({"launches_per_call": per_call}), flush=True)
     del model
     torch.cuda.empty_cache()
     model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **LONG_CFG)

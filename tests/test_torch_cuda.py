@@ -412,3 +412,131 @@ def test_backward_near_the_softcap_matches_plain(cuda_device, dtype, rel):
     want = flash_attn.flash_attention_backward_plain(q, k, v, do, lse, delta, spans)
     torch.cuda.synchronize()
     assert_grads_close(got, want, rel)
+
+
+def pool_decode_args(nq, dtype, int8):
+    """The decode call of sample_batch's pool: 2R = 16 rows, per-row write
+    offsets idx, lens = idx + nq. Rows 0-7 are active (their new slots
+    valid), rows 8-13 idle / non-members (their new slots masked invalid,
+    below lens: the valid slots are not [0, lens)), row 14 also has a hole
+    in its history, row 15 has no valid slot at all (output exactly 0)."""
+    b, h, cap, d = 16, 8, 1152, 64
+    idx = torch.tensor([37 + 55 * i for i in range(b)], dtype=torch.int32, device="cuda")
+    lens = idx + nq
+    slot = torch.arange(cap, device="cuda")[None, :]
+    valid = slot < idx[:, None]
+    valid[:8] = slot < lens[:8, None]
+    valid[14, 10:30] = False
+    valid[15] = False
+    q = randn(b, h, nq, d, seed=11, dtype=dtype)
+    k, v = (randn(b, h, cap, d, seed=s, dtype=dtype) for s in (12, 13))
+    bias = torch.where(valid, 0.0, -1e30).float().contiguous()
+    ks = vs = None
+    if int8:
+        k, ks = _quantize_rows(k)
+        v, vs = _quantize_rows(v)
+        ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    return q, k, v, bias, ks, vs, 50.0, lens
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq", [1, 196])
+def test_decode_kernel_at_the_pool_shapes_matches_plain(cuda_device, dtype, tol, int8, nq):
+    """sample_batch's text ticks (nq 1) and grouped ODE (nq 196) over 16
+    pool rows: idle and non-member rows come out finite, the row with no
+    valid slot exactly 0."""
+    args = pool_decode_args(nq, dtype, int8)
+    q = token_major(args[0])  # as the model hands it in
+    out = decode_attn.decode_attention(q, *args[1:])
+    ref = decode_attn.decode_attention_plain(q, *args[1:]).to(dtype)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out[15] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_uncached_sampling_on_card_matches_cpu(cuda_device):
+    """Uncached sample() (the flash kernel on every joint forward) and
+    generate_modality_only on the card against the CPU: greedy tokens
+    equal, latents within 1e-3."""
+    gm = Transfusion(device="cuda", seed=1, **CFG)
+    cm = Transfusion(device="cpu", seed=1, **CFG)
+    cm.core.load_state_dict({k: t.cpu() for k, t in gm.core.state_dict().items()})
+    noise = np.random.default_rng(0).standard_normal((64, 16)).astype(np.float32)
+    kw = dict(prompt=[np.asarray([1, gm.som_ids[0]])], max_length=10, modality_steps=4,
+              init_modality_noise=noise, text_temperature=0.0, cfg_scale=3.0)
+    before = flash_attn.flash_attention.launches
+    out_g = gm.sample(**kw)
+    assert flash_attn.flash_attention.launches > before
+    out_c = cm.sample(**kw)
+    assert len(out_g) == len(out_c)
+    for a, b in zip(out_g, out_c):
+        if isinstance(a, tuple):
+            np.testing.assert_allclose(a[1], b[1], atol=1e-3)
+        else:
+            np.testing.assert_array_equal(a, b)
+    lat = noise[:8].reshape(2, 4, 16)
+    np.testing.assert_allclose(gm.generate_modality_only(noise=lat, modality_steps=4).cpu(),
+                               cm.generate_modality_only(noise=lat, modality_steps=4), atol=1e-3)
+
+
+def test_sample_batch_on_card_matches_cpu(cuda_device):
+    """sample_batch over three requests on the card (flash prefill, decode
+    ticks at nq 1 and the grouped ODE at nq 4 over 6 rows) against the CPU:
+    tokens equal, latents within 1e-3."""
+    gm = Transfusion(device="cuda", seed=1, **CFG)
+    cm = Transfusion(device="cpu", seed=1, **CFG)
+    cm.core.load_state_dict({k: t.cpu() for k, t in gm.core.state_dict().items()})
+    noise = np.random.default_rng(0).standard_normal((64, 16)).astype(np.float32)
+    prompts = [[np.asarray([1, 2, 3])], [np.asarray([4, gm.som_ids[0]])],
+               (0, np.random.default_rng(1).standard_normal((4, 16)).astype(np.float32))]
+    kw = dict(max_length=8, modality_steps=4, init_modality_noise=noise, text_temperature=0.0,
+              cfg_scale=3.0)
+    before = decode_attn.decode_attention.launches
+    out_g = gm.sample_batch(prompts, **kw)
+    assert decode_attn.decode_attention.launches > before
+    out_c = cm.sample_batch(prompts, **kw)
+    for g, c in zip(out_g, out_c):
+        assert len(g) == len(c)
+        for a, b in zip(g, c):
+            if isinstance(a, tuple):
+                np.testing.assert_allclose(a[1], b[1], atol=1e-3)
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+def test_sample_batch_chunk_fetches_to_the_host_once(cuda_device, monkeypatch):
+    """Each text chunk runs its k decode steps with no synchronising call
+    (CUDA sync debug mode 'error' raises on one) and is read back by one
+    fetch; every tick launches the decode kernel once per layer."""
+    from transfusion_tpu_torch.models import sample_batch as sb
+
+    gm = Transfusion(device="cuda", seed=1, **CFG)
+    log = []
+    chunk, fetch = sb._chunk_tick_impl, sb._fetch
+
+    def spy_chunk(*args, **kw):
+        before = decode_attn.decode_attention.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = chunk(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log.append(("chunk", kw["k"], decode_attn.decode_attention.launches - before))
+        return out
+
+    def spy_fetch(t):
+        log.append(("fetch",))
+        return fetch(t)
+
+    monkeypatch.setattr(sb, "_chunk_tick_impl", spy_chunk)
+    monkeypatch.setattr(sb, "_fetch", spy_fetch)
+    gm.sample_batch([[np.asarray([1, 2, 3])], [np.asarray([5, 6])]], max_length=40,
+                    text_temperature=1.0, cfg_scale=3.0, text_chunk=8)
+    chunks = [i for i, e in enumerate(log) if e[0] == "chunk"]
+    assert len(chunks) >= 2
+    depth = CFG["transformer"]["depth"]
+    for i in chunks:
+        assert log[i + 1] == ("fetch",)
+        assert log[i][2] == log[i][1] * depth  # one decode launch a layer and tick

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports with `jax` and `transfusion_tpu`
-blocked, builds a small model on the CPU, serves from it and takes a
+blocked, builds a small model on the CPU, serves from it (batched text,
+uncached `sample`, `sample_batch`, `generate_modality_only`) and takes a
 training step, and its entry points default to the card (raising when
 there is none)."""
 
@@ -34,6 +35,18 @@ SCRIPT = textwrap.dedent(
     m = Transfusion(device="cpu", **cfg)
     toks = m.generate_text_batch([np.asarray([8, 1, 2])], max_new_tokens=3, temperature=0.0)
     assert toks.shape == (1, 3)
+
+    noise = np.ones((4, 16), np.float32)
+    out = m.sample(prompt=[np.asarray([1, m.som_ids[0]])], max_length=6, modality_steps=2,
+                   text_temperature=0.0, init_modality_noise=noise)
+    assert sum(isinstance(o, tuple) for o in out) == 1
+    outs = m.sample_batch([[np.asarray([1, 2])], [np.asarray([3, m.som_ids[0]])]],
+                          max_length=6, modality_steps=2, text_temperature=0.0,
+                          init_modality_noise=noise)
+    assert len(outs) == 2 and any(isinstance(o, tuple) for o in outs[1])
+    lat = m.generate_modality_only(batch_size=2, modality_steps=2,
+                                   generator=torch.Generator().manual_seed(0))
+    assert lat.shape == (2, 4, 16) and bool(torch.isfinite(lat).all())
 
     from transfusion_tpu_torch.training import Trainer
     trainer = Trainer(m)

@@ -120,8 +120,14 @@ def test_odeint_fixed_grid(method):
 
 
 def test_odeint_adaptive_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tode.odeint(lambda t, y: y, torch.zeros(2), torch.linspace(0, 1, 3), method="adaptive")
+    """The adaptive solver is ported now (tests/test_torch_odeint.py holds
+    it against JAX); an unknown method still raises, naming the methods."""
+    out_t = tode.odeint(lambda t, y: -y, torch.ones(2), torch.linspace(0, 1, 3),
+                        method="adaptive")
+    out_j = jode.odeint(lambda t, y: -y, jnp.ones(2), jnp.linspace(0, 1, 3), method="adaptive")
+    close(out_t, out_j)
+    with pytest.raises(ValueError, match="adaptive"):
+        tode.odeint(lambda t, y: y, torch.zeros(2), torch.linspace(0, 1, 3), method="dopri5")
 
 
 def test_single_stream_is_plain_residual():

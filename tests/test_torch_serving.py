@@ -98,9 +98,15 @@ def test_cached_sample_latents_match_jax(pair, cfg_scale, incremental):
 
 
 def test_uncached_sample_and_bad_prompts_raise(pair):
+    """Uncached sample() no longer raises (tests/test_torch_uncached_sampling.py
+    holds it against JAX): its greedy tokens equal the cached loop's. Bad
+    prompts still raise."""
     _, _, tm = pair
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tm.sample(prompt=[np.asarray([1])])
+    kw = dict(prompt=[np.asarray([1])], max_length=3, text_temperature=0.0)
+    for a, b in zip(tm.sample(**kw), tm.sample(cache_kv=True, **kw)):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="at least one prompt"):
+        tm.sample_batch([])
     with pytest.raises(ValueError, match="every prompt needs"):
         tm.generate_text_batch([np.asarray([], np.int32)], max_new_tokens=2)
 

@@ -14,7 +14,10 @@ The port goes slice by slice (ROADMAP.md):
     head-major attention routes;
   * long-context training: per-block remat, chunked CE and exact gradient
     accumulation (`Trainer(grad_accumulation=M)`), at n 16384 on the 573M
-    config.
+    config;
+  * uncached and batched sampling: `Transfusion.sample()` (cache_kv=False),
+    `sample_batch` (`models/sample_batch.py`), `generate_modality_only`,
+    `forward_text` / `forward_modality` and the adaptive ODE.
 
 Every TPU kernel on these paths has a hand-written CUDA kernel for
 `sm_90a` (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`: bf16 on the tensor

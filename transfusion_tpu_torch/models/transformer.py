@@ -256,8 +256,11 @@ class Transformer(nn.Module):
                 prefill: bool = False):
         """x Float[b, n, dim]: only the tokens to process (the tail when
         decoding). times Float[b] | Float[b, n] per-token conditioning, or
-        times_inst Float[b, m] per span instance (needs spans). Returns
-        (out, new_cache)."""
+        times_inst Float[b, m] per span instance (needs spans). times
+        Float[b] with is_any_modality=True, no spans, no cache and not
+        causal is the JAX `modality_only` forward: every token conditioned
+        as modality on its sample's time, dense attention with no mask.
+        Returns (out, new_cache)."""
         b, n, _ = x.shape
 
         cond = cond_index = None

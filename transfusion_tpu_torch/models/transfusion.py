@@ -2,12 +2,16 @@
 
   * `TransfusionCore` (nn.Module): transformer + text embedding + logits
     head + per-modality latent <-> model projections, with the entry points
-    `joint` (the packed forward: training, or the cached prefill),
-    `decode_text_step`, `decode_modality_rows` and `text_forward`.
+    `joint` (the packed forward: training, uncached sampling, or the cached
+    prefill), `decode_text_step`, `decode_modality_rows`, `text_forward`
+    and `modality_forward`.
   * `Transfusion` (plain class): configuration, vocab layout, packing, the
-    joint training loss (`loss`, `_loss_impl`) and the host-side serving
-    loops — `generate_text_only`, `generate_text_batch` and
-    `sample(cache_kv=True)` with incremental CFG.
+    joint training loss (`loss`, `_loss_impl`), the text-only and
+    modality-only forwards (`forward_text`, `forward_modality`, `forward`)
+    and the host-side serving loops — `generate_text_only`,
+    `generate_text_batch`, `generate_modality_only`, `sample` (uncached, or
+    `cache_kv=True` with incremental CFG) and `sample_batch`
+    (`models/sample_batch.py`).
 
 The port holds its serving weights in the modules; load the JAX package's
 weights with `Transfusion.load_flax`. The loss can also run on an explicit
@@ -17,15 +21,15 @@ float32 params. Randomness comes in as explicit draws (`LossDraws`) or
 from a caller-owned `torch.Generator`. Entry points run on `cuda` unless
 built with `device="cpu"`.
 
-Not ported yet (ROADMAP.md): uncached `sample()` and
-`generate_modality_only`, the velocity-consistency and reconstruction
+Not ported yet (ROADMAP.md): the velocity-consistency and reconstruction
 losses, modality encoders/decoders, U-Net pre/post projections, axial
-positional embeddings, adaptive ODE solvers.
+positional embeddings.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 from typing import Any, Callable, NamedTuple, Optional
@@ -44,6 +48,7 @@ from transfusion_tpu_torch.data.packing import (
     to_channel_last,
     to_user_layout,
 )
+from transfusion_tpu_torch.models import sample_batch as _sample_batch
 from transfusion_tpu_torch.models.serving import plan_serving
 from transfusion_tpu_torch.models.transformer import (
     Transformer,
@@ -56,6 +61,7 @@ from transfusion_tpu_torch.ops.flow import (
     model_output_to_flow,
     noise_data,
 )
+from transfusion_tpu_torch.ops.norms import max_neg_value
 from transfusion_tpu_torch.ops.odeint import odeint
 from transfusion_tpu_torch.ops.spans import (
     spans_to_is_any_modality,
@@ -252,6 +258,22 @@ class TransfusionCore(nn.Module):
             cache=cache, prefill=prefill,
         )
         return self.to_text_logits(embed), new_cache
+
+    def modality_forward(self, noised, times, modality_type: int):
+        """The flow-matching forward of one modality alone (JAX
+        `modality_forward`, `transfusion.py:392-407`): noised Float[b,
+        *latent_shape, d_latent] channel-last, times Float[b]; every token
+        is conditioned as modality on its sample's time. Returns the model's
+        output in latent space (float32); the caller turns an x-prediction
+        into a flow.
+
+        Attention here is dense and unmasked. The JAX transformer gives a
+        modality-only call neither a flash spec nor a decode bias and runs
+        XLA's einsum attention, no Pallas kernel, so the port's dense path
+        is its counterpart, not a fallback from a kernel."""
+        rows, seq_shape = self.latent_to_seq(noised, modality_type)
+        embed, _ = self.transformer(rows, times=times, is_any_modality=True)
+        return self.seq_to_latent(embed, modality_type, seq_shape)
 
 
 def _ce_chunk_sum(embed, weight, labels, valid):
@@ -599,6 +621,104 @@ class Transfusion:
         return (total, breakdown) if return_breakdown else total
 
     # ------------------------------------------------------------------
+    # text-only and modality-only forwards (JAX `forward_text`,
+    # `forward_modality`, `forward`, `transfusion.py:1214-1404`)
+    # ------------------------------------------------------------------
+
+    def _text_loss_impl(self, text):
+        """Next-token CE of text Int[b, n] over the text vocabulary, mean
+        over the labels that are not ignore_index."""
+        inp, labels = text[:, :-1], text[:, 1:]
+        logits = self.core.text_forward(inp)[0].float()
+        text_only = torch.arange(self.vocab_size, device=logits.device) < self.num_text_tokens
+        logits = torch.where(text_only, logits, max_neg_value(torch.float32))
+        logp = torch.log_softmax(logits, dim=-1)
+        valid = labels != self.ignore_index
+        label_logp = logp.gather(-1, torch.where(valid, labels, 0)[..., None])[..., 0]
+        return -(label_logp * valid).sum() / valid.sum().clamp_min(1)
+
+    def forward_text(self, text, return_loss: bool = True):
+        """The causal LM on text Int[b, n]: its loss, or (return_loss=False)
+        the logits [b, n, vocab] of the whole vocabulary."""
+        text = self._ids(text)
+        if return_loss:
+            return self._text_loss_impl(text)
+        return self.core.text_forward(text)[0]
+
+    def _modality_flow(self, noised, times, modality_type: int):
+        """The predicted flow in latent space from the current state."""
+        out = self.core.modality_forward(noised, times, modality_type)
+        if self.core.model_output_clean:
+            out = model_output_to_flow(out, noised, times, self.core.eps)
+        return out
+
+    def _modality_loss_impl(self, latents, times, noise, modality_type: int):
+        """Flow MSE of clean channel-last latents [b, *shape, d] noised to
+        x_t = t x + (1 - t) noise at times Float[b]. Returns (total, (flow,
+        velocity, reconstruction)); the last two are 0 until those losses
+        are ported."""
+        noised, flow = noise_data(latents, noise, times)
+        pred_flow = self._modality_flow(noised, times, modality_type)
+        flow_loss = ((pred_flow - flow) ** 2).mean()
+        zero = torch.zeros((), device=flow_loss.device)
+        return flow_loss, (flow_loss, zero, zero)
+
+    def forward_modality(self, modalities, times=None, noise=None, generator=None,
+                         modality_type: Optional[int] = None, encode_modality: bool = True,
+                         velocity_consistency_ema_params=None,
+                         velocity_consistency_delta_time: float = 1e-5,
+                         return_loss: bool = True, return_loss_breakdown: bool = False):
+        """The modality-only path on latents [b, *shape, d] (user layout).
+        return_loss=False: the predicted flow at `times` Float[b]. Else the
+        flow loss on explicit draws: `times` (default uniform) and `noise`
+        shaped like the channel-last latents (default standard normal), each
+        drawn from `generator` when not given. The JAX package derives both
+        from one key (`transfusion.py:1265-1274`)."""
+        if velocity_consistency_ema_params is not None:
+            _not_in_port("the velocity-consistency loss", "velocity/reconstruction losses")
+        if self.num_modalities > 1 and modality_type is None:
+            raise ValueError("modality_type is required with more than one modality")
+        modality_type = default(modality_type, 0)
+        mc = self.modalities[modality_type]
+        x = self._floats(modalities)
+        if mc.channel_first_latent and x.ndim > 2:
+            x = x.movedim(1, -1)  # the channel-last internal layout
+        b = x.shape[0]
+        if not return_loss:
+            if times is None:
+                raise ValueError("forward_modality(return_loss=False) needs times")
+            out = self._modality_flow(x, self._floats(times), modality_type)
+            return out.movedim(-1, 1) if mc.channel_first_latent and out.ndim > 2 else out
+        times = (torch.rand((b,), generator=generator, device=self.device) if times is None
+                 else self._floats(times))
+        noise = (torch.randn(x.shape, generator=generator, device=self.device) if noise is None
+                 else self._floats(noise))
+        total, parts = self._modality_loss_impl(x, times, noise, modality_type)
+        return (total, parts) if return_loss_breakdown else total
+
+    def forward(self, batch, generator=None, **kwargs):
+        """Dispatch as the JAX `forward`: integer tokens go to
+        `forward_text`, floating latents to `forward_modality`, a list of
+        samples to the joint `loss`."""
+        if hasattr(batch, "dtype"):
+            if torch.is_tensor(batch):
+                is_int = not (batch.is_floating_point() or batch.is_complex())
+            else:
+                is_int = np.issubdtype(np.asarray(batch).dtype, np.integer)
+            if is_int:
+                return self.forward_text(batch, return_loss=kwargs.pop("return_loss", True))
+            return self.forward_modality(batch, generator=generator, **kwargs)
+        return self.loss(batch, generator=generator, **kwargs)
+
+    def __call__(self, batch, generator=None, **kwargs):
+        return self.forward(batch, generator=generator, **kwargs)
+
+    def _floats(self, x):
+        if torch.is_tensor(x):
+            return x.to(device=self.device, dtype=torch.float32)
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------------
     # text-only generation
     # ------------------------------------------------------------------
 
@@ -690,6 +810,48 @@ class Transfusion:
         )
 
     # ------------------------------------------------------------------
+    # modality-only generation (JAX `generate_modality_only`,
+    # `transfusion.py:1619-1665`)
+    # ------------------------------------------------------------------
+
+    def _gen_modality_impl(self, noise, *, modality_type, steps):
+        bs = noise.shape[0]
+
+        def flow(t, y):
+            times = torch.as_tensor(t, dtype=torch.float32).to(y.device).reshape(1).expand(bs)
+            return self._modality_flow(y, times, modality_type)
+
+        grid = torch.linspace(0.0, 1.0, steps, dtype=torch.float32)
+        return odeint(flow, noise, grid, method=self.odeint_method)
+
+    @torch.no_grad()
+    def generate_modality_only(self, batch_size: int = 1, modality_type: Optional[int] = None,
+                               fixed_modality_shape: Optional[tuple] = None,
+                               modality_steps: int = 16, generator=None, noise=None,
+                               return_unprocessed_modalities: bool = False):
+        """Sample batch_size latents of one modality by the flow ODE alone,
+        from `noise` [b, *shape, d] channel-last (b replaces batch_size) or
+        from a standard normal drawn with `generator`. Returns float32
+        latents in the user layout on the model's device (the port has no
+        modality decoders, so return_unprocessed_modalities changes
+        nothing)."""
+        if self.num_modalities > 1 and modality_type is None:
+            raise ValueError("modality_type is required with more than one modality")
+        modality_type = default(modality_type, 0)
+        mc = self.modalities[modality_type]
+        if noise is None:
+            shape = default(fixed_modality_shape, mc.default_shape)
+            if shape is None:
+                raise ValueError("set modality_default_shape or pass fixed_modality_shape")
+            noise = torch.randn((batch_size, *shape, mc.dim_latent), generator=generator,
+                                device=self.device)
+        sampled = self._gen_modality_impl(self._floats(noise), modality_type=modality_type,
+                                          steps=int(modality_steps))
+        if mc.channel_first_latent and sampled.ndim > 2:
+            sampled = sampled.movedim(-1, 1)
+        return sampled
+
+    # ------------------------------------------------------------------
     # multimodal sampling
     # ------------------------------------------------------------------
 
@@ -762,6 +924,31 @@ class Transfusion:
         ]
         return concat_contiguous_text(sample_items)
 
+    def _modality_trigger(self, items, fixed_modality_shape=None):
+        """(modality type, latent shape) when the last text token of the
+        sample items is a [som] (the shape from fixed_modality_shape, else
+        from the meta string before it), else None."""
+        last = items[-1]
+        if isinstance(last, tuple) or len(last) == 0:
+            return None
+        tok = int(np.asarray(last)[-1])
+        if tok not in self.som_ids:
+            return None
+        mid = self.som_ids.index(tok)
+        if fixed_modality_shape is not None:
+            return mid, tuple(fixed_modality_shape)
+        return mid, tuple(self._parse_modality_shape(last, mid))
+
+    def _segment_noise(self, init_modality_noise, spatial, modality_type, generator=None):
+        """The starting noise of one latent [*spatial, d]: the leading rows of
+        init_modality_noise [>= L, >= d] when given, else a standard normal
+        drawn with `generator`."""
+        d = self.modalities[modality_type].dim_latent
+        if init_modality_noise is None:
+            return torch.randn((*spatial, d), generator=generator, device=self.device)
+        flat = np.asarray(init_modality_noise)[: int(math.prod(spatial)), :d]
+        return torch.tensor(flat, dtype=torch.float32).reshape(*spatial, d).to(self.device)
+
     @torch.no_grad()
     def sample(self, prompt=None, generator=None, max_length: int = 2048,
                text_temperature: float = 1.5, text_min_p: float = 0.1,
@@ -769,23 +956,138 @@ class Transfusion:
                fixed_modality_shape: Optional[tuple] = None, init_modality_noise=None,
                modality_steps: int = 16, return_unprocessed_modalities: bool = False,
                cfg_scale: float = 3.0, incremental_cfg_cache: bool = True):
-        """Multimodal sampling over one KV cache: prefill once, then
-        per-token text decode and tail-only ODE steps with CFG. Returns the
-        sample items (the port has no modality decoders, so
+        """Multimodal sampling: text tokens and, after each [som], a latent
+        by the flow ODE with CFG, until eos or max_length. Uncached (the
+        default) re-forwards the packed sequence for every token and every
+        flow evaluation; cache_kv=True prefills one KV cache and then
+        decodes per token and runs tail-only ODE steps (kv_quantize and
+        incremental_cfg_cache act there only). A model without a text
+        vocabulary samples one latent with `generate_modality_only`.
+        Returns the sample items (the port has no modality decoders, so
         return_unprocessed_modalities changes nothing)."""
-        if not cache_kv:
-            raise NotImplementedError(
-                "sample(cache_kv=False) re-forwards the packed sequence without a "
-                "cache; it is queued in ROADMAP.md (slice 2, uncached sampling). "
-                "Pass cache_kv=True"
-            )
         if self.num_text_tokens == 0:
-            _not_in_port("generate_modality_only", "slice 2, uncached sampling")
+            logger.warning("num_text_tokens == 0: forwarding to generate_modality_only")
+            return self.generate_modality_only(batch_size=1, generator=generator)
+        sample_items = self._prompt_to_items(prompt)
+        if not cache_kv:
+            return self._sample_uncached(
+                sample_items, generator, max_length, text_temperature, text_min_p,
+                fixed_modality_shape, init_modality_noise, modality_steps, cfg_scale)
         return self._sample_cached(
-            self._prompt_to_items(prompt), generator, max_length, text_temperature,
+            sample_items, generator, max_length, text_temperature,
             text_min_p, fixed_modality_shape, init_modality_noise, modality_steps,
             cfg_scale, kv_quantize=kv_quantize, incremental_cfg=incremental_cfg_cache,
         )
+
+    def sample_batch(self, prompts, **kwargs):
+        """Batched multimodal sampling: R `sample(cache_kv=True)` state
+        machines over one pooled cache (`models/sample_batch.py`)."""
+        return _sample_batch.sample_batch(self, prompts, **kwargs)
+
+    # -- uncached sampling (JAX `sample`, `transfusion.py:1718-1775`,
+    #    `:1883-2042`) ------------------------------------------------------
+
+    def _sample_text_step_impl(self, packed, generator, *, temperature, min_p):
+        """The next token after row 0 of a (torch) packed batch: past
+        modalities are conditioned as clean (time 1); the token is read at
+        lengths[0] - 1."""
+        b, m = packed.batch, packed.spans.shape[1]
+        times = torch.ones((b, m), device=self.device)
+        _, embed, _, _, _ = self.core.joint(packed, times, return_logits=False)
+        last = self.core.to_text_logits(embed[0, packed.lengths[0] - 1]).float()
+        return gumbel_sample(min_p_filter(last, min_p), temperature, generator)
+
+    def _sample_ode_impl(self, packed, noise, cfg_scale, *, gi, row_cond, row_uncond,
+                         span_row, steps, use_cfg):
+        """The flow ODE of one modality segment over the uncached joint
+        forward of a (torch) packed batch, packed once: each evaluation
+        copies y into the segment's cond (and uncond) rows of group gi's
+        latents on the device, sets time t on span row `span_row` (every
+        other instance clean, time 1) and guides with CFG."""
+        b, m = packed.batch, packed.spans.shape[1]
+        g = packed.groups[gi]
+        seg_rows = torch.tensor([row_cond, row_uncond] if use_cfg else [row_cond],
+                                device=self.device)
+        at_span = (torch.arange(m, device=self.device) == span_row)[None, :].expand(b, m)
+
+        def flow(t, y):
+            lat = g.latents.index_copy(0, seg_rows, y[None].expand(len(seg_rows), *y.shape))
+            groups = tuple(og.replace(latents=lat) if i == gi else og
+                           for i, og in enumerate(packed.groups))
+            times = torch.where(at_span, torch.as_tensor(t, dtype=torch.float32).to(self.device),
+                                1.0)
+            _, _, pred_flows, _, _ = self.core.joint(packed.replace(groups=groups), times,
+                                                     return_logits=False)
+            pf = pred_flows[gi]
+            if not use_cfg:
+                return pf[row_cond]
+            return pf[row_uncond] + cfg_scale * (pf[row_cond] - pf[row_uncond])
+
+        grid = torch.linspace(0.0, 1.0, steps, dtype=torch.float32)
+        return odeint(flow, noise, grid, method=self.odeint_method)
+
+    def _sample_uncached(self, sample_items, generator, max_length, text_temperature,
+                         text_min_p, fixed_modality_shape, init_modality_noise, modality_steps,
+                         cfg_scale):
+        """The uncached sampling loop (same order of operations as the JAX
+        `sample`): every text step re-forwards the bucket-packed sequence;
+        every modality segment packs [cond, uncond] once (the uncond row's
+        text nulled) and integrates over it."""
+        use_cfg = cfg_scale != 1.0
+        curr_length = 0
+        trigger = self._modality_trigger(sample_items, fixed_modality_shape)
+        while curr_length <= max_length:
+            if trigger is None:
+                packed = _sample_batch._width_bucket_pack(self, [sample_items])
+                tok = int(self._sample_text_step_impl(
+                    packed.to_torch(self.device), generator,
+                    temperature=float(text_temperature), min_p=float(text_min_p)))
+                last = sample_items[-1]
+                if isinstance(last, tuple):
+                    sample_items.append(np.asarray([tok], np.int32))
+                else:
+                    sample_items[-1] = np.concatenate([last, np.asarray([tok], np.int32)])
+                curr_length += 1
+                if tok == self.eos_id:
+                    break
+                trigger = self._modality_trigger(sample_items, fixed_modality_shape)
+                continue
+
+            mid, spatial = trigger
+            mc = self.modalities[mid]
+            noise = self._segment_noise(init_modality_noise, spatial, mid, generator)
+            placeholder = to_user_layout(np.zeros((*spatial, mc.dim_latent), np.float32),
+                                         mc.channel_first_latent)
+            ode_samples = [[*sample_items, (mid, placeholder)]] * (2 if use_cfg else 1)
+            packed = _sample_batch._width_bucket_pack(self, ode_samples)
+            if use_cfg:
+                # the uncond row: every text id nulled
+                text = np.asarray(packed.text).copy()
+                text[1] = np.where(text[1] >= 0, self.null_text_id, text[1])
+                packed = packed.replace(text=text)
+
+            # locate the current instance's rows in its group
+            span_row = int((np.asarray(packed.spans[0, :, 2]) > 0).sum() - 1)
+            gi = next(i for i, g in enumerate(packed.groups)
+                      if g.modality_type == mid and g.latent_shape == spatial
+                      and (np.asarray(g.span_rows) == span_row).any())
+            g = packed.groups[gi]
+            rows = np.nonzero(np.asarray(g.span_rows) == span_row)[0]
+            batch_idx = np.asarray(g.batch_idx)[rows]
+            row_cond = int(rows[batch_idx == 0][0])
+            row_uncond = int(rows[batch_idx == 1][0]) if use_cfg else 0
+
+            sampled = self._sample_ode_impl(
+                packed.to_torch(self.device), noise, float(cfg_scale), gi=gi,
+                row_cond=row_cond, row_uncond=row_uncond, span_row=span_row,
+                steps=int(modality_steps), use_cfg=use_cfg)
+            sample_items.append(
+                (mid, to_user_layout(sampled.cpu().numpy(), mc.channel_first_latent)))
+            sample_items.append(np.asarray([self.eom_ids[mid]], np.int32))
+            curr_length += int(math.prod(spatial))
+            trigger = None
+
+        return sample_items
 
     def _prefill_impl(self, packed, *, cap, quantize=False):
         """Fresh cache of capacity `cap`, prefilled with the packed batch
@@ -853,27 +1155,8 @@ class Transfusion:
         per modality segment."""
         use_cfg = cfg_scale != 1.0
         rows = 2 if (use_cfg and incremental_cfg) else 1
-
-        def uncond_of(items):
-            # every text id (specials and meta included) nulled, modalities kept
-            return [
-                np.where(np.asarray(it) >= 0, self.null_text_id, it)
-                if not isinstance(it, tuple) else it
-                for it in items
-            ]
-
-        def seq_stats(items):
-            tok_count, collapse = 0, 0
-            for it in items:
-                if isinstance(it, tuple):
-                    mc = self.modalities[it[0]]
-                    lat = to_channel_last(np.asarray(it[1]), mc.channel_first_latent)
-                    L = int(math.prod(lat.shape[:-1]))  # one sequence row per latent position
-                    tok_count += L
-                    collapse += L - 1
-                else:
-                    tok_count += len(it)
-            return tok_count, collapse
+        uncond_of = functools.partial(_sample_batch._uncond_of, self)
+        seq_stats = functools.partial(_sample_batch._seq_stats, self)
 
         tok_count, collapse = seq_stats(sample_items)
         cap = int(round_up_to_multiple(tok_count + max_length + 256 + 2, 128))
@@ -894,21 +1177,6 @@ class Transfusion:
 
         curr_length = 0
         pending_tok: Optional[int] = None  # sampled but not yet in the cache
-        state = {"text": True, "mid": None, "shape": None}
-
-        def transition():
-            last = sample_items[-1]
-            if isinstance(last, tuple) or len(last) == 0:
-                return
-            tok = int(last[-1])
-            if tok not in self.som_ids:
-                return
-            state["mid"] = self.som_ids.index(tok)
-            if fixed_modality_shape is not None:
-                state["shape"] = fixed_modality_shape
-            else:
-                state["shape"] = self._parse_modality_shape(last, state["mid"])
-            state["text"] = False
 
         def stream_pending(tok_to_stream):
             """Write the pending token into the cache; returns the next token."""
@@ -925,9 +1193,9 @@ class Transfusion:
             slots_used += 1
             return int(tok_next)
 
-        transition()
+        trigger = self._modality_trigger(sample_items, fixed_modality_shape)
         while curr_length <= max_length:
-            if state["text"]:
+            if trigger is None:
                 if pending_tok is None:
                     filtered = min_p_filter(last_logits[0].float(), text_min_p)
                     tok = int(gumbel_sample(filtered, text_temperature, generator))
@@ -942,10 +1210,10 @@ class Transfusion:
                 curr_length += 1
                 if tok == self.eos_id:
                     break
-                transition()
+                trigger = self._modality_trigger(sample_items, fixed_modality_shape)
                 continue
 
-            mid, spatial = state["mid"], tuple(state["shape"])
+            mid, spatial = trigger
             mc = self.modalities[mid]
             L = int(math.prod(spatial))
 
@@ -960,13 +1228,7 @@ class Transfusion:
                 slots_used = packed_len(sample_items)
 
             p0 = tok_count - collapse
-            if init_modality_noise is not None:
-                flat = np.asarray(init_modality_noise)[: int(math.prod(spatial)), : mc.dim_latent]
-                noise = torch.as_tensor(np.ascontiguousarray(flat), dtype=torch.float32)
-                noise = noise.reshape(*spatial, mc.dim_latent).to(self.device)
-            else:
-                noise = torch.randn((*spatial, mc.dim_latent), generator=generator,
-                                    device=self.device)
+            noise = self._segment_noise(init_modality_noise, spatial, mid, generator)
 
             uncond_cache = None
             if use_cfg and rows == 1:
@@ -989,6 +1251,6 @@ class Transfusion:
             slots_used += L
             curr_length += L
             pending_tok = self.eom_ids[mid]  # streamed by the next text step
-            state.update(text=True, mid=None, shape=None)
+            trigger = None
 
         return sample_items
