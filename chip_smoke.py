@@ -24,8 +24,10 @@ Phases (any failure exits non-zero and prints no result line):
      tokens and sampled latents must agree (cached and uncached `sample`
      with CFG 3.0, `sample_batch` over a text, a [som] and a modality
      prompt, `generate_modality_only`: tokens equal, latents within 1e-3),
-     and one training step's loss and every gradient (head-major and
-     token-major attention) within 1e-4;
+     both serving engines (the text engine with a request that fills its
+     row exactly, the multimodal engine through a capacity rebuild; tokens
+     equal, latents within 1e-3), and one training step's loss and every
+     gradient (head-major and token-major attention) within 1e-4;
   4. serving: the bench model at full width (dim 384, depth 8, 8x64 heads,
      bf16, seeded weights) through `generate_text_batch` (8 ragged prompts,
      128 new tokens, greedy; bf16 and int8 KV) and `sample(cache_kv=True)`
@@ -50,6 +52,20 @@ Phases (any failure exits non-zero and prints no result line):
      choice of a forward of their own history), `generate_modality_only`
      (b8 14x14) and the adaptive ODE (`sample_batch` of 2 requests in
      float32, which must finish within max_steps);
+  4c. engines: the same bench model through the continuous-batching
+     engines. `ServingEngine` (8 rows, chunks up to 64, greedy) over 24
+     requests of 16-900 prompt tokens (16 budgets of 16-64 new tokens, 8 of
+     128-256): `warmup(fit_cap_slope=True)`, `run()`, then `serve()` on the
+     same workload (the planner's choice, both estimates and the fitted
+     cost model logged). `MultimodalServingEngine` (4 requests, 8 pool rows,
+     CFG 3.0, 16 midpoint steps, 14x14, chunks up to 32) over phase 4b's 8
+     requests: `warmup()`, `run()`. Each engine's admission prefill and its
+     decode calls (nq 1; the multimodal one also nq 196) are captured and
+     held against the plain versions; every chunk runs under sync debug
+     'error' and is read back by one fetch; greedy tokens agree with a
+     forward of their own history at >= 95 % of positions, each image
+     request's latents lie within the bf16 limits of its solo
+     `sample(cache_kv=True)`, and no pool rebuild fires;
   5. training: the same bench model through `Trainer.train_step`: (a)
      `bench.py`'s batch, 32 x [32 text][14x14x32 latent][8 text], n 256
      after the shift (every layer takes the token-major route), and (b) 8
@@ -238,8 +254,9 @@ def kernels_per_call(torch, fn, calls=10, attempts=5):
     """(device kernels and copies a call of fn launches, their names),
     counted by the profiler over `calls` calls after a warm-up call. The
     profiler drops device events now and then (a window may even come back
-    empty), so a count is a lower bound: the most of up to `attempts`
-    windows, stopping at the first that saw any."""
+    empty or short of one event a call), so a count is a lower bound: the
+    most of up to `attempts` windows, stopping at the first that saw at
+    least one a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -254,7 +271,7 @@ def kernels_per_call(torch, fn, calls=10, attempts=5):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         if len(seen) / calls > best:
             best, names = len(seen) / calls, sorted({n[:60] for n in seen})
-        if best > 0:
+        if best >= 1:
             break
     return best, names
 
@@ -753,12 +770,66 @@ def phase_reference(torch, Transfusion, mods):
                - cpu.generate_modality_only(noise=lat0, modality_steps=4)).abs().max().item()
     require(max(unc_err, batch_err, gen_err) <= 1e-3,
             f"card vs cpu: uncached {unc_err}, sample_batch {batch_err}, modality-only {gen_err}")
+    eng_err, e_counts = engines_reference(torch, mods, gpu, cpu, noise)
     log(json.dumps({"reference": "small f32 model, card vs cpu", "tokens_equal": True,
                     "prefill_logits_err": err, "latents_err": lat_err,
                     "uncached_sample_latents_err": unc_err,
                     "sample_batch_latents_err": batch_err,
-                    "generate_modality_only_err": gen_err,
-                    "launches": {"uncached sample": counts, "sample_batch": b_counts}}))
+                    "generate_modality_only_err": gen_err, "engine_mm_latents_err": eng_err,
+                    "launches": {"uncached sample": counts, "sample_batch": b_counts,
+                                 **e_counts}}))
+
+
+def engines_reference(torch, mods, gpu, cpu, noise):
+    """Both engines on the card against the CPU: the text engine over 5
+    requests in 2 rows, the first filling its 128-slot row exactly (prompt
+    100 + 28 new; tokens equal); the multimodal engine (CFG 3.0, 2 slots, 4
+    requests) through a capacity rebuild (a 126-token [som] prompt in a
+    128-slot pool; tokens equal, latents within 1e-3). Returns (latent err,
+    launches)."""
+    import numpy as np
+
+    ServingEngine = mods["engine"].ServingEngine
+    MultimodalServingEngine = mods["engine_mm"].MultimodalServingEngine
+    rng = np.random.default_rng(5)
+    prompts = [[gpu.sos_id] + rng.integers(0, 16, 99).tolist(), [gpu.sos_id, 3, 4],
+               [gpu.sos_id, 5], [gpu.sos_id, 6, 1], [gpu.sos_id, 2]]
+    budgets = [28, 40, 9, 7, 12]
+
+    def text(m):
+        eng = ServingEngine(m, max_batch=2, max_seq_len=128, decode_chunk=16, temperature=0.0)
+        require(eng.cap == 128, "engine reference: capacity")
+        for p, b in zip(prompts, budgets):
+            eng.submit(np.asarray(p, np.int32), b)
+        return {r.rid: r.tokens for r in eng.run()}
+
+    got, t_counts = counted(mods, lambda: text(gpu))
+    require(got == text(cpu), "text engine: tokens card vs cpu")
+    require(t_counts["flash_fwd"] > 0 and t_counts["decode_attn"] > 0,
+            f"text engine: launches {t_counts}")
+
+    mm_prompts = [[np.asarray([3] * 123 + [1, gpu.som_ids[0]], np.int32)],
+                  [np.asarray([3, 4, 5])], [np.asarray([6, gpu.som_ids[0]])],
+                  (0, np.random.default_rng(1).standard_normal((4, 4, 8)).astype(np.float32))]
+
+    def mm(m):
+        eng = MultimodalServingEngine(m, max_requests=2, max_seq_len=1, cfg_scale=3.0,
+                                      modality_steps=4, text_temperature=0.0,
+                                      init_modality_noise=noise)
+        for p in mm_prompts:
+            eng.submit(p, max_length=20)
+        out = {f.rid: f.output for f in eng.run()}
+        require(eng.stats["rebuilds"] >= 1, "multimodal engine: the rebuild path never ran")
+        return out
+
+    outs_g, m_counts = counted(mods, lambda: mm(gpu))
+    outs_c = mm(cpu)
+    require(m_counts["flash_fwd"] > 0 and m_counts["decode_attn"] > 0,
+            f"multimodal engine: launches {m_counts}")
+    err = max(items_err(outs_g[r], outs_c[r], f"multimodal engine request {r} card vs cpu")
+              for r in outs_c)
+    require(err <= 1e-3, f"multimodal engine: latents card vs cpu {err}")
+    return err, {"text engine": t_counts, "multimodal engine": m_counts}
 
 
 def phase_reference_training(torch, Transfusion, Trainer, mods):
@@ -1066,27 +1137,31 @@ def text_len(items):
     return sum(len(it) for it in items if not isinstance(it, tuple))
 
 
-def forced_agreement(torch, model, items, sampled):
+def forced_agreement(torch, model, items, sampled, text_only=False):
     """The share of the last `sampled` text tokens of `items` that equal the
-    greedy choice (argmax over the vocabulary, as the samplers take it) of
-    one uncached joint forward of the same history, past modalities clean.
+    greedy choice (argmax over the vocabulary, as the samplers take it; over
+    the text ids with `text_only`, as the text engine takes it) of one
+    uncached joint forward of the same history, past modalities clean.
     Each position is judged on the same history, so one flipped token does
     not count against every token after it."""
     packed = model.pack([items], wrap_sos_eos=False, add_meta=False).to_torch(model.device)
     times = torch.ones((1, packed.spans.shape[1]), device=model.device)
     logits = model.core.joint(packed, times)[0][0].float()
+    if text_only:
+        logits = logits[:, : model.num_text_tokens]
     pos = torch.nonzero(packed.text[0] >= 0)[:, 0][-sampled:]
     return (logits[pos - 1].argmax(-1) == packed.text[0, pos]).float().mean().item()
 
 
 @contextlib.contextmanager
-def chunk_watch(torch, mods):
-    """While open, time and count sample_batch's text chunks: each runs with
+def chunk_watch(torch, mods, owner="sample_batch", attr="_chunk_tick_impl"):
+    """While open, time and count the text chunks (`owner`'s `attr`:
+    sample_batch's, or the text engine's `_decode_impl`): each runs with
     CUDA's sync debug mode at 'error' (a synchronising call inside a chunk
     raises), and the host fetches made right after it are counted."""
-    sb = mods["sample_batch"]
+    sb, host = mods["sample_batch"], mods[owner]
     decode = mods["counters"]["decode_attn"]
-    chunk, fetch = sb._chunk_tick_impl, sb._fetch
+    chunk, fetch = getattr(host, attr), sb._fetch
     stats = dict(chunks=0, ticks=0, fetches_after_chunk=0, chunk_seconds=0.0,
                  decode_launches=0, fetches=0)
     last = {"t0": None}
@@ -1114,11 +1189,13 @@ def chunk_watch(torch, mods):
             last["t0"] = None
         return out
 
-    sb._chunk_tick_impl, sb._fetch = spy_chunk, spy_fetch
+    setattr(host, attr, spy_chunk)
+    sb._fetch = spy_fetch
     try:
         yield stats
     finally:
-        sb._chunk_tick_impl, sb._fetch = chunk, fetch
+        setattr(host, attr, chunk)
+        sb._fetch = fetch
 
 
 def phase_sampling(torch, Transfusion, mods):
@@ -1294,6 +1371,257 @@ def phase_sampling(torch, Transfusion, mods):
     log(json.dumps({"sampling": name, "seconds": dt, "flow_evaluations": evals[0],
                     "heun_iterations": evals[0] // 2, "launches": counts}))
     del model
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the continuous-batching engines at full width
+# ---------------------------------------------------------------------------
+
+# the text engine's queue: a chat server's, where most answers are short
+ENGINE_REQUESTS = 24
+ENGINE_SHORT, ENGINE_LONG = (16, 64), (128, 256)  # budgets of 16 and of 8 requests
+
+
+def engine_text_workload(rng):
+    """24 seeded ragged prompts of 16-900 tokens; 16 budgets of 16-64 new
+    tokens and 8 of 128-256, shuffled."""
+    import numpy as np
+
+    lengths = rng.permutation(np.linspace(16, 900, ENGINE_REQUESTS).astype(int))
+    prompts = [rng.integers(0, 256, int(n)).astype(np.int32) for n in lengths]
+    budgets = np.concatenate([rng.integers(ENGINE_SHORT[0], ENGINE_SHORT[1] + 1, 16),
+                              rng.integers(ENGINE_LONG[0], ENGINE_LONG[1] + 1, 8)])
+    return prompts, [int(b) for b in rng.permutation(budgets)]
+
+
+def hold_captured(torch, mods, name, calls, want):
+    """Hold each captured call of `want` against its plain version (the
+    phase-2 tolerances); the flash call's TPU kernel-table row logged."""
+    require(set(calls) == set(want), f"{name}: captured only {sorted(calls)} of {sorted(want)}")
+    rows = {}
+    for key, a in calls.items():
+        kernel = key.split(":")[0]
+        if kernel == "flash_fwd":
+            b, h, nq, d = a["q"].shape
+            rows[key] = mods["flash"].tpu_row(h, nq, a["k"].shape[2], d, bwd=False)
+            record("flash_fwd", f"main path, {name}: admission prefill q {shape_str(a['q'])} "
+                   f"(row {rows[key]})", check_flash(torch, mods, a), torch.bfloat16)
+        else:
+            record("decode_attn", f"main path, {name}: q {shape_str(a['q'])} cache "
+                   f"{shape_str(a['k'])}, lens {a['lens'].tolist()}",
+                   check_decode(torch, mods, a, count=True), torch.bfloat16)
+    return rows
+
+
+def watch_report(stats, seconds):
+    return {"chunks": stats["chunks"], "ticks": stats["ticks"],
+            "ms_per_chunk": stats["chunk_seconds"] / stats["chunks"] * 1e3,
+            "ms_per_tick": stats["chunk_seconds"] / stats["ticks"] * 1e3,
+            "decode_launches_per_tick": stats["decode_launches"] / stats["ticks"],
+            "host_fetches_per_chunk": stats["fetches_after_chunk"] / stats["chunks"],
+            "chunk_share_of_run": stats["chunk_seconds"] / seconds}
+
+
+def phase_engines(torch, Transfusion, mods):
+    """The bench model through both continuous-batching engines: the text
+    engine (8 rows, chunks up to 64, greedy) over a chat server's queue of
+    24 requests (warmup, run, then serve on the same workload), and the
+    multimodal engine (4 requests, 8 pool rows, CFG 3.0, 16 midpoint steps,
+    14x14, chunks up to 32) over phase 4b's 8-request mix (warmup, run).
+    Each engine's first admission prefill and its decode calls are held
+    against the plain versions; every chunk runs under sync debug 'error'
+    and is read back by one fetch; each request's greedy tokens agree with a
+    forward of its own history at >= 95 % of positions, and each image
+    request's latents lie within the bf16 limits of its solo
+    `sample(cache_kv=True)`. Returns the launch totals."""
+    import numpy as np
+
+    ServingEngine = mods["engine"].ServingEngine
+    MultimodalServingEngine = mods["engine_mm"].MultimodalServingEngine
+    serving = mods["serving"]
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
+    rng = np.random.default_rng(3)
+    totals = dict.fromkeys(KERNELS, 0)
+
+    # ---- the text engine ----
+    name = "ServingEngine 8 rows, 24 requests"
+    prompts, budgets = engine_text_workload(rng)
+    kw = dict(max_batch=8, decode_chunk=64, temperature=0.0)
+    # capture: the first 8 requests, 2 new tokens each, on an engine of the
+    # same capacity (prefill rows by width bucket, decode at nq 1 over 8 rows)
+    probe = ServingEngine.for_workload(model, prompts, budgets, **kw)
+    with capturing(torch, mods, {
+            "flash_fwd": lambda a: True,
+            "decode_attn:nq1": lambda a: (a["q"].shape[0], a["q"].shape[2]) == (8, 1)}) as calls:
+        probe.run(prompts[:8], 2)
+    torch.cuda.synchronize()
+    text_rows = hold_captured(torch, mods, name, calls, {"flash_fwd", "decode_attn:nq1"})
+    del calls, probe
+    eng = ServingEngine.for_workload(model, prompts, budgets, **kw)
+    t0 = time.perf_counter()
+    eng.warmup(fit_cap_slope=True)
+    t_warm = time.perf_counter() - t0
+    for p, b in zip(prompts, budgets):
+        eng.submit(p, b)
+    t0 = time.perf_counter()
+    with chunk_watch(torch, mods, "engine", "_decode_impl") as stats:
+        done, counts = counted(mods, eng.run)
+    dt = time.perf_counter() - t0
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0, f"{name}: launches {counts}")
+    require(stats["chunks"] > 0 and stats["fetches_after_chunk"] == stats["chunks"],
+            f"{name}: chunk fetches {stats}")
+    tokens = {r.rid: r.tokens for r in done}
+    require(sorted(tokens) == list(range(ENGINE_REQUESTS))
+            and all(len(tokens[i]) == budgets[i] for i in tokens), f"{name}: budgets")
+    forced = [forced_agreement(torch, model, [np.concatenate([p, np.asarray(tokens[i])])],
+                               len(tokens[i]), text_only=True) for i, p in enumerate(prompts)]
+    require(float(np.mean(forced)) >= 0.95, f"{name}: per-position token agreement {forced}")
+    for k in totals:
+        totals[k] += counts[k]
+    generated = sum(budgets)
+    static_cap = -(-max(p.size + b for p, b in zip(prompts, budgets)) // 128) * 128
+    static_step = eng.static_step_at(static_cap)
+    fit = {"rtt_s": eng._rtt_est, "step_s": eng._step_est, "cap_slope_s_per_slot": eng._cap_slope,
+           "fit": eng.cost_fit, "samples": {k: v[1:] for k, v in eng._chunk_samples.items()},
+           "static_step_s": static_step,
+           "static_step_ratio": None if static_step is None else static_step / eng._step_est}
+    log(json.dumps({"engine": name, "cap": eng.cap, "seconds": dt, "warmup_seconds": t_warm,
+                    "requests_per_s": ENGINE_REQUESTS / dt, "tokens_per_s": generated / dt,
+                    **watch_report(stats, dt), "admitted": eng.stats["admitted"],
+                    "token_agreement_per_position": float(np.mean(forced)),
+                    "min_token_agreement": float(np.min(forced)),
+                    "admission_flash_row": text_rows, "cost_model": fit, "launches": counts}))
+
+    # serve() on the same workload: the planner's choice and both estimates
+    rtt, step = eng._rtt_est, eng._step_est
+    est = {"engine_s": serving.estimate_engine_time(budgets, 8, rtt, step, 64),
+           "static_s": serving.estimate_static_time(
+               budgets, 8, rtt, static_step if static_step is not None
+               else step * serving.STATIC_STEP_RATIO)}
+    plans = []
+    plan_dispatch = serving.plan_dispatch
+
+    def spy_plan(*a, **k):
+        plans.append(plan_dispatch(*a, **k))
+        return plans[-1]
+
+    # serve() as planned, then the other branch forced, to see whether the
+    # planner chose the faster one
+    seconds, agreement = {}, {}
+    try:
+        for forced_plan in (None, "other"):
+            if forced_plan is None:
+                serving.plan_dispatch = spy_plan
+            else:
+                branch = "engine" if plans[0] == "static" else "static"
+                serving.plan_dispatch = lambda *a, _b=branch, **k: _b
+            t0 = time.perf_counter()
+            served, s_counts = counted(mods, lambda: eng.serve(prompts, budgets))
+            branch = plans[0] if forced_plan is None else branch
+            seconds[branch] = time.perf_counter() - t0
+            require([len(t) for t in served] == budgets, f"{name}: serve() {branch}")
+            forced_s = [forced_agreement(torch, model, [np.concatenate([p, np.asarray(t)])],
+                                         len(t), text_only=True) for p, t in zip(prompts, served)]
+            agreement[branch] = float(np.mean(forced_s))
+            require(agreement[branch] >= 0.95, f"{name} serve() {branch}: agreement {forced_s}")
+            for k in totals:
+                totals[k] += s_counts[k]
+    finally:
+        serving.plan_dispatch = plan_dispatch
+    require(len(plans) == 1, f"{name}: serve() planned {plans}")
+    # the static branch: one prefill and max(budget) decode steps a pool
+    by_budget = sorted(budgets, reverse=True)
+    static_steps = sum(max(by_budget[i : i + 8]) for i in range(0, len(by_budget), 8))
+    static_ms = seconds["static"] / static_steps * 1e3
+    log(json.dumps({"engine": f"{name}, serve()", "plan": plans[0], **est,
+                    "seconds": seconds, "requests_per_s": {
+                        b: ENGINE_REQUESTS / t for b, t in seconds.items()},
+                    "tokens_per_s": {b: generated / t for b, t in seconds.items()},
+                    "planned_branch_faster": seconds[plans[0]] == min(seconds.values()),
+                    "static_steps": static_steps, "static_ms_per_step": static_ms,
+                    "measured_static_step_ratio": static_ms / watch_report(stats, dt)["ms_per_tick"],
+                    "token_agreement_per_position": agreement}))
+
+    # ---- the multimodal engine ----
+    name = "MultimodalServingEngine 4 requests (8 rows), 8 requests"
+    noise = rng.standard_normal((196, 32)).astype(np.float32)
+    mm_prompts = ([[np.asarray(list(rng.integers(0, 256, n)) + [model.som_ids[0]], np.int32)]
+                   for n in BATCH_IMAGE_TEXT]
+                  + [[rng.integers(0, 256, n).astype(np.int32)] for n in BATCH_TEXT])
+    max_length = 196 + 32
+    mkw = dict(max_requests=4, cfg_scale=3.0, modality_steps=16, fixed_modality_shape=(14, 14),
+               text_chunk=32, text_temperature=0.0, init_modality_noise=noise, kv_quantize=False)
+    rows = 8
+    probe = MultimodalServingEngine.for_workload(model, mm_prompts, max_length,
+                                                 **{**mkw, "modality_steps": 2})
+    with capturing(torch, mods, {
+            "flash_fwd": lambda a: True,
+            "decode_attn:nq1": lambda a: (a["q"].shape[0], a["q"].shape[2]) == (rows, 1),
+            "decode_attn:nq196": lambda a: (a["q"].shape[0], a["q"].shape[2]) == (rows, 196),
+    }) as calls:
+        probe.run(mm_prompts, 1)
+    torch.cuda.synchronize()
+    mm_rows = hold_captured(torch, mods, name, calls,
+                            {"flash_fwd", "decode_attn:nq1", "decode_attn:nq196"})
+    del calls, probe
+    eng = MultimodalServingEngine.for_workload(model, mm_prompts, max_length, **mkw)
+    t0 = time.perf_counter()
+    eng.warmup()
+    t_warm = time.perf_counter() - t0
+    plan = eng.serve(mm_prompts, max_length, plan_only=True)
+    rids = [eng.submit(p, max_length) for p in mm_prompts]
+    t0 = time.perf_counter()
+    with chunk_watch(torch, mods) as stats:
+        done, counts = counted(mods, eng.run)
+    dt = time.perf_counter() - t0
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0, f"{name}: launches {counts}")
+    require(stats["chunks"] > 0 and stats["fetches_after_chunk"] == stats["chunks"],
+            f"{name}: chunk fetches {stats}")
+    require(eng.stats["rebuilds"] == 0, f"{name}: {eng.stats['rebuilds']} rebuilds")
+    outs = {f.rid: f.output for f in done}
+    images = sum(isinstance(o, tuple) for out in outs.values() for o in out)
+    # the image requests against their solo sample(cache_kv=True) (latents
+    # within the bf16 limits, the common-prefix agreement logged); every
+    # request's tokens judged position by position
+    forced, prefix, worst = [], [], 0.0
+    t_solo = time.perf_counter()
+    solo_kw = {k: v for k, v in mkw.items() if k not in ("max_requests", "text_chunk")}
+    for rid, p in zip(rids, mm_prompts):
+        got = outs[rid]
+        lats = [o[1] for o in got if isinstance(o, tuple)]
+        require(all(np.isfinite(x).all() and x.shape[-1] == 32 for x in lats),
+                f"{name}: latents")
+        if lats:
+            solo = model.sample(p, cache_kv=True, max_length=max_length, **solo_kw)
+            a_, _, w_ = bf16_agreement(got, solo, f"{name}: a request vs its solo sample")
+            prefix += a_
+            worst = max(worst, w_)
+        start = model._prompt_to_items(p)
+        new_images = sum(isinstance(o, tuple) for o in got) - sum(
+            isinstance(o, tuple) for o in start)
+        sampled = text_len(got) - text_len(start) - new_images
+        if sampled > 0:
+            forced.append(forced_agreement(torch, model, got, sampled))
+    t_solo = time.perf_counter() - t_solo
+    require(forced and float(np.mean(forced)) >= 0.95,
+            f"{name}: per-position token agreement {forced}")
+    for k in totals:
+        totals[k] += counts[k]
+    mm_fit = {"rtt_s": eng._rtt_est, "step_s": eng._step_est, "fit": eng.cost_fit,
+              "ode_s": eng.ode_cost(), "samples": {k: v[1:] for k, v in eng._chunk_samples.items()}}
+    log(json.dumps({"engine": name, "cap": eng.cap, "seconds": dt, "warmup_seconds": t_warm,
+                    "requests_per_s": len(mm_prompts) / dt,
+                    "tokens_per_s": sum(text_len(o) for o in outs.values()) / dt,
+                    "images": images, "s_per_image": dt / max(images, 1),
+                    **watch_report(stats, dt), "ode_dispatches": eng.stats["ode_dispatches"],
+                    "rebuilds": eng.stats["rebuilds"], "plan": plan,
+                    "token_agreement_per_position": float(np.mean(forced)),
+                    "token_agreement_over_common_prefix_vs_solo": prefix,
+                    "latents_vs_solo_of_bf16_limit": worst, "solo_seconds": t_solo,
+                    "admission_flash_row": mm_rows, "cost_model": mm_fit, "launches": counts}))
+    del model, eng
     torch.cuda.empty_cache()
     return totals
 
@@ -1536,7 +1864,14 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from transfusion_tpu_torch import Transfusion
-        from transfusion_tpu_torch.models import layers, sample_batch, transfusion
+        from transfusion_tpu_torch.models import (
+            engine,
+            engine_mm,
+            layers,
+            sample_batch,
+            serving,
+            transfusion,
+        )
         from transfusion_tpu_torch.ops import (
             _build,
             decode_attn,
@@ -1558,7 +1893,7 @@ def main() -> int:
     }
     mods = dict(flash=flash_attn, nhd=flash_attn_nhd, decode=decode_attn, layers=layers,
                 spans=spans, rope=rope, transfusion=transfusion, sample_batch=sample_batch,
-                counters=counters)
+                engine=engine, engine_mm=engine_mm, serving=serving, counters=counters)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1586,6 +1921,7 @@ def main() -> int:
     timed_phase(phase_reference_training, torch, Transfusion, Trainer, mods)
     launches, main_path = timed_phase(phase_serving, torch, Transfusion, mods)
     sampling_launches = timed_phase(phase_sampling, torch, Transfusion, mods)
+    engine_launches = timed_phase(phase_engines, torch, Transfusion, mods)
     train_launches, train_path = timed_phase(phase_training, torch, Transfusion, Trainer, mods)
     long_launches, long_path = timed_phase(phase_long_training, torch, Transfusion, Trainer,
                                            mods)
@@ -1599,7 +1935,8 @@ def main() -> int:
     kernels = []
     for name, meta in KERNELS.items():
         total = (launches.get(name, 0) + sampling_launches.get(name, 0)
-                 + train_launches.get(name, 0) + long_launches.get(name, 0))
+                 + engine_launches.get(name, 0) + train_launches.get(name, 0)
+                 + long_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]
         kernels.append(dict(

@@ -14,6 +14,13 @@ seeded weights) through four windows under `torch.profiler`:
   * batched: `sample_batch` over 8 requests (4 prompts of 24-200 text
     tokens ending in [som], 4 of 16-900 text tokens; 16 pool rows), CFG
     3.0, 196 + 32 tokens each, text chunks of 32, greedy;
+  * text engine: `ServingEngine.run` (8 rows, chunks up to 64, greedy,
+    after `warmup(fit_cap_slope=True)`) over `chip_smoke.py` phase 4c's
+    queue of 24 requests (16-900 prompt tokens; 16 budgets of 16-64 new
+    tokens, 8 of 128-256);
+  * multimodal engine: `MultimodalServingEngine.run` (4 requests, 8 pool
+    rows, CFG 3.0, 16 midpoint steps, 14x14, chunks up to 32, after
+    `warmup()`) over the batched window's 8 requests;
 
 then the 573M config of `scripts/probe_573m.py` (dim 1024, depth 12, 16x64
 heads, vocab 50k, bf16, seeded weights) through one window:
@@ -29,7 +36,8 @@ the number of kernel launches, and the ten kernels with the most device
 time. Then one line of launches per call, each counted by the profiler
 over one call captured from the windows' warm-ups: a `sample_batch` text
 chunk (per tick), one flow evaluation of its grouped ODE, and one of the
-uncached sampler's ODE. Needs a CUDA device.
+uncached sampler's ODE; and one of each engine's decode chunks (per step).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -168,7 +176,42 @@ def main() -> int:
         (flow, y0, grid), _ = cap.args
         per_call[name] = launches_of(torch, lambda: flow(grid[0], y0))
     print(json.dumps({"launches_per_call": per_call}), flush=True)
-    del model
+
+    from chip_smoke import engine_text_workload
+    from transfusion_tpu_torch.models.engine import ServingEngine
+    from transfusion_tpu_torch.models.engine_mm import MultimodalServingEngine
+
+    t_prompts, budgets = engine_text_workload(np.random.default_rng(3))
+    eng = ServingEngine.for_workload(model, t_prompts, budgets, max_batch=8, decode_chunk=64,
+                                     temperature=0.0)
+    eng.warmup(fit_cap_slope=True)
+
+    def serve_queue(engine, queue):
+        for p, b in queue:
+            engine.submit(p, b)
+        return engine.run()
+
+    from transfusion_tpu_torch.models import engine as engine_mod
+
+    with FirstCall(engine_mod, "_decode_impl", lambda *a, **k: k["k"] >= 8) as text_chunk:
+        profile(torch, "ServingEngine 8 rows, 24 requests (16-900 prompt tokens, 16-256 new)",
+                lambda: serve_queue(eng, list(zip(t_prompts, budgets))))
+    mm = MultimodalServingEngine.for_workload(
+        model, prompts, 196 + 32, max_requests=4, cfg_scale=3.0, modality_steps=16,
+        fixed_modality_shape=(14, 14), text_chunk=32, text_temperature=0.0, kv_quantize=False)
+    mm.warmup()
+    with FirstCall(sb, "_chunk_tick_impl", lambda *a, **k: k["k"] >= 8) as mm_chunk:
+        profile(torch, "MultimodalServingEngine 4 requests (8 pool rows), 8 requests, 196 + 32 "
+                "tokens each", lambda: serve_queue(mm, [(p, 196 + 32) for p in prompts]))
+    per_call = {}
+    for name, cap, fn in (("ServingEngine decode step, 8 rows", text_chunk,
+                           engine_mod._decode_impl),
+                          ("MultimodalServingEngine text tick, 8 rows", mm_chunk,
+                           sb._chunk_tick_impl)):
+        (args, kw) = cap.args
+        per_call[name] = launches_of(torch, lambda: fn(*args, **kw)) / kw["k"]
+    print(json.dumps({"launches_per_call": per_call}), flush=True)
+    del model, eng, mm
     torch.cuda.empty_cache()
     model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **LONG_CFG)
     prompts = [rng.integers(0, 50_000, size=n) for n in LONG_PROMPTS]

@@ -540,3 +540,106 @@ def test_sample_batch_chunk_fetches_to_the_host_once(cuda_device, monkeypatch):
     for i in chunks:
         assert log[i + 1] == ("fetch",)
         assert log[i][2] == log[i][1] * depth  # one decode launch a layer and tick
+
+
+def test_serving_engines_on_card_match_cpu(cuda_device):
+    """Both continuous-batching engines on the card against the CPU, same
+    weights: the text engine over 5 requests in 2 rows, one of which fills
+    its 128-slot row exactly (tokens equal); the multimodal engine over a
+    queue deeper than its pool and through a capacity rebuild (a 126-token
+    [som] prompt in a 128-slot pool; tokens equal, latents within 1e-3).
+    Both launch the flash and the decode kernel on the card."""
+    from transfusion_tpu_torch.models.engine import ServingEngine
+    from transfusion_tpu_torch.models.engine_mm import MultimodalServingEngine
+
+    gm = Transfusion(device="cuda", seed=1, **CFG)
+    cm = Transfusion(device="cpu", seed=1, **CFG)
+    cm.core.load_state_dict({k: t.cpu() for k, t in gm.core.state_dict().items()})
+    rng = np.random.default_rng(2)
+    prompts = [[8] + rng.integers(0, 8, 99).tolist(), [8, 3, 4], [8, 5], [8, 6, 1], [8, 2]]
+    budgets = [28, 40, 9, 7, 12]
+    text = []
+    for m in (gm, cm):
+        eng = ServingEngine(m, max_batch=2, max_seq_len=128, decode_chunk=16, temperature=0.0)
+        for p, b in zip(prompts, budgets):
+            eng.submit(np.asarray(p, np.int32), b)
+        before = (flash_attn.flash_attention.launches, decode_attn.decode_attention.launches)
+        text.append({r.rid: r.tokens for r in eng.run()})
+        if m is gm:
+            assert flash_attn.flash_attention.launches > before[0]
+            assert decode_attn.decode_attention.launches > before[1]
+    assert text[0] == text[1]
+
+    noise = np.random.default_rng(0).standard_normal((64, 16)).astype(np.float32)
+    mm_prompts = [[np.asarray([3] * 123 + [1, gm.som_ids[0]], np.int32)],
+                  [np.asarray([1, 2, 3])], [np.asarray([4, gm.som_ids[0]])],
+                  (0, np.random.default_rng(1).standard_normal((4, 16)).astype(np.float32))]
+    outs = []
+    for m in (gm, cm):
+        eng = MultimodalServingEngine(m, max_requests=2, max_seq_len=1, cfg_scale=3.0,
+                                      modality_steps=4, text_temperature=0.0,
+                                      init_modality_noise=noise)
+        for p in mm_prompts:
+            eng.submit(p, max_length=8)
+        outs.append({f.rid: f.output for f in eng.run()})
+        assert eng.stats["rebuilds"] >= 1
+    for rid in outs[1]:
+        g, c = outs[0][rid], outs[1][rid]
+        assert len(g) == len(c)
+        for a, b in zip(g, c):
+            if isinstance(a, tuple):
+                np.testing.assert_allclose(a[1], b[1], atol=1e-3)
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+def test_engine_chunks_fetch_to_the_host_once(cuda_device, monkeypatch):
+    """Every chunk of both engines runs with no synchronising call (sync
+    debug mode 'error') and is read back by one fetch; the text engine's
+    chunk launches the decode kernel once a layer and step."""
+    from transfusion_tpu_torch.models import engine as engine_mod
+    from transfusion_tpu_torch.models import sample_batch as sb
+    from transfusion_tpu_torch.models.engine import ServingEngine
+    from transfusion_tpu_torch.models.engine_mm import MultimodalServingEngine
+
+    gm = Transfusion(device="cuda", seed=1, **CFG)
+    log = []
+
+    def watched(fn, k_of):
+        def spy(*args, **kw):
+            before = decode_attn.decode_attention.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            log.append(("chunk", k_of(kw), decode_attn.decode_attention.launches - before))
+            return out
+        return spy
+
+    fetch = sb._fetch
+
+    def spy_fetch(t):
+        log.append(("fetch",))
+        return fetch(t)
+
+    monkeypatch.setattr(engine_mod, "_decode_impl",
+                        watched(engine_mod._decode_impl, lambda kw: kw["k"]))
+    monkeypatch.setattr(sb, "_chunk_tick_impl", watched(sb._chunk_tick_impl, lambda kw: kw["k"]))
+    monkeypatch.setattr(sb, "_fetch", spy_fetch)
+    eng = ServingEngine(gm, max_batch=2, max_seq_len=128, decode_chunk=8, temperature=1.0)
+    eng.run([np.asarray([8, 1, 2]), np.asarray([8, 5, 6, 7]), np.asarray([8, 3])], 20)
+    depth = CFG["transformer"]["depth"]
+    chunks = [i for i, e in enumerate(log) if e[0] == "chunk"]
+    assert len(chunks) >= 3
+    for i in chunks:
+        assert log[i + 1] == ("fetch",)
+        assert log[i][2] == log[i][1] * depth
+    log.clear()
+    mm = MultimodalServingEngine(gm, max_requests=2, max_seq_len=256, text_temperature=1.0,
+                                 cfg_scale=3.0, modality_steps=2, text_chunk=8)
+    mm.run([[np.asarray([1, 2, 3])], [np.asarray([5, 6])], [np.asarray([4])]], max_length=24)
+    chunks = [i for i, e in enumerate(log) if e[0] == "chunk"]
+    assert len(chunks) >= 2
+    for i in chunks:
+        assert log[i + 1] == ("fetch",)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports with `jax` and `transfusion_tpu`
 blocked, builds a small model on the CPU, serves from it (batched text,
-uncached `sample`, `sample_batch`, `generate_modality_only`) and takes a
-training step, and its entry points default to the card (raising when
+uncached `sample`, `sample_batch`, `generate_modality_only`, both
+continuous-batching engines) and takes a training step, and its entry points default to the card (raising when
 there is none)."""
 
 import os
@@ -47,6 +47,20 @@ SCRIPT = textwrap.dedent(
     lat = m.generate_modality_only(batch_size=2, modality_steps=2,
                                    generator=torch.Generator().manual_seed(0))
     assert lat.shape == (2, 4, 16) and bool(torch.isfinite(lat).all())
+
+    from transfusion_tpu_torch.models.engine import ServingEngine
+    from transfusion_tpu_torch.models.engine_mm import MultimodalServingEngine
+    from transfusion_tpu_torch.training.metrics import MetricsLogger
+    log = MetricsLogger()
+    eng = ServingEngine(m, max_batch=2, max_seq_len=64, decode_chunk=4, metrics=log)
+    done = eng.run([np.asarray([8, 1, 2]), np.asarray([8, 3]), np.asarray([8, 4, 5, 6])], 5)
+    assert sorted(len(r.tokens) for r in done) == [5, 5, 5] and len(log.history) >= 2
+    assert [len(t) for t in eng.serve([np.asarray([8, 2]), np.asarray([8, 7, 7])], [3, 2])] \
+        == [3, 2]
+    mm = MultimodalServingEngine(m, max_requests=1, max_seq_len=64, modality_steps=2,
+                                 text_temperature=0.0, init_modality_noise=noise)
+    fin = mm.run([[np.asarray([1, 2])], [np.asarray([3, m.som_ids[0]])]], max_length=6)
+    assert len(fin) == 2 and any(isinstance(o, tuple) for f in fin for o in f.output)
 
     from transfusion_tpu_torch.training import Trainer
     trainer = Trainer(m)

@@ -170,3 +170,18 @@ def test_chunk_tick_pins_idle_rows():
     assert cache["idx"].tolist() == [5, 3, 5, 3]
     assert cache["mask"].sum(1).tolist() == [5, 3, 5, 3]
     assert torch.isfinite(cache["k"]).all()
+
+
+def test_sample_batch_prompt_bucket_wider_than_the_capacity(params):
+    """A 600-token prompt packs to a 1024-wide bucket while the pool holds
+    896 slots: the port's prefill packs at most the capacity wide and
+    matches the solo run; the JAX `sample_batch` fails on this input (its
+    prefill cannot write a chunk wider than the cache), a reference caveat
+    recorded in ROADMAP.md."""
+    jm, tm = pair(params)
+    prompt = [np.arange(599).astype(np.int32) % 32]
+    kw = dict(GREEDY, max_length=6, modality_steps=2, cfg_scale=1.0)
+    with pytest.raises(ValueError):
+        jm.sample_batch(params, [prompt], rng=jax.random.PRNGKey(1), **kw)
+    got = tm.sample_batch([prompt], **kw)
+    assert_items_equal(got[0], tm.sample(prompt, cache_kv=True, **kw), 2e-5)

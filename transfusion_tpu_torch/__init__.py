@@ -17,7 +17,13 @@ The port goes slice by slice (ROADMAP.md):
     config;
   * uncached and batched sampling: `Transfusion.sample()` (cache_kv=False),
     `sample_batch` (`models/sample_batch.py`), `generate_modality_only`,
-    `forward_text` / `forward_modality` and the adaptive ODE.
+    `forward_text` / `forward_modality` and the adaptive ODE;
+  * continuous-batching serving: `models.engine.ServingEngine` (text) and
+    `models.engine_mm.MultimodalServingEngine` (text + image requests), one
+    pooled KV cache each, with the dispatch planners of `models/serving.py`
+    (`plan_dispatch`, `plan_dispatch_mm`) choosing between them and static
+    batching from a cost model `warmup()` fits on the card;
+    `training.metrics.MetricsLogger` logs their ticks.
 
 Every TPU kernel on these paths has a hand-written CUDA kernel for
 `sm_90a` (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`: bf16 on the tensor

@@ -52,15 +52,19 @@ def _round_up(n, m):
     return -(-int(n) // m) * m
 
 
-def _width_bucket_pack(model, batch_items):
+def _width_bucket_pack(model, batch_items, cap=None):
     """Pack to the next power-of-two multiple of pad_multiple (the JAX
     `bucket_pack`, `transfusion.py:1888-1899`): the packed width, and so
-    the flash envelope a call takes, moves in O(log length) steps."""
+    the flash envelope a call takes, moves in O(log length) steps. A
+    prefill into a cache of `cap` slots packs at most `cap` wide (the JAX
+    `sample_batch` fails on a bucket wider than its cache)."""
     packed = model.pack(batch_items, wrap_sos_eos=False, add_meta=False)
     L = packed.text.shape[1]
     mult = model.pad_multiple
     chunks = max(1, -(-L // mult))
     bucket = mult * (1 << (chunks - 1).bit_length())
+    if cap is not None:
+        bucket = max(min(bucket, cap), L)
     if bucket != L:
         packed = model.pack(batch_items, wrap_sos_eos=False, add_meta=False,
                             pad_multiple=bucket)
@@ -151,14 +155,20 @@ def _draw_seed(seed: int, stream: int, request: int, count: int) -> int:
     return int(state[0] >> np.uint64(1))
 
 
-def _gumbel_rows(seed: int, keys, vocab: int, device):
-    """Gumbel noise Float32[len(keys), vocab]; row j from the text stream of
-    (request, count) = keys[j]."""
-    u = torch.empty((len(keys), vocab), device=device)
-    for j, (i, count) in enumerate(keys):
-        g = torch.Generator(device=device).manual_seed(_draw_seed(seed, _TEXT_STREAM, i, count))
-        u[j].uniform_(generator=g)
-    return -safe_log(-safe_log(u.clamp_min(1e-20)))
+def _gumbel_rows(seed: int, keys, vocab: int, device, stream: int = _TEXT_STREAM):
+    """Gumbel noise Float32[len(keys), vocab]; row j from `stream` at
+    (request, count) = keys[j], or zeros where keys[j] is None (a row whose
+    draw is discarded)."""
+    u = torch.full((len(keys), vocab), 0.5, device=device)
+    for j, key in enumerate(keys):
+        if key is not None:
+            g = torch.Generator(device=device).manual_seed(_draw_seed(seed, stream, *key))
+            u[j].uniform_(generator=g)
+    noise = -safe_log(-safe_log(u.clamp_min(1e-20)))
+    if any(key is None for key in keys):
+        drawn = torch.tensor([key is not None for key in keys], device=device)
+        noise = torch.where(drawn[:, None], noise, 0.0)
+    return noise
 
 
 def _fetch(t):
@@ -315,7 +325,7 @@ def sample_batch(model, prompts, seed: int = 0, max_length=2048,
         batch_items = [r.items for r in reqs]
         if use_cfg:
             batch_items += [_uncond_of(model, r.items) for r in reqs]
-        packed = _width_bucket_pack(model, batch_items)
+        packed = _width_bucket_pack(model, batch_items, this_cap)
         last_logits, cache = model._prefill_impl(packed, cap=this_cap, quantize=quantize)
         lengths = np.asarray(packed.lengths, np.int64)
         # per-row offsets: every row continues at its own length
