@@ -26,8 +26,11 @@ Phases (any failure exits non-zero and prints no result line):
      prompt, `generate_modality_only`: tokens equal, latents within 1e-3),
      both serving engines (the text engine with a request that fills its
      row exactly, the multimodal engine through a capacity rebuild; tokens
-     equal, latents within 1e-3), and one training step's loss and every
-     gradient (head-major and token-major attention) within 1e-4;
+     equal, latents within 1e-3), one training step's loss and every
+     gradient (head-major and token-major attention) within 1e-4, and a
+     small image model (patch codec, U-Net halves, pos-emb): one step's
+     loss, its velocity and reconstruction terms and every gradient within
+     1e-4, cached `sample` latents and decoded images within 1e-3;
   4. serving: the bench model at full width (dim 384, depth 8, 8x64 heads,
      bf16, seeded weights) through `generate_text_batch` (8 ragged prompts,
      128 new tokens, greedy; bf16 and int8 KV) and `sample(cache_kv=True)`
@@ -66,6 +69,20 @@ Phases (any failure exits non-zero and prints no result line):
      forward of their own history at >= 95 % of positions, each image
      request's latents lie within the bf16 limits of its solo
      `sample(cache_kv=True)`, and no pool rebuild fires;
+  4d. image model: the same bench model with the image workloads' options
+     (a 2 x 2 patch encoder / decoder of [28, 28, 8] images, U-Net halves
+     from `models/modality_io.py` that take the 14x14x32 latents to 7 x 7
+     = 49 rows, axial pos-emb, reconstruction and velocity-consistency
+     weights 0.1): 20 `Trainer(velocity_consistency=True)` steps on 32 x
+     [32 text][image][8 text] (the trained forward, the EMA forward and the
+     backward once per layer and step; the EMA pass's share of a step
+     logged; the loss falls), one `forward_modality` loss with both terms,
+     then, on the seeded weights, cached `sample()` (CFG 3.0), `sample_batch`
+     over phase 4b's 8 requests and the multimodal engine (4 requests, 8
+     rows), each returning decoded images in [0, 1]; the captured flash
+     and decode calls (row 4 at nq 49 among them) are held against their
+     plain versions, batched latents lie within the bf16 limits of solo
+     and greedy tokens agree per position at >= 95 %;
   5. training: the same bench model through `Trainer.train_step`: (a)
      `bench.py`'s batch, 32 x [32 text][14x14x32 latent][8 text], n 256
      after the shift (every layer takes the token-major route), and (b) 8
@@ -137,6 +154,13 @@ ROW_REL_TOL = {"bfloat16": 0.08, "float32": 1e-3}
 # float32 the two summation orders agree to ~1e-6
 BWD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 TRAIN_STEPS = 20
+# phase 4d: the bench model with the image workloads' options
+# (examples/train_image_only_with_unet.py:52-60, train_latent_with_text.py:41-47):
+# [28, 28, 8] images in [0, 1], 2 x 2 patches to the bench's [14, 14, 32]
+# latents, a stride-2 conv / transposed conv U-Net to 7 x 7 = 49 rows
+IMAGE_OPTS = dict(add_pos_emb=True, modality_num_dim=2, reconstruction_loss_weight=0.1,
+                  velocity_consistency_loss_weight=0.1)
+IMAGE_SHAPE, IMAGE_ROWS = (28, 28, 8), 49
 # scripts/probe_573m.py:29-41, unchanged
 LONG_CFG = dict(
     num_text_tokens=50_000, dim_latent=32, modality_default_shape=(14, 14), pad_multiple=64,
@@ -832,6 +856,89 @@ def engines_reference(torch, mods, gpu, cpu, noise):
     return err, {"text engine": t_counts, "multimodal engine": m_counts}
 
 
+def image_model(torch, Transfusion, mods, device, dtype, cfg, seed):
+    """`cfg` with a patch encoder / decoder and U-Net halves (SAME conv and
+    transposed conv, stride 2) from `models/modality_io.py`; the halves'
+    weights drawn under `seed`."""
+    mio = mods["modality_io"]
+    dim, d_lat = cfg["transformer"]["dim"], cfg["dim_latent"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        unet = (mio.SameConv2d(d_lat, dim), mio.SameConvTranspose2d(dim, d_lat))
+    return Transfusion(device=device, dtype=dtype, seed=seed, modality_encoder=mio.PatchEncoder(),
+                       modality_decoder=mio.PatchDecoder(), pre_post_transformer_enc_dec=unet,
+                       **IMAGE_OPTS, **cfg)
+
+
+def image_reference(torch, Transfusion, Trainer, mods):
+    """The small float32 image model (patch codec, U-Net halves, pos-emb,
+    reconstruction and velocity terms) on the card against the CPU: one
+    step's loss, its velocity and reconstruction parts and every gradient
+    within 1e-4; cached `sample` (CFG 3.0) latents and decoded images
+    within 1e-3, tokens equal."""
+    import numpy as np
+
+    LossDraws = mods["transfusion"].LossDraws
+    cfg = dict(SMALL_CFG, modality_default_shape=(4, 4))
+    gpu = image_model(torch, Transfusion, mods, "cuda", torch.float32, cfg, 5)
+    cpu = image_model(torch, Transfusion, mods, "cpu", torch.float32, cfg, 5)
+    cpu.core.load_state_dict({k: v.cpu() for k, v in gpu.core.state_dict().items()})
+    rng = np.random.default_rng(2)
+    batch = [[rng.integers(0, 16, 5).astype(np.int32),
+              (0, rng.uniform(size=(8, 8, 2)).astype(np.float32)),
+              rng.integers(0, 16, 3).astype(np.int32)] for _ in range(4)]
+    packed = cpu.pack(cpu.encode_modalities(batch), shift_friendly=True)
+    # times 0.3-0.6: near t = 1 the x-prediction's 1 / (1 - t) scales the
+    # losses by up to 100, and float32 rounding alone with them
+    times = torch.linspace(0.3, 0.6, 4)[:, None].expand(4, packed.spans.shape[1])
+    draws = cpu.make_draws(packed.to_torch("cpu"), torch.Generator().manual_seed(0),
+                           times=times, velocity=True)
+    out = {}
+    for side, m in (("cuda", gpu), ("cpu", cpu)):
+        dev = m.device
+        d = LossDraws(times=draws.times.to(dev), cfg_uniform=draws.cfg_uniform.to(dev),
+                      noises=tuple(t.to(dev) for t in draws.noises),
+                      ema_noises=tuple(t.to(dev) for t in draws.ema_noises))
+        params = Trainer(m).init_state().params
+        leaves = {k: t.requires_grad_(True) for k, t in params.items()}
+        ema = {k: t.detach() + 0.01 for k, t in params.items()}
+
+        def step(m=m, d=d, leaves=leaves, ema=ema, dev=dev):
+            loss, bd = m._loss_impl(leaves, packed.to_torch(dev), d, m.prob_uncond,
+                                    ema_params=ema)
+            return ([loss.item(), bd.velocity[0].item(), bd.recon[0].item()],
+                    torch.autograd.grad(loss, list(leaves.values())))
+
+        (losses, grads), counts = counted(mods, step)
+        out[side] = (losses, [g.cpu() for g in grads], counts)
+    loss_err = max(abs(a - b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    grad_err = max((a - b).abs().max().item() for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    counts = out["cuda"][2]
+    require(counts["flash_fwd"] + counts["flash_fwd_nhd"] > 0
+            and counts["flash_bwd"] + counts["flash_bwd_nhd"] > 0,
+            f"image model step: kernel launches {counts}")
+    require(loss_err <= 1e-4 and grad_err <= 1e-4,
+            f"image model step: loss/velocity/recon err {loss_err}, grad err {grad_err}")
+
+    noise = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    kw = dict(prompt=[np.asarray([3, gpu.som_ids[0]])], max_length=12, modality_steps=4,
+              init_modality_noise=noise, cfg_scale=3.0, text_temperature=0.0, cache_kv=True)
+    errs = {}
+    for raw in (True, False):
+        got, s_counts = counted(mods, lambda: gpu.sample(return_unprocessed_modalities=raw, **kw))
+        want = cpu.sample(return_unprocessed_modalities=raw, **kw)
+        shapes = [o[1].shape for o in got if isinstance(o, tuple)]
+        require(shapes and all(s_ == ((4, 4, 8) if raw else (8, 8, 2)) for s_ in shapes),
+                f"image model sample: shapes {shapes}")
+        errs["latents" if raw else "decoded"] = items_err(got, want, "image model sample")
+    require(s_counts["decode_attn"] > 0, f"image model sample: launches {s_counts}")
+    require(max(errs.values()) <= 1e-3, f"image model sample card vs cpu: {errs}")
+    log(json.dumps({"reference": "small f32 image model (encoder, U-Net, pos-emb, velocity "
+                    "and recon), card vs cpu", "losses": out["cpu"][0],
+                    "loss_parts_err": loss_err, "max_grad_err": grad_err,
+                    "sample_err": errs, "launches": {"step": counts, "sample": s_counts}}))
+
+
 def phase_reference_training(torch, Transfusion, Trainer, mods):
     """One training step's loss and gradients of a small float32 model on
     the card (kernels) and on the CPU (plain versions), from the same
@@ -875,6 +982,7 @@ def phase_reference_training(torch, Transfusion, Trainer, mods):
         log(json.dumps({"reference": f"small f32 training step, card vs cpu, {route}",
                         "loss": out["cpu"][0], "loss_err": loss_err, "max_grad_err": grad_err,
                         "launches": counts}))
+    image_reference(torch, Transfusion, Trainer, mods)
 
 
 # ---------------------------------------------------------------------------
@@ -1406,7 +1514,7 @@ def hold_captured(torch, mods, name, calls, want):
         if kernel == "flash_fwd":
             b, h, nq, d = a["q"].shape
             rows[key] = mods["flash"].tpu_row(h, nq, a["k"].shape[2], d, bwd=False)
-            record("flash_fwd", f"main path, {name}: admission prefill q {shape_str(a['q'])} "
+            record("flash_fwd", f"main path, {name}: prefill q {shape_str(a['q'])} "
                    f"(row {rows[key]})", check_flash(torch, mods, a), torch.bfloat16)
         else:
             record("decode_attn", f"main path, {name}: q {shape_str(a['q'])} cache "
@@ -1621,6 +1729,265 @@ def phase_engines(torch, Transfusion, mods):
                     "token_agreement_over_common_prefix_vs_solo": prefix,
                     "latents_vs_solo_of_bf16_limit": worst, "solo_seconds": t_solo,
                     "admission_flash_row": mm_rows, "cost_model": mm_fit, "launches": counts}))
+    del model, eng
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the image workloads' options at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def raw_items(model):
+    """While open, keep the undecoded items that reach the model's
+    `decode_modalities` (the samplers decode their results there); the
+    call's own result stays the decoded one."""
+    seen, decode = [], model.decode_modalities
+
+    def spy(samples):
+        seen.append(samples)
+        return decode(samples)
+
+    model.decode_modalities = spy
+    try:
+        yield seen
+    finally:
+        model.decode_modalities = decode
+
+
+def images_ok(np, items, what):
+    """Every modality of the items a decoded [28, 28, 8] image in [0, 1]."""
+    imgs = [o[1] for o in items if isinstance(o, tuple)]
+    require(all(x.shape == IMAGE_SHAPE and np.isfinite(x).all() and x.min() >= 0.0
+                and x.max() <= 1.0 for x in imgs), f"{what}: decoded images")
+    return len(imgs)
+
+
+def image_step_capture(torch, mods, trainer, state, packed, draws, name):
+    """One velocity step whose attention calls are captured; the first
+    forward (the trained pass) and its backward are held against their
+    plain versions. Returns (state, {kernel: result})."""
+    with capturing(torch, mods, {"flash_fwd": lambda a: True,
+                                 "flash_fwd_nhd": lambda a: True}) as calls:
+        state, _ = trainer.train_step(state, packed, draws=draws)
+    torch.cuda.synchronize()
+    key = "flash_fwd_nhd" if "flash_fwd_nhd" in calls else "flash_fwd"
+    require(key in calls and "do" in calls[key], f"{name}: no attention call captured")
+    a = calls[key]
+    if key == "flash_fwd_nhd":
+        shape = f"main path, {name}: q {shape_str(a['q'])} rope spans {shape_str(a['spans'])}"
+        f_res, b_res = check_nhd(torch, mods, a)
+        return state, {"flash_fwd_nhd": record("flash_fwd_nhd", shape, f_res, torch.bfloat16),
+                       "flash_bwd_nhd": record("flash_bwd_nhd", shape, b_res, torch.bfloat16)}
+    shape = f"main path, {name}: q {shape_str(a['q'])} spans {shape_str(a['spans'])}"
+    return state, {
+        "flash_fwd": record("flash_fwd", shape, check_flash(torch, mods, a, iters=5),
+                            torch.bfloat16),
+        "flash_bwd": record("flash_bwd", shape, check_flash_bwd(torch, mods, a), torch.bfloat16)}
+
+
+def phase_image(torch, Transfusion, Trainer, mods):
+    """The bench model at full width with a patch encoder / decoder, U-Net
+    halves (49 rows an image), axial pos-emb and the reconstruction and
+    velocity-consistency terms: 20 `Trainer(velocity_consistency=True)`
+    steps, cached `sample()`, `sample_batch` (R 8) and the multimodal
+    engine (4 requests, 8 rows), each returning decoded images, and one
+    `forward_modality` loss. Returns the launch totals."""
+    import numpy as np
+
+    model = image_model(torch, Transfusion, mods, "cuda", torch.bfloat16, BENCH_CFG, 0)
+    require(model.seq_shape_for(0, (14, 14)) == (7, 7), "image model: seq shape")
+    depth = BENCH_CFG["transformer"]["depth"]
+    rng = np.random.default_rng(7)
+    totals = dict.fromkeys(KERNELS, 0)
+
+    # ---- training ----
+    name = "image model 32 x [32 text][28x28x8 image][8 text], velocity + recon"
+    trainer = Trainer(model, learning_rate=3e-4, velocity_consistency=True)
+    batch = [[rng.integers(0, 256, 32).astype(np.int32),
+              (0, rng.uniform(size=IMAGE_SHAPE).astype(np.float32)),
+              rng.integers(0, 256, 8).astype(np.int32)] for _ in range(32)]
+    packed = trainer._packed(batch)  # encoded, then packed
+    require(int(packed.spans[0, 0, 2]) == IMAGE_ROWS, f"{name}: span {packed.spans[0, 0]}")
+    state = trainer.init_state()
+    draws = model.make_draws(packed, torch.Generator("cuda").manual_seed(0), velocity=True)
+    state, main = image_step_capture(torch, mods, trainer, state, packed, draws, name)
+    fwd, bwd = list(main)
+
+    def steps(state=state):
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            state, metrics = trainer.train_step(state, packed, draws=draws)
+            losses.append(metrics)
+        return state, [{k: float(v) for k, v in m.items()} for m in losses]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, metrics), counts = counted(mods, steps)
+    dt = time.perf_counter() - t0
+    by_row = {w: dict(mods["counters"][w].launches_by_row) for w in ("flash_fwd", "flash_bwd")}
+    losses = [m["loss"] for m in metrics]
+    require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{name}: loss did not fall {losses[0]} -> {losses[-1]}")
+    # the trained forward and the EMA forward, one backward, per layer and step
+    require(counts[fwd] == 2 * depth * TRAIN_STEPS and counts[bwd] == depth * TRAIN_STEPS,
+            f"{name}: launches {counts}, want {2 * depth * TRAIN_STEPS} of {fwd} and "
+            f"{depth * TRAIN_STEPS} of {bwd}")
+    for k in totals:
+        totals[k] += counts[k]
+    # the EMA pass's share: its forwards timed alone over 3 more steps
+    ema_s, joint = [0.0], model._joint_core
+
+    def timed_joint(*a, **k):
+        if torch.is_grad_enabled():
+            return joint(*a, **k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = joint(*a, **k)
+        torch.cuda.synchronize()
+        ema_s[0] += time.perf_counter() - t
+        return out
+
+    model._joint_core = timed_joint
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            state, _ = trainer.train_step(state, packed, draws=draws)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter() - t1
+    finally:
+        model._joint_core = joint
+    log(json.dumps({
+        "image": f"training, {name}", "steps": TRAIN_STEPS, "seconds": dt,
+        "ms_per_step": dt / TRAIN_STEPS * 1e3,
+        "packed_tokens_per_s": int(packed.total_tokens) * TRAIN_STEPS / dt,
+        "tokens_per_step": int(packed.total_tokens), "n": int(packed.text.shape[1]) - 1,
+        "ema_pass_ms_per_step": ema_s[0] / 3 * 1e3, "ema_pass_share_of_step": ema_s[0] / t1,
+        "first": metrics[0], "last": metrics[-1], "launches": counts,
+        "launches_by_row": by_row}))
+
+    # ---- modality-only loss: velocity against the trained EMA, recon decoded ----
+    x = rng.uniform(size=(8, *IMAGE_SHAPE)).astype(np.float32)
+    total, parts = model.forward_modality(
+        x, generator=torch.Generator("cuda").manual_seed(1),
+        velocity_consistency_ema_params=state.ema.params, return_loss_breakdown=True)
+    parts = [float(v) for v in parts]
+    require(np.isfinite(float(total)) and all(np.isfinite(parts)) and parts[1] > 0
+            and parts[2] > 0, f"forward_modality: {float(total)}, parts {parts}")
+    log(json.dumps({"image": "forward_modality b8, velocity + recon through the decoder",
+                    "loss": float(total), "flow_velocity_recon": parts}))
+    # sampling runs on the seeded weights, as phases 4b and 4c do: 20 steps
+    # on uniform random text flatten the text logits into near-ties that
+    # bf16 rounding decides, below the 95 % per-position contract
+    del trainer, state, packed, draws
+
+    noise = rng.standard_normal((196, 32)).astype(np.float32)
+    skw = dict(text_temperature=0.0, cfg_scale=3.0, modality_steps=16,
+               fixed_modality_shape=(14, 14), init_modality_noise=noise, kv_quantize=False)
+    # ---- cached sample() ----
+    name = "image model sample(cache_kv=True) cfg 3.0"
+    prompt = [np.asarray(list(rng.integers(0, 256, 24)) + [model.som_ids[0]], np.int32)]
+    with capturing(torch, mods, {
+            "flash_fwd": lambda a: True,
+            "decode_attn:nq1": lambda a: a["q"].shape[2] == 1,
+            "decode_attn:nq49": lambda a: a["q"].shape[2] == IMAGE_ROWS}) as calls:
+        model.sample(prompt, cache_kv=True, **{**skw, "modality_steps": 2, "max_length": 52})
+    torch.cuda.synchronize()
+    hold_captured(torch, mods, name, calls, {"flash_fwd", "decode_attn:nq1", "decode_attn:nq49"})
+    del calls
+    t0 = time.perf_counter()
+    with raw_items(model) as raw:
+        out, counts = counted(mods, lambda: model.sample(prompt, cache_kv=True,
+                                                         max_length=IMAGE_ROWS + 16, **skw))
+    dt = time.perf_counter() - t0
+    images = images_ok(np, out, name)
+    require(images >= 1 and counts["flash_fwd"] > 0 and counts["decode_attn"] > 0,
+            f"{name}: {images} images, launches {counts}")
+    sampled = text_len(raw[0]) - text_len(model._prompt_to_items(prompt)) - images
+    forced = forced_agreement(torch, model, raw[0], sampled) if sampled > 0 else None
+    for k in totals:
+        totals[k] += counts[k]
+    log(json.dumps({"image": name, "seconds": dt, "s_per_image": dt, "text_sampled": sampled,
+                    "token_agreement_per_position": forced, "launches": counts}))
+
+    # ---- sample_batch R 8 and the multimodal engine, each request against
+    # its solo sample(cache_kv=True) ----
+    prompts = ([[np.asarray(list(rng.integers(0, 256, n)) + [model.som_ids[0]], np.int32)]
+                for n in BATCH_IMAGE_TEXT]
+               + [[rng.integers(0, 256, n).astype(np.int32)] for n in BATCH_TEXT])
+    max_length = IMAGE_ROWS + 32
+    solos = []
+    for p in prompts:
+        with raw_items(model) as raw:
+            model.sample(p, cache_kv=True, max_length=max_length, **skw)
+        solos.append(raw[0])
+
+    def judge(name, outs, raws, seconds, counts, extra):
+        images = sum(images_ok(np, o, name) for o in outs)
+        forced, prefix, worst = [], [], 0.0
+        for p, got, solo in zip(prompts, raws, solos):
+            a_, _, w_ = bf16_agreement(got, solo, f"{name}: a request vs its solo sample")
+            prefix += a_
+            worst = max(worst, w_)
+            start = model._prompt_to_items(p)
+            new_images = sum(isinstance(o, tuple) for o in got) - sum(
+                isinstance(o, tuple) for o in start)
+            n_sampled = text_len(got) - text_len(start) - new_images
+            if n_sampled > 0:
+                forced.append(forced_agreement(torch, model, got, n_sampled))
+        require(forced and float(np.mean(forced)) >= 0.95,
+                f"{name}: per-position token agreement {forced}")
+        for k in totals:
+            totals[k] += counts[k]
+        log(json.dumps({"image": name, "seconds": seconds,
+                        "requests_per_s": len(prompts) / seconds, "images": images,
+                        "s_per_image": seconds / max(images, 1),
+                        "token_agreement_per_position": float(np.mean(forced)),
+                        "token_agreement_over_common_prefix_vs_solo": prefix,
+                        "latents_vs_solo_of_bf16_limit": worst, **extra, "launches": counts}))
+
+    name = "image model sample_batch R 8 cfg 3.0"
+    bkw = dict(skw, max_length=max_length, text_chunk=32)
+    rows = 2 * len(prompts)
+    with capturing(torch, mods, {
+            "decode_attn:nq1": lambda a: (a["q"].shape[0], a["q"].shape[2]) == (rows, 1),
+            "decode_attn:nq49": lambda a: (a["q"].shape[0], a["q"].shape[2]) == (rows, IMAGE_ROWS),
+    }) as calls:
+        model.sample_batch(prompts, **{**bkw, "modality_steps": 2, "max_length": IMAGE_ROWS + 2})
+    torch.cuda.synchronize()
+    hold_captured(torch, mods, name, calls, {"decode_attn:nq1", "decode_attn:nq49"})
+    del calls
+    t0 = time.perf_counter()
+    with raw_items(model) as raws, chunk_watch(torch, mods) as stats:
+        outs, counts = counted(mods, lambda: model.sample_batch(prompts, **bkw))
+    dt = time.perf_counter() - t0
+    require(stats["chunks"] > 0 and stats["fetches_after_chunk"] == stats["chunks"],
+            f"{name}: chunk fetches {stats}")
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0, f"{name}: launches {counts}")
+    judge(name, outs, raws, dt, counts, {
+        "ms_per_text_tick": stats["chunk_seconds"] / stats["ticks"] * 1e3,
+        "host_fetches_per_chunk": stats["fetches_after_chunk"] / stats["chunks"]})
+
+    name = "image model MultimodalServingEngine 4 requests (8 rows), 8 requests"
+    ekw = {k: v for k, v in bkw.items() if k != "max_length"}
+    eng = mods["engine_mm"].MultimodalServingEngine.for_workload(
+        model, prompts, max_length, max_requests=4, **ekw)
+    rids = [eng.submit(p, max_length) for p in prompts]
+    t0 = time.perf_counter()
+    with chunk_watch(torch, mods) as stats:
+        done, counts = counted(mods, eng.run)
+    dt = time.perf_counter() - t0
+    require(stats["chunks"] > 0 and stats["fetches_after_chunk"] == stats["chunks"],
+            f"{name}: chunk fetches {stats}")
+    require(eng.stats["rebuilds"] == 0, f"{name}: {eng.stats['rebuilds']} rebuilds")
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0, f"{name}: launches {counts}")
+    by_rid = {f.rid: f for f in done}
+    judge(name, [by_rid[r].output for r in rids], [by_rid[r].items for r in rids], dt, counts,
+          {"ms_per_tick": stats["chunk_seconds"] / stats["ticks"] * 1e3,
+           "ode_dispatches": eng.stats["ode_dispatches"]})
     del model, eng
     torch.cuda.empty_cache()
     return totals
@@ -1868,6 +2235,7 @@ def main() -> int:
             engine,
             engine_mm,
             layers,
+            modality_io,
             sample_batch,
             serving,
             transfusion,
@@ -1893,7 +2261,8 @@ def main() -> int:
     }
     mods = dict(flash=flash_attn, nhd=flash_attn_nhd, decode=decode_attn, layers=layers,
                 spans=spans, rope=rope, transfusion=transfusion, sample_batch=sample_batch,
-                engine=engine, engine_mm=engine_mm, serving=serving, counters=counters)
+                engine=engine, engine_mm=engine_mm, serving=serving, modality_io=modality_io,
+                counters=counters)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1922,6 +2291,7 @@ def main() -> int:
     launches, main_path = timed_phase(phase_serving, torch, Transfusion, mods)
     sampling_launches = timed_phase(phase_sampling, torch, Transfusion, mods)
     engine_launches = timed_phase(phase_engines, torch, Transfusion, mods)
+    image_launches = timed_phase(phase_image, torch, Transfusion, Trainer, mods)
     train_launches, train_path = timed_phase(phase_training, torch, Transfusion, Trainer, mods)
     long_launches, long_path = timed_phase(phase_long_training, torch, Transfusion, Trainer,
                                            mods)
@@ -1935,8 +2305,8 @@ def main() -> int:
     kernels = []
     for name, meta in KERNELS.items():
         total = (launches.get(name, 0) + sampling_launches.get(name, 0)
-                 + engine_launches.get(name, 0) + train_launches.get(name, 0)
-                 + long_launches.get(name, 0))
+                 + engine_launches.get(name, 0) + image_launches.get(name, 0)
+                 + train_launches.get(name, 0) + long_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]
         kernels.append(dict(

@@ -643,3 +643,89 @@ def test_engine_chunks_fetch_to_the_host_once(cuda_device, monkeypatch):
     assert len(chunks) >= 2
     for i in chunks:
         assert log[i + 1] == ("fetch",)
+
+
+def image_model(device, seed=2):
+    """A small float32 image model with every modality I/O option: patch
+    encoder / decoder ([8, 8, 2] images <-> [4, 4, 8] latents), U-Net halves
+    (2 x 2 = 4 rows a latent), axial pos-emb, reconstruction weight 0.1."""
+    from transfusion_tpu_torch.models.modality_io import (
+        PatchDecoder, PatchEncoder, SameConv2d, SameConvTranspose2d)
+
+    torch.manual_seed(seed)  # the U-Net halves' weights
+    return Transfusion(
+        device=device, seed=seed, num_text_tokens=8, dim_latent=8, modality_default_shape=(4, 4),
+        pad_multiple=16, modality_encoder=PatchEncoder(), modality_decoder=PatchDecoder(),
+        pre_post_transformer_enc_dec=(SameConv2d(8, 64), SameConvTranspose2d(64, 8)),
+        add_pos_emb=True, modality_num_dim=2, reconstruction_loss_weight=0.1,
+        transformer=dict(dim=64, depth=2, dim_head=32, heads=2, attn_impl="flash"))
+
+
+def image_pair():
+    gm, cm = image_model("cuda"), image_model("cpu")
+    cm.core.load_state_dict({k: t.cpu() for k, t in gm.core.state_dict().items()})
+    return gm, cm
+
+
+def test_image_model_step_on_card_matches_cpu(cuda_device):
+    """One float32 step of the image model with the velocity term (EMA =
+    the weights a little moved) on the card and on the CPU from the same
+    draws: the loss, its velocity and reconstruction parts and every
+    gradient within 1e-4."""
+    gm, cm = image_pair()
+    rng = np.random.default_rng(0)
+    batch = [[rng.integers(0, 8, 5).astype(np.int32),
+              (0, rng.uniform(size=(8, 8, 2)).astype(np.float32)),
+              rng.integers(0, 8, 3).astype(np.int32)] for _ in range(3)]
+    packed = cm.pack(cm.encode_modalities(batch), shift_friendly=True).to_torch("cpu")
+    draws = cm.make_draws(packed, torch.Generator().manual_seed(0), velocity=True)
+    out = []
+    for m in (gm, cm):
+        dev = m.device
+        p = packed.to_torch(dev) if dev.type == "cuda" else packed
+        d = type(draws)(times=draws.times.to(dev), cfg_uniform=draws.cfg_uniform.to(dev),
+                        noises=tuple(t.to(dev) for t in draws.noises),
+                        ema_noises=tuple(t.to(dev) for t in draws.ema_noises))
+        state = Trainer(m).init_state()
+        leaves = {k: t.requires_grad_(True) for k, t in state.params.items()}
+        ema = {k: t + 0.01 * torch.ones_like(t) for k, t in state.params.items()}
+        loss, bd = m._loss_impl(leaves, p, d, m.prob_uncond, ema_params=ema)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out.append(([loss.item(), bd.velocity[0].item(), bd.recon[0].item()],
+                    [g.cpu() for g in grads]))
+    np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-4)
+    for a, b in zip(out[0][1], out[1][1]):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_image_model_cached_sample_on_card_matches_cpu(cuda_device):
+    """The image model's cached sample() with CFG 3.0 (flash prefill,
+    decode at nq 1 and at the U-Net's 4 rows): greedy tokens equal,
+    latents and decoded images within 1e-3."""
+    gm, cm = image_pair()
+    noise = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    kw = dict(prompt=[np.asarray([1, gm.som_ids[0]])], max_length=10, modality_steps=4,
+              init_modality_noise=noise, text_temperature=0.0, cfg_scale=3.0, cache_kv=True)
+    for raw in (True, False):
+        out_g = gm.sample(return_unprocessed_modalities=raw, **kw)
+        out_c = cm.sample(return_unprocessed_modalities=raw, **kw)
+        assert len(out_g) == len(out_c)
+        for a, b in zip(out_g, out_c):
+            if isinstance(a, tuple):
+                assert a[1].shape == ((4, 4, 8) if raw else (8, 8, 2))
+                np.testing.assert_allclose(a[1], b[1], atol=1e-3)
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_decode_kernel_at_the_unet_rows_matches_plain(cuda_device, dtype, tol):
+    """The grouped ODE of a U-Net image model: nq 49 (7 x 7 rows of a 14 x 14
+    latent) over 16 pool rows, the `decode_mma` path in bf16."""
+    args = pool_decode_args(49, dtype, False)
+    q = token_major(args[0])
+    out = decode_attn.decode_attention(q, *args[1:])
+    ref = decode_attn.decode_attention_plain(q, *args[1:]).to(dtype)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and (out[15] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol

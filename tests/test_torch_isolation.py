@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: it imports with `jax` and `transfusion_tpu`
 blocked, builds a small model on the CPU, serves from it (batched text,
 uncached `sample`, `sample_batch`, `generate_modality_only`, both
-continuous-batching engines) and takes a training step, and its entry points default to the card (raising when
-there is none)."""
+continuous-batching engines) and takes a training step, takes a
+velocity-consistency step and samples from an image model (encoder,
+decoder, U-Net halves, pos-emb), and its entry points default to the card
+(raising when there is none)."""
 
 import os
 import subprocess
@@ -68,6 +70,29 @@ SCRIPT = textwrap.dedent(
     state, metrics = trainer.train_step(trainer.init_state(), batch,
                                         generator=torch.Generator().manual_seed(0))
     assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+
+    # the image model: patch encoder / decoder, U-Net halves, pos-emb,
+    # reconstruction and velocity-consistency losses
+    from transfusion_tpu_torch.models.modality_io import (
+        PatchDecoder, PatchEncoder, SameConv2d, SameConvTranspose2d)
+    im = Transfusion(device="cpu", num_text_tokens=8, dim_latent=8, modality_default_shape=(4, 4),
+                     pad_multiple=16, modality_encoder=PatchEncoder(),
+                     modality_decoder=PatchDecoder(), add_pos_emb=True, modality_num_dim=2,
+                     pre_post_transformer_enc_dec=(SameConv2d(8, 32), SameConvTranspose2d(32, 8)),
+                     reconstruction_loss_weight=0.1,
+                     transformer=dict(dim=32, depth=2, dim_head=32, heads=2, attn_impl="flash"))
+    img = np.random.default_rng(0).uniform(size=(8, 8, 2)).astype(np.float32)
+    vt = Trainer(im, velocity_consistency=True)
+    state, metrics = vt.train_step(vt.init_state(), [[np.asarray([1, 2], np.int32), (0, img)]],
+                                   generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(float(metrics["velocity_loss_0"])) and "recon_loss_0" in metrics
+    noise = np.ones((16, 8), np.float32)
+    out = im.sample(prompt=[np.asarray([1, im.som_ids[0]])], max_length=6, modality_steps=2,
+                    text_temperature=0.0, init_modality_noise=noise, cache_kv=True)
+    assert [o[1].shape for o in out if isinstance(o, tuple)] == [(8, 8, 2)]
+    outs = im.sample_batch([(0, img), [np.asarray([3, im.som_ids[0]])]], max_length=6,
+                           modality_steps=2, text_temperature=0.0, init_modality_noise=noise)
+    assert all(o[1].shape == (8, 8, 2) for r in outs for o in r if isinstance(o, tuple))
 
     if not torch.cuda.is_available():
         try:

@@ -214,13 +214,31 @@ def test_cache_helpers():
 
 def test_unported_paths_raise(jax_ref):
     """Unported options raise; the uncached flash `text_forward` (which
-    raised before the training slice) now equals the JAX one."""
+    raised before the training slice) now equals the JAX one, and so does
+    `add_pos_emb` (which raised before the modality I/O slice): the joint
+    forward's logits and flows, and the modality-only flow."""
     with pytest.raises(NotImplementedError, match="LASER"):
         Transfusion(transformer=dict(tcfg("flash"), attn_laser=True), device="cpu", **CFG)
     with pytest.raises(NotImplementedError, match="hyper-connections"):
         Transfusion(transformer=dict(tcfg("flash"), num_residual_streams=2), device="cpu", **CFG)
-    with pytest.raises(NotImplementedError, match="axial"):
-        Transfusion(transformer=tcfg("flash"), add_pos_emb=True, device="cpu", **CFG)
+    jm = JaxTransfusion(transformer=tcfg("dense"), add_pos_emb=True, **CFG)
+    p_pos = jitter(jm.init_params(jax.random.PRNGKey(3)))
+    tm = Transfusion(transformer=tcfg("flash"), add_pos_emb=True, device="cpu", **CFG)
+    tm.load_flax(jax.tree.map(np.asarray, p_pos))
+    assert "pos_emb_mlps.0.layers.0.weight" in tm.core.state_dict()
+    lat = np.random.default_rng(2).standard_normal((4, 16)).astype(np.float32)
+    batch = [[np.asarray([tm.sos_id, 1, 2], np.int32), (0, lat), np.asarray([3], np.int32)]]
+    packed = jm.pack(batch)
+    times = np.full((1, packed.spans.shape[1]), 0.3, np.float32)
+    logits_j, _, flows_j, _, _ = jm.core.apply(p_pos, jax.tree.map(jnp.asarray, packed),
+                                               jnp.asarray(times), method="joint")
+    logits_t, _, flows_t, _, _ = tm.core.joint(tm.pack(batch).to_torch("cpu"),
+                                               torch.tensor(times))
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), atol=1e-4)
+    np.testing.assert_allclose(flows_t[0].numpy(), np.asarray(flows_j[0]), atol=1e-4)
+    flow_j = jm.forward_modality(p_pos, lat[None], times=np.asarray([0.3]), return_loss=False)
+    flow_t = tm.forward_modality(lat[None], times=np.asarray([0.3]), return_loss=False)
+    np.testing.assert_allclose(flow_t.numpy(), np.asarray(flow_j), atol=1e-4)
     models, params = jax_ref
     tm = Transfusion(transformer=tcfg("flash"), device="cpu", **CFG)
     tm.load_flax(jax.tree.map(np.asarray, params))

@@ -10,6 +10,8 @@ the token-major route (`nhd_eligible`), and dim 32 with 2 heads x 32, which
 takes the head-major route. Tolerance 1e-4 for losses and gradients (sums
 of a few thousand float32 products in another order)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -232,16 +234,43 @@ def test_ema_schedule_matches_jax():
 
 
 def test_unported_training_options_raise():
+    """The pipeline, the mesh and dropout still raise. The velocity and
+    reconstruction options (which raised before the modality I/O slice)
+    now give the JAX loss: `loss(velocity_consistency_ema_params=)` on a
+    model with `reconstruction_loss_weight`, its breakdown within 1e-4, and
+    `Trainer(velocity_consistency=True)` builds."""
     tm = Transfusion(transformer=TCFG["head-major"], device="cpu", **CFG)
-    for kw, match in ((dict(velocity_consistency=True), "velocity"),
-                      (dict(pipeline_microbatches=2), "parallelism"),
+    for kw, match in ((dict(pipeline_microbatches=2), "parallelism"),
                       (dict(mesh=object()), "parallelism")):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(tm, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Transfusion(transformer=dict(TCFG["head-major"], dropout=0.1), device="cpu", **CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Transfusion(transformer=TCFG["head-major"], reconstruction_loss_weight=0.1,
-                    device="cpu", **CFG)
-    with pytest.raises(NotImplementedError, match="velocity"):
-        tm.loss(samples(), velocity_consistency_ema_params={})
+    assert Trainer(tm, velocity_consistency=True).velocity_consistency
+    jm = JaxTransfusion(transformer=dict(TCFG["head-major"], attn_impl="dense"),
+                        reconstruction_loss_weight=0.1, **CFG)
+    params = init_params("head-major", seed=2)
+    # EMA weights a little away from the model's; the fourier frequencies
+    # are frozen in both packages, so the EMA holds the model's
+    ema = jax.tree_util.tree_map_with_path(
+        lambda path, e, p: p if "fourier_weights" in jax.tree_util.keystr(path) else e,
+        jitter(params, seed=9, scale=0.02), params)
+    tm = Transfusion(transformer=TCFG["head-major"], reconstruction_loss_weight=0.1,
+                     device="cpu", **CFG)
+    tm.load_flax(np_tree(params))
+    rng = jax.random.PRNGKey(3)
+    packed = jm.pack(samples(), shift_friendly=True)
+    total_j, bd_j = jm.loss(params, samples(), rng, velocity_consistency_ema_params=ema,
+                            prob_uncond=0.5, return_breakdown=True)
+    draws = draws_from_key(rng, packed)
+    keys = jax.random.split(jax.random.split(rng, 4)[3], len(packed.groups))
+    draws = dataclasses.replace(draws, ema_noises=tuple(
+        torch.tensor(np.asarray(jax.random.normal(k, g.latents.shape)))
+        for k, g in zip(keys, packed.groups)))
+    total_t, bd_t = tm.loss(samples(), draws, velocity_consistency_ema_params=core_params(
+        tm, ema), prob_uncond=0.5, return_breakdown=True)
+    np.testing.assert_allclose(total_t.item(), float(total_j), atol=1e-4)
+    for name in ("text", "flow", "velocity", "recon"):
+        np.testing.assert_allclose(np.asarray(getattr(bd_t, name), np.float64),
+                                   np.asarray(getattr(bd_j, name), np.float64), atol=1e-4,
+                                   err_msg=name)

@@ -105,8 +105,23 @@ def test_forward_dispatches_samples_to_the_joint_loss(params):
     a = tm(batch, generator=torch.Generator().manual_seed(0))
     b = tm.loss(batch, generator=torch.Generator().manual_seed(0))
     assert float(a) == float(b)
-    with pytest.raises(NotImplementedError, match="velocity"):
-        tm.forward_modality(np.ones((1, 4, 16), np.float32), velocity_consistency_ema_params={})
+    # the velocity term (which raised before the modality I/O slice): the
+    # JAX loss on its own draws, the EMA model here being the model itself
+    jm, _ = pair(params, "dense")
+    lat = np.random.default_rng(3).standard_normal((2, 4, 16)).astype(np.float32)
+    rng = jax.random.PRNGKey(4)
+    rng_t, rng_n = jax.random.split(rng)
+    loss_j, parts_j = jm.forward_modality(params, lat, rng=rng, return_loss_breakdown=True,
+                                          velocity_consistency_ema_params=params)
+    ema = {k: v.clone() for k, v in tm.core.named_parameters()}
+    loss_t, parts_t = tm.forward_modality(
+        lat, times=np.asarray(jax.random.uniform(rng_t, (2,))),
+        noise=np.asarray(jax.random.normal(rng_n, (2, 4, 16))), return_loss_breakdown=True,
+        velocity_consistency_ema_params=ema)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), atol=1e-4)
+    np.testing.assert_allclose([float(x) for x in parts_t], [float(x) for x in parts_j],
+                               atol=1e-4)
+    assert float(parts_t[1]) > 0
 
 
 @pytest.mark.parametrize("method", ["midpoint", "adaptive"])

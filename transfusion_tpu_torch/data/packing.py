@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +35,8 @@ class ModalityPackSpec:
     num_dim: Optional[int] = None
     som_id: int = 0
     eom_id: int = 0
+    # latent spatial shape -> sequence (post latent_to_model) spatial shape
+    seq_shape_fn: Callable[[tuple], tuple] = lambda s: s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +177,9 @@ def pack_samples(samples: Sequence[list], spec: PackSpec, *, wrap_sos_eos: bool 
 
     wrap_sos_eos adds [sos] ... [eos]; add_meta writes the
     [meta][shape][som] ... [eom] frame around each modality (sampling passes
-    False: the sampled stream already holds the frame). The padded length is
+    False: the sampled stream already holds the frame). The meta string
+    holds the latent shape; the span holds prod(seq_shape_fn(latent shape))
+    rows (`Transfusion.encode_modalities` first when there are encoders). The padded length is
     round_up(max_len + 1, pad_multiple) unless pad_len is given.
 
     shift_friendly adds one slot, so that after the training step's
@@ -222,8 +226,7 @@ def pack_samples(samples: Sequence[list], spec: PackSpec, *, wrap_sos_eos: bool 
                 raise ValueError(
                     f"modality {mtype}: expected {mspec.num_dim} spatial dims, got {spatial}"
                 )
-            # the port's latent <-> model projections keep the spatial shape
-            seq_shape = spatial
+            seq_shape = tuple(mspec.seq_shape_fn(spatial))
             length = int(math.prod(seq_shape))
 
             if add_meta:
@@ -279,3 +282,53 @@ def pack_samples(samples: Sequence[list], spec: PackSpec, *, wrap_sos_eos: bool 
 
     return PackedBatch(text=text, cfg_mask=cfg, spans=spans_arr, lengths=lengths,
                        total_tokens=np.int32(lengths.sum()), groups=tuple(groups))
+
+
+# ---------------------------------------------------------------------------
+# batched application of encoders/decoders over ragged samples
+# ---------------------------------------------------------------------------
+
+
+def group_same_shape(arrays: list):
+    """Stack same-shape arrays into batches, with an exact-order inverse.
+    Returns ({shape: stacked}, inverse)."""
+    by_shape: dict = {}
+    index: list = []
+    for a in arrays:
+        a = np.asarray(a)
+        bucket = by_shape.setdefault(a.shape, [])
+        index.append((a.shape, len(bucket)))
+        bucket.append(a)
+    stacked = {shape: np.stack(arrs) for shape, arrs in by_shape.items()}
+
+    def inverse(processed: dict):
+        return [np.asarray(processed[shape])[i] for shape, i in index]
+
+    return stacked, inverse
+
+
+def apply_modality_fn(fn: Callable, samples, modality_type: int = 0):
+    """Apply the batched `fn` to every modality of `modality_type` in one
+    sample (a list of items) or a list of samples, stacking same-shape
+    instances into one call. A float array without a type is type 0.
+    Keeps the structure and order."""
+    single = len(samples) > 0 and not isinstance(samples[0], list)
+    nested = [samples] if single else samples
+    located = []
+    for si, sample in enumerate(nested):
+        for ii, item in enumerate(sample):
+            if isinstance(item, tuple):
+                t, arr = item
+            else:
+                arr = np.asarray(item)
+                if not np.issubdtype(arr.dtype, np.floating):
+                    continue
+                t = 0
+            if t == modality_type:
+                located.append((si, ii, np.asarray(arr)))
+    stacked, inverse = group_same_shape([arr for _, _, arr in located])
+    results = inverse({shape: np.asarray(fn(batch)) for shape, batch in stacked.items()})
+    out = [list(s) for s in nested]
+    for (si, ii, _), res in zip(located, results):
+        out[si][ii] = (modality_type, res)
+    return out[0] if single else out

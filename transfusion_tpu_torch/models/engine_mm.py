@@ -48,14 +48,11 @@ Where the port differs from the JAX engine, and why:
     pick and admission traces and times the chunk ladder (every power of
     two k <= `text_chunk`, twice each) and one grouped ODE + append per
     shape.
-  * The port has no modality decoders: a finished request's `output` is its
-    sample items.
 """
 
 from __future__ import annotations
 
 import logging
-import math
 import time
 from collections import deque
 from typing import Optional
@@ -121,7 +118,7 @@ class FinishedRequest:
     def __init__(self, rid, items, output):
         self.rid = rid
         self.items = items  # sample items: text arrays and (type, latent)
-        self.output = output  # the same items (the port has no decoders)
+        self.output = output  # the items with each modality decoded
 
 
 class MultimodalServingEngine:
@@ -419,7 +416,7 @@ class MultimodalServingEngine:
         top = max([1] + [ent.req.slots_used for ent in self.slots if ent is not None])
         for mid, shape in shapes:
             spatial = tuple(shape)
-            L = int(math.prod(spatial))
+            L = self.model.seq_len_for(mid, spatial)
             if top + L > self.cap:
                 logger.info("warmup: ODE of shape %s not timed (%d + %d > cap %d)",
                             spatial, top, L, self.cap)
@@ -459,7 +456,7 @@ class MultimodalServingEngine:
             shp = (tuple(self.fixed_modality_shape) if self.fixed_modality_shape is not None
                    else tuple(self.model.modalities[0].default_shape or ()))
             if shp:
-                L_est = int(math.prod(shp))
+                L_est = self.model.seq_len_for(0, shp)
         ode_s = self.ode_cost()
         reqs = [(max(8, ml - int(es * L_est)), es) for ml, es in zip(max_lengths, exp_segs)]
         plan = serving.plan_dispatch_mm(
@@ -577,7 +574,7 @@ class MultimodalServingEngine:
                 groups.setdefault((r.mid, r.shape), []).append(i)
         for (mid, spatial), members in groups.items():
             mc = model.modalities[mid]
-            L = int(math.prod(spatial))
+            L = model.seq_len_for(mid, spatial)
             occupied = [ent for ent in self.slots if ent is not None]
             # every row writes the segment after its index (see the module
             # docstring), so every occupied slot must hold it
@@ -645,7 +642,9 @@ class MultimodalServingEngine:
         for slot, ent in enumerate(self.slots):
             if ent is None or not ent.req.done:
                 continue
-            finished.append(FinishedRequest(ent.rid, ent.req.items, ent.req.items))
+            items = ent.req.items
+            output = items if self.return_unprocessed else self.model.decode_modalities(items)
+            finished.append(FinishedRequest(ent.rid, items, output))
             self.slots[slot] = None
             freed.append(slot)
             self.stats["finished"] += 1

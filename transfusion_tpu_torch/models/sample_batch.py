@@ -33,7 +33,6 @@ stream, request index, count) alone (`_draw_seed`).
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import numpy as np
@@ -72,14 +71,15 @@ def _width_bucket_pack(model, batch_items, cap=None):
 
 
 def _seq_stats(model, items):
-    """(token count, rotary collapse) of an item list: a latent of L
-    positions takes L sequence rows and one rotary position."""
+    """(token count, rotary collapse) of an item list: a latent whose
+    sequence shape holds L positions takes L sequence rows and one rotary
+    position."""
     tok_count, collapse = 0, 0
     for it in items:
         if isinstance(it, tuple):
             mc = model.modalities[it[0]]
             lat = to_channel_last(np.asarray(it[1]), mc.channel_first_latent)
-            L = int(math.prod(lat.shape[:-1]))
+            L = model.seq_len_for(it[0], lat.shape[:-1])
             tok_count += L
             collapse += L - 1
         else:
@@ -287,8 +287,8 @@ def sample_batch(model, prompts, seed: int = 0, max_length=2048,
                  return_unprocessed_modalities: bool = False, text_chunk: int = 32):
     """The batched equivalent of `model.sample(cache_kv=True, ...)` over R
     prompts (the JAX `sample_batch`, `sample_batch.py:323-601`). Returns one
-    item list per request (the port has no modality decoders, so
-    return_unprocessed_modalities changes nothing).
+    item list per request, each modality decoded when it has a decoder
+    (unless return_unprocessed_modalities).
 
     max_length is one budget for all, or one per prompt: each row stops and
     retires on its own budget. `seed` names the draws: text tokens at
@@ -413,7 +413,7 @@ def sample_batch(model, prompts, seed: int = 0, max_length=2048,
                 groups.setdefault((r.mid, r.shape), []).append(i)
         for (mid, spatial), members in groups.items():
             mc = model.modalities[mid]
-            L = int(math.prod(spatial))
+            L = model.seq_len_for(mid, spatial)
 
             # every row writes the segment after its index in place (a
             # non-member's write is masked invalid), so the capacity has to
@@ -465,4 +465,6 @@ def sample_batch(model, prompts, seed: int = 0, max_length=2048,
                 r.mid = None
                 r.shape = None
 
-    return [r.items for r in reqs]
+    if return_unprocessed_modalities:
+        return [r.items for r in reqs]
+    return [model.decode_modalities(r.items) for r in reqs]

@@ -1,14 +1,17 @@
 """The Transfusion model (counterpart of `transfusion_tpu/models/transfusion.py`).
 
   * `TransfusionCore` (nn.Module): transformer + text embedding + logits
-    head + per-modality latent <-> model projections, with the entry points
+    head + per-modality latent <-> model projections (the default linear
+    ones, or a `pre_post_transformer_enc_dec` pair such as a U-Net's halves)
+    + the axial positional-embedding MLPs, with the entry points
     `joint` (the packed forward: training, uncached sampling, or the cached
     prefill), `decode_text_step`, `decode_modality_rows`, `text_forward`
     and `modality_forward`.
   * `Transfusion` (plain class): configuration, vocab layout, packing, the
     joint training loss (`loss`, `_loss_impl`), the text-only and
-    modality-only forwards (`forward_text`, `forward_modality`, `forward`)
-    and the host-side serving loops — `generate_text_only`,
+    modality-only forwards (`forward_text`, `forward_modality`, `forward`),
+    the frozen modality encoders / decoders (`encode_modalities`,
+    `decode_modalities`) and the host-side serving loops — `generate_text_only`,
     `generate_text_batch`, `generate_modality_only`, `sample` (uncached, or
     `cache_kv=True` with incremental CFG) and `sample_batch`
     (`models/sample_batch.py`).
@@ -21,17 +24,20 @@ float32 params. Randomness comes in as explicit draws (`LossDraws`) or
 from a caller-owned `torch.Generator`. Entry points run on `cuda` unless
 built with `device="cpu"`.
 
-Not ported yet (ROADMAP.md): the velocity-consistency and reconstruction
-losses, modality encoders/decoders, U-Net pre/post projections, axial
-positional embeddings.
+The joint loss has the JAX package's velocity-consistency term (an EMA
+forward at t + delta, `loss(velocity_consistency_ema_params=)`) and its
+reconstruction term (`reconstruction_loss_weight`). Not ported yet
+(ROADMAP.md): dropout.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import logging
 import math
+import warnings
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -43,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from transfusion_tpu_torch.data.packing import (
     ModalityPackSpec,
     PackSpec,
+    apply_modality_fn,
     normalize_sample,
     pack_samples,
     to_channel_last,
@@ -55,6 +62,7 @@ from transfusion_tpu_torch.models.transformer import (
     cache_mark_valid,
     make_kv_cache,
 )
+from transfusion_tpu_torch.ops.axial import ContinuousAxialPositionalEmbedding
 from transfusion_tpu_torch.ops.flow import (
     gumbel_sample,
     min_p_filter,
@@ -97,12 +105,15 @@ class LossBreakdown(NamedTuple):
 class LossDraws:
     """The random draws of one joint-loss evaluation, made by the caller:
     times Float[b, m] per span instance, cfg_uniform Float[b] (a sample's
-    text is dropped to null where it is < prob_uncond) and one noise tensor
-    per latent group, shaped like the group's latents."""
+    text is dropped to null where it is < prob_uncond), one noise tensor
+    per latent group, shaped like the group's latents, and, for the
+    velocity-consistency term, the EMA forward's own noise per group (the
+    JAX package's `rng_noise_ema` split)."""
 
     times: Any
     cfg_uniform: Any
     noises: tuple
+    ema_noises: tuple = ()
 
 
 def default_modality_times(u_count, u_time, num_modalities, m: int):
@@ -118,6 +129,7 @@ def default_modality_times(u_count, u_time, num_modalities, m: int):
 class ModalityConfig:
     dim_latent: int
     channel_first_latent: bool = False
+    add_pos_emb: bool = False
     num_dim: Optional[int] = None
     default_shape: Optional[tuple] = None
     to_shape_fn: Callable = default_to_modality_shape_fn
@@ -142,35 +154,54 @@ class ModelToLatent(nn.Module):
 
 
 class TransfusionCore(nn.Module):
-    """Transformer + embeddings + modality projections."""
+    """Transformer + embeddings + modality projections + axial pos-emb
+    MLPs. `pre_post[i]`, when given, is modality i's (pre, post) module
+    pair; it replaces `LatentToModel` / `ModelToLatent` and trains with the
+    core. `pos_emb_mlps` holds an MLP under str(i) for each modality with
+    add_pos_emb."""
 
     def __init__(self, vocab_size: int, dim: int, transformer_cfg: dict, modalities: tuple,
-                 model_output_clean: bool = True, eps: float = 1e-2):
+                 pre_post: tuple = (), model_output_clean: bool = True, eps: float = 1e-2):
         super().__init__()
         self.model_output_clean = model_output_clean
         self.eps = eps
         self.transformer = Transformer(dim=dim, **transformer_cfg)
         self.text_embed = nn.Embedding(vocab_size, dim)
         self.to_text_logits = nn.Linear(dim, vocab_size, bias=False)
-        self.latent_to_model = nn.ModuleList(LatentToModel(dim, mc.dim_latent) for mc in modalities)
-        self.model_to_latent = nn.ModuleList(ModelToLatent(dim, mc.dim_latent) for mc in modalities)
+        pre_post = tuple(pre_post) + (None,) * (len(modalities) - len(pre_post))
+        self.latent_to_model = nn.ModuleList(
+            LatentToModel(dim, mc.dim_latent) if pp is None else pp[0]
+            for mc, pp in zip(modalities, pre_post))
+        self.model_to_latent = nn.ModuleList(
+            ModelToLatent(dim, mc.dim_latent) if pp is None else pp[1]
+            for mc, pp in zip(modalities, pre_post))
+        self.pos_emb_mlps = nn.ModuleDict()
+        for i, mc in enumerate(modalities):
+            if mc.add_pos_emb:
+                if mc.num_dim is None:
+                    raise ValueError(f"set modality_num_dim for modality {i} to use axial "
+                                     "positional embeddings")
+                self.pos_emb_mlps[str(i)] = ContinuousAxialPositionalEmbedding(dim, mc.num_dim)
 
     @property
     def dtype(self):
         return self.to_text_logits.weight.dtype
 
-    def forward(self, packed, times, return_logits: bool = True):
-        """The uncached joint forward (training); see `joint`. It is the
-        module's forward so that `torch.func.functional_call` can run it on
-        an explicit parameter dict."""
-        return self.joint(packed, times, return_logits=return_logits)
+    def forward(self, *args, method: str = "joint", **kwargs):
+        """Run the entry point `method` (by default `joint`, the uncached
+        joint forward of training). It is the module's forward so that
+        `torch.func.functional_call` can run any entry point on an explicit
+        parameter dict."""
+        return getattr(self, method)(*args, **kwargs)
 
     def embed_text(self, text):
         return self.text_embed(text.clamp_min(0)).to(self.dtype)
 
     def latent_to_seq(self, latents, modality_type: int):
-        """[k, *latent_shape, d_latent] -> rows [k, L, dim] (+ seq shape)."""
-        out = self.latent_to_model[modality_type](latents).to(self.dtype)
+        """[k, *latent_shape, d_latent] -> rows [k, L, dim] (+ seq shape),
+        as the projection gives them: without the position embedding and
+        not cast (the x -> flow conversion reads these rows)."""
+        out = self.latent_to_model[modality_type](latents)
         seq_shape = tuple(out.shape[1:-1])
         return out.reshape(out.shape[0], -1, out.shape[-1]), seq_shape
 
@@ -178,6 +209,24 @@ class TransfusionCore(nn.Module):
         """rows [k, L, dim] -> float32 [k, *latent_shape, d_latent]."""
         x = rows.reshape(rows.shape[0], *seq_shape, rows.shape[-1])
         return self.model_to_latent[modality_type](x).to(torch.float32)
+
+    def axial_pos_emb(self, modality_type: int, seq_shape: tuple):
+        """The axial position embedding [L, dim] of a seq shape, or None."""
+        if str(modality_type) not in self.pos_emb_mlps:
+            return None
+        mlp = self.pos_emb_mlps[str(modality_type)]
+        coords = ContinuousAxialPositionalEmbedding.coords_for_shape(
+            seq_shape, mlp.num_axial_dims, device=mlp.layers[0].weight.device)
+        return mlp(coords)
+
+    def input_rows(self, rows, modality_type: int, seq_shape: tuple):
+        """The transformer's input rows of a modality: the projected rows
+        plus the position embedding, added in float32, then cast to the
+        compute dtype."""
+        pos = self.axial_pos_emb(modality_type, seq_shape)
+        if pos is not None:
+            rows = rows.to(torch.float32) + pos.to(torch.float32)
+        return rows.to(self.dtype)
 
     # -- joint packed forward (cached prefill) --------------------------------
 
@@ -187,10 +236,13 @@ class TransfusionCore(nn.Module):
         x = self.embed_text(text)
         group_rows = []
         for g in packed.groups:
-            rows, _ = self.latent_to_seq(g.latents, g.modality_type)
+            rows, seq_shape = self.latent_to_seq(g.latents, g.modality_type)
+            if seq_shape != tuple(g.seq_shape):
+                raise ValueError(f"latent_to_model gave seq shape {seq_shape}; the packer "
+                                 f"assumed {g.seq_shape} for modality {g.modality_type}")
             group_rows.append(rows)
             idx = g.offsets[:, None] + torch.arange(g.seq_len, device=x.device)[None, :]
-            x[g.batch_idx[:, None], idx] = rows
+            x[g.batch_idx[:, None], idx] = self.input_rows(rows, g.modality_type, seq_shape)
         return x, spans_to_rotary_positions(n, spans), group_rows
 
     def joint_out(self, embed, packed, times, group_rows, return_logits: bool = True):
@@ -240,7 +292,8 @@ class TransfusionCore(nn.Module):
         times_row = t_arr.reshape(-1).expand(b)
         times_tok = times_row[:, None].expand(b, L)
         embed, new_cache = self.transformer(
-            rows, times=times_tok, rotary_pos=rotary_pos, cache=cache, is_any_modality=True,
+            self.input_rows(rows, modality_type, seq_shape), times=times_tok,
+            rotary_pos=rotary_pos, cache=cache, is_any_modality=True,
         )
         out_rows = embed
         if self.model_output_clean:
@@ -272,7 +325,8 @@ class TransfusionCore(nn.Module):
         XLA's einsum attention, no Pallas kernel, so the port's dense path
         is its counterpart, not a fallback from a kernel."""
         rows, seq_shape = self.latent_to_seq(noised, modality_type)
-        embed, _ = self.transformer(rows, times=times, is_any_modality=True)
+        embed, _ = self.transformer(self.input_rows(rows, modality_type, seq_shape),
+                                    times=times, is_any_modality=True)
         return self.seq_to_latent(embed, modality_type, seq_shape)
 
 
@@ -289,13 +343,31 @@ def _not_in_port(what: str, item: str):
     raise NotImplementedError(f"{what} is not in the PyTorch port yet (ROADMAP.md: {item})")
 
 
+def _frozen(module: nn.Module, state_dict, device):
+    """A private copy of an encoder / decoder (with `state_dict` loaded
+    when given) on `device`, in eval mode, with no parameter to train."""
+    module = copy.deepcopy(module)
+    if state_dict is not None:
+        module.load_state_dict(state_dict)
+    return module.to(device).eval().requires_grad_(False)
+
+
 class Transfusion:
     """Configuration + host-side serving loops around a `TransfusionCore`.
 
-    The constructor mirrors the JAX package's serving-relevant kwargs.
-    `dtype` is the compute and weight dtype (bf16 on the card); the
-    weights come from torch's default init under `seed`, or from the JAX
-    package through `load_flax`."""
+    The constructor mirrors the JAX package's kwargs. `dtype` is the
+    compute and weight dtype (bf16 on the card; the modality projections
+    and pos-emb MLPs stay float32, as flax computes them); the weights come
+    from torch's default init under `seed` (a `pre_post_transformer_enc_dec`
+    module keeps the weights it was built with), or from the JAX package
+    through `load_flax`.
+
+    `modality_encoder` / `modality_decoder`: a module, a per-modality list
+    (None where a modality has none) or a (module, state_dict) pair, which
+    take and give batches in the user's layout, as the JAX package's do;
+    the model keeps frozen copies (eval, no grad) on its device.
+    `pre_post_transformer_enc_dec`: a (pre, post) pair of modules, or one
+    per modality; the model keeps its own copies, which train with it."""
 
     def __init__(self, *, num_text_tokens: int, transformer: dict, dim_latent=None,
                  channel_first_latent=False, add_pos_emb=False, modality_encoder=None,
@@ -303,21 +375,14 @@ class Transfusion:
                  modality_default_shape=None, fallback_to_default_shape_if_invalid: bool = False,
                  modality_num_dim=None, to_modality_shape_fn=default_to_modality_shape_fn,
                  ignore_index: int = -1, flow_loss_weight: float = 1.0,
-                 text_loss_weight: float = 1.0, reconstruction_loss_weight: float = 0.0,
+                 text_loss_weight: float = 1.0, velocity_consistency_loss_weight: float = 0.1,
+                 reconstruction_loss_weight: float = 0.0,
                  odeint_method: str = "midpoint", model_output_clean: bool = True,
                  eps: float = 1e-2, prob_uncond: float = 0.1, pad_multiple: int = 64,
                  ce_chunk_size: Optional[int] = None, dtype=torch.float32,
                  device=None, seed: int = 0):
-        if reconstruction_loss_weight > 0:
-            _not_in_port("the reconstruction loss", "velocity/reconstruction losses")
         if ce_chunk_size is not None and ce_chunk_size < 1:
             raise ValueError(f"ce_chunk_size={ce_chunk_size} (None or a positive int)")
-        if any(cast_tuple(add_pos_emb)):
-            _not_in_port("add_pos_emb (axial positional embedding)", "axial pos-emb")
-        if modality_encoder is not None or modality_decoder is not None:
-            _not_in_port("modality encoders/decoders", "encoders/decoders")
-        if pre_post_transformer_enc_dec is not None:
-            _not_in_port("pre_post_transformer_enc_dec", "encoders/decoders")
         self.device = resolve_device(device)
         self.dtype = dtype
 
@@ -329,6 +394,7 @@ class Transfusion:
         self.dim_latents = cast_tuple(dim_latent)
         T = self.num_modalities = len(self.dim_latents)
         channel_first = cast_tuple(channel_first_latent, T)
+        add_pos = cast_tuple(add_pos_emb, T)
         to_shape_fns = cast_tuple(to_modality_shape_fn, T)
         if modality_default_shape is None or (
             isinstance(modality_default_shape, tuple)
@@ -344,8 +410,8 @@ class Transfusion:
         self.modalities = tuple(
             ModalityConfig(
                 dim_latent=self.dim_latents[i], channel_first_latent=channel_first[i],
-                num_dim=num_dims[i], default_shape=modality_default_shape[i],
-                to_shape_fn=to_shape_fns[i],
+                add_pos_emb=bool(add_pos[i]), num_dim=num_dims[i],
+                default_shape=modality_default_shape[i], to_shape_fn=to_shape_fns[i],
             )
             for i in range(T)
         )
@@ -361,12 +427,28 @@ class Transfusion:
         self.char_offset = self.meta_id + 1
         self.vocab_size = num_text_tokens + 3 + 2 * T + 129
 
+        # encoders / decoders: frozen, outside the core's parameters
+        self.encoders = self._norm_aux(modality_encoder)
+        self.decoders = self._norm_aux(modality_decoder)
+        # pre/post transformer projections: learnable, inside the core
+        pp = pre_post_transformer_enc_dec
+        if pp is None:
+            pp = ()
+        elif isinstance(pp, tuple) and len(pp) == 2 and isinstance(pp[0], nn.Module):
+            pp = (pp,)
+        self.pre_post = tuple(None if x is None else tuple(copy.deepcopy(m) for m in x)
+                              for x in pp) + (None,) * (T - len(pp))
+        self._seq_shape_cache: dict = {}
+
         self.odeint_method = odeint_method
         self.fallback_to_default_shape_if_invalid = fallback_to_default_shape_if_invalid
         self.pad_multiple = pad_multiple
         self.ignore_index = ignore_index
         self.flow_loss_weight = flow_loss_weight
         self.text_loss_weight = text_loss_weight
+        self.velocity_consistency_loss_weight = velocity_consistency_loss_weight
+        self.reconstruction_loss_weight = reconstruction_loss_weight
+        self.has_recon_loss = reconstruction_loss_weight > 0.0
         self.prob_uncond = prob_uncond
         self.ce_chunk_size = ce_chunk_size
 
@@ -375,13 +457,52 @@ class Transfusion:
             core = TransfusionCore(
                 vocab_size=self.vocab_size, dim=self.dim,
                 transformer_cfg=self.transformer_cfg, modalities=self.modalities,
-                model_output_clean=model_output_clean, eps=eps,
+                pre_post=self.pre_post, model_output_clean=model_output_clean, eps=eps,
             )
         # the module's weights serve; training differentiates an explicit
         # parameter dict (`_loss_impl`), so no call records graphs on them
         self.core = core.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
-        # the time embedding's frequencies stay float32 whatever the dtype
+        # the time embedding's frequencies stay float32 whatever the dtype;
+        # so do the modality projections and pos-emb MLPs, which flax builds
+        # without a dtype and so computes in float32 in a bf16 model
         self.core.transformer.fourier_weights = self.core.transformer.fourier_weights.float()
+        for module in (self.core.latent_to_model, self.core.model_to_latent,
+                       self.core.pos_emb_mlps):
+            module.float()
+        self._param_dtypes = {k: p.dtype for k, p in self.core.named_parameters()}
+
+    def _norm_aux(self, x) -> list:
+        """Encoders or decoders, one entry per modality (the JAX
+        `norm_aux`): None; a module (for every modality); a (module,
+        state_dict) pair; or a per-modality list of modules, pairs and
+        None. With two modalities, (module, None) reads as the list
+        [module, None] (with a warning); spell a pair [(module, None)]."""
+        T = self.num_modalities
+        if x is None:
+            return [None] * T
+        tup = x if isinstance(x, (tuple, list)) else (x,)
+        if (len(tup) == 2 and isinstance(tup[0], nn.Module) and not isinstance(tup[1], nn.Module)
+                and (tup[1] is not None or T != 2)):
+            tup = (tup,)  # one (module, state_dict) pair
+        elif len(tup) == 2 and isinstance(tup[0], nn.Module) and tup[1] is None:
+            warnings.warn(
+                "(module, None) with 2 modality types is read as a per-modality list "
+                "[encoder, no-encoder]; spell a (module, state_dict) pair as [(module, None)]",
+                stacklevel=3)
+        tup = list(tup)
+        if len(tup) not in (1, T):
+            raise ValueError(f"{len(tup)} encoders/decoders for {T} modalities")
+        if len(tup) == 1 and T > 1:
+            tup = tup * T
+        out = []
+        for item in tup:
+            if item is None:
+                out.append(None)
+            elif isinstance(item, nn.Module):
+                out.append(_frozen(item, None, self.device))
+            else:
+                out.append(_frozen(item[0], item[1], self.device))
+        return out
 
     # ------------------------------------------------------------------
     # weights and packing
@@ -395,12 +516,33 @@ class Transfusion:
         self.core.transformer.fourier_weights = self.core.transformer.fourier_weights.float()
         return self
 
+    def seq_shape_for(self, modality_type: int, spatial: tuple) -> tuple:
+        """The sequence shape (after latent_to_model) of a latent's spatial
+        shape: the pre module's output shape on a zero latent, computed
+        once per (type, shape) (reading a shape needs no host sync)."""
+        key = (modality_type, tuple(int(s) for s in spatial))
+        if key not in self._seq_shape_cache:
+            shape = key[1]
+            if self.pre_post[modality_type] is not None:
+                d = self.modalities[modality_type].dim_latent
+                with torch.no_grad():
+                    out = self.core.latent_to_model[modality_type](
+                        torch.zeros((1, *shape, d), device=self.device))
+                shape = tuple(out.shape[1:-1])
+            self._seq_shape_cache[key] = shape
+        return self._seq_shape_cache[key]
+
+    def seq_len_for(self, modality_type: int, spatial: tuple) -> int:
+        """The sequence rows of one latent of `spatial` shape."""
+        return int(math.prod(self.seq_shape_for(modality_type, spatial)))
+
     @property
     def pack_spec(self) -> PackSpec:
         mods = tuple(
             ModalityPackSpec(
                 dim_latent=mc.dim_latent, channel_first=mc.channel_first_latent,
                 num_dim=mc.num_dim, som_id=self.som_ids[i], eom_id=self.eom_ids[i],
+                seq_shape_fn=functools.partial(self.seq_shape_for, i),
             )
             for i, mc in enumerate(self.modalities)
         )
@@ -413,6 +555,44 @@ class Transfusion:
     def pack(self, samples, **kw):
         kw.setdefault("pad_multiple", self.pad_multiple)
         return pack_samples(samples, self.pack_spec, **kw)
+
+    # ------------------------------------------------------------------
+    # encoders / decoders (frozen, JAX `transfusion.py:726-766`)
+    # ------------------------------------------------------------------
+
+    def _aux_apply(self, slot: list, modality_type: int, batch):
+        """Run modality_type's encoder or decoder (from `slot`) on a batch
+        (float32, on the model's device) without a gradient; the batch as
+        it is when that modality has none."""
+        module = slot[modality_type]
+        if module is None:
+            return batch
+        x = self._floats(batch)
+        weight = next(module.parameters(), None)
+        with torch.no_grad():
+            return module(x if weight is None else x.to(weight.dtype)).to(torch.float32)
+
+    def _aux_samples(self, slot: list, samples):
+        for i, module in enumerate(slot):
+            if module is not None:
+                samples = apply_modality_fn(
+                    lambda b, i=i: self._aux_apply(slot, i, b).cpu().numpy(), samples,
+                    modality_type=i)
+        return samples
+
+    def encode_modalities(self, samples):
+        """Encode every modality of one sample or a list of samples (same
+        shapes batched into one call); types without an encoder pass."""
+        return self._aux_samples(self.encoders, samples)
+
+    def decode_modalities(self, samples):
+        """Decode every modality of one sample or a list of samples."""
+        return self._aux_samples(self.decoders, samples)
+
+    def parameters_without_encoder_decoder(self) -> dict:
+        """The trainable parameters: the core's (encoders and decoders live
+        outside it; a pre/post projection is part of it)."""
+        return dict(self.core.named_parameters())
 
     def _ids(self, x):
         if isinstance(x, torch.Tensor):
@@ -436,27 +616,40 @@ class Transfusion:
     # joint loss
     # ------------------------------------------------------------------
 
-    def make_draws(self, packed, generator=None, times=None) -> LossDraws:
+    def make_draws(self, packed, generator=None, times=None,
+                   velocity: bool = False) -> LossDraws:
         """Draws for one loss evaluation of the (torch) packed batch, from
         `generator` (torch's default generator when None): the two uniforms
         of `default_modality_times` (unless times Float[b, m] is given), the
-        CFG-drop uniforms and one standard normal per latent group."""
+        CFG-drop uniforms and one standard normal per latent group; with
+        `velocity`, a second normal per group for the EMA forward."""
         b, m = packed.spans.shape[:2]
         dev = packed.text.device
         u = torch.rand((3, b), generator=generator, device=dev)
         if times is None:
             num_mods = (packed.spans[..., 2] > 0).sum(-1)
             times = default_modality_times(u[0], u[1], num_mods, m)
-        noises = tuple(torch.randn(tuple(g.latents.shape), generator=generator, device=dev)
-                       for g in packed.groups)
+
+        def normals():
+            return tuple(torch.randn(tuple(g.latents.shape), generator=generator, device=dev)
+                         for g in packed.groups)
+
+        noises = normals()
         return LossDraws(times=torch.as_tensor(times, dtype=torch.float32, device=dev),
-                         cfg_uniform=u[2], noises=noises)
+                         cfg_uniform=u[2], noises=noises,
+                         ema_noises=normals() if velocity else ())
+
+    def _compute_params(self, params: dict) -> dict:
+        """A parameter dict (e.g. float32 masters) cast to the dtypes of the
+        module's own weights: the compute dtype, float32 for the modality
+        projections and pos-emb MLPs."""
+        return {k: p.to(self._param_dtypes[k]) for k, p in params.items()}
 
     def _joint_core(self, params, packed, times, noises, return_logits: bool = True):
         """Noise each latent group (x_t = t x + (1 - t) noise, flow target
         x - noise) and run the core's joint forward, on `params` when given
         (else the module's own weights). Returns (logits | None, embed,
-        pred_flows, flows)."""
+        pred_flows, flows, noised latents per group)."""
         noised_groups, flows = [], []
         for g, noise in zip(packed.groups, noises):
             t_inst = times[g.batch_idx, g.span_rows]
@@ -465,13 +658,12 @@ class Transfusion:
             flows.append(flow)
         packed_n = packed.replace(groups=tuple(noised_groups))
         if params is None:
-            out = self.core(packed_n, times, return_logits)
+            out = self.core(packed_n, times, return_logits=return_logits)
         else:  # cast inside the autograd graph: the grads arrive in params' dtype
-            out = torch.func.functional_call(
-                self.core, {k: p.to(self.dtype) for k, p in params.items()},
-                (packed_n, times, return_logits))
+            out = torch.func.functional_call(self.core, self._compute_params(params),
+                                             (packed_n, times), {"return_logits": return_logits})
         logits, embed, pred_flows, _, _ = out
-        return logits, embed, pred_flows, flows
+        return logits, embed, pred_flows, flows, [g.latents for g in noised_groups]
 
     def _chunked_ce(self, params, embed, labels, valid):
         """The JAX `_chunked_ce` (`transfusion.py:828-856`): the CE sum over
@@ -540,27 +732,43 @@ class Transfusion:
         return {k: sum(d[k] for d in denoms) for k in denoms[0]}
 
     def _loss_impl(self, params, packed, draws: LossDraws, prob_uncond: float,
-                   train: bool = True, loss_scales: Optional[dict] = None):
+                   train: bool = True, loss_scales: Optional[dict] = None,
+                   ema_params: Optional[dict] = None, velocity_delta: float = 1e-3):
         """The joint loss of the JAX `_loss_impl` (`transfusion.py:858-1065`)
-        without the velocity, reconstruction and pipeline branches:
-        CFG dropout of whole samples' text, the next-token shift, text CE
-        over valid labels (not ignore_index, not null, not inside a
-        modality; chunked with `ce_chunk_size`), per-type flow MSE,
-        weighted by the text and per-type token fractions. packed holds
-        torch tensors. Every mean divides by `loss_scales` (the summed
-        `loss_denominators` of all microbatches of a step, so that the
-        microbatches' losses and gradients sum to the whole batch's), or by
-        this batch's own. Returns (total, LossBreakdown)."""
+        without the pipeline branch: CFG dropout of whole samples' text,
+        the next-token shift, text CE over valid labels (not ignore_index,
+        not null, not inside a modality; chunked with `ce_chunk_size`),
+        per-type flow MSE, weighted by the text and per-type token
+        fractions; with `ema_params` (a parameter dict, e.g. the Trainer's
+        EMA masters) the velocity-consistency MSE against an EMA forward,
+        and with `reconstruction_loss_weight` the reconstruction MSE. packed
+        holds torch tensors. Every mean divides by `loss_scales` (the
+        summed `loss_denominators` of all microbatches of a step, so that
+        the microbatches' losses and gradients sum to the whole batch's),
+        or by this batch's own. Returns (total, LossBreakdown)."""
         T = self.num_modalities
         scales = loss_scales
         if scales is None:
             scales = self.loss_denominators(packed, draws, train, prob_uncond)
+        has_velocity = ema_params is not None
+        if has_velocity and len(draws.ema_noises) != len(packed.groups):
+            raise ValueError("the velocity-consistency loss needs draws.ema_noises, one per "
+                             "latent group (make_draws(..., velocity=True))")
+        # the trained forward runs at t (1 - delta), the EMA target at t + delta
+        times = draws.times * (1.0 - velocity_delta) if has_velocity else draws.times
         text = self._cfg_dropped_text(packed, draws, prob_uncond, train)
         text_in, labels = text[:, :-1], text[:, 1:]
         chunked = self.ce_chunk_size is not None
-        logits, embed, pred_flows, flows = self._joint_core(
-            params, packed.replace(text=text_in), draws.times, draws.noises,
+        logits, embed, pred_flows, flows, noised = self._joint_core(
+            params, packed.replace(text=text_in), times, draws.noises,
             return_logits=not chunked)
+        if has_velocity:
+            # the EMA target sees the text before the CFG dropout (the JAX
+            # `_loss_impl`, `transfusion.py:978-994`); no graph is kept
+            with torch.no_grad():
+                ema_flows = self._joint_core(
+                    ema_params, packed.replace(text=packed.text[:, :-1]),
+                    draws.times + velocity_delta, draws.ema_noises, return_logits=False)[2]
 
         valid = self._valid_labels(labels, packed.spans)
         safe_labels = torch.where(valid, labels, 0)
@@ -574,35 +782,68 @@ class Transfusion:
         text_frac = scales["kept"] / scales["total_tokens"]
         fracs = scales["type_token_counts"] / scales["total_tokens"]
 
-        flow_losses = []
+        flow_losses, velocity_losses, recon_losses = [], [], []
+        zero = torch.zeros((), device=embed.device)
         for t in range(T):
-            sse = torch.zeros((), device=embed.device)
+            sse, v_sse, r_parts = zero, zero, []
             for gi, g in enumerate(packed.groups):
-                if g.modality_type == t:
-                    sse = sse + ((pred_flows[gi] - flows[gi]).float() ** 2).sum()
-            flow_losses.append(sse / scales["elem_counts"][t].clamp_min(1.0))
+                if g.modality_type != t:
+                    continue
+                sse = sse + ((pred_flows[gi] - flows[gi]).float() ** 2).sum()
+                if has_velocity:
+                    v_sse = v_sse + ((pred_flows[gi] - ema_flows[gi]).float() ** 2).sum()
+                if self.has_recon_loss:
+                    # the reconstructed latent against the NOISED one, as
+                    # the JAX package writes it (`transfusion.py:1010-1019`)
+                    t_inst = times[g.batch_idx, g.span_rows]
+                    t_b = t_inst.reshape(-1, *(1,) * (pred_flows[gi].ndim - 1))
+                    recon = draws.noises[gi] + pred_flows[gi] * (1.0 - t_b)
+                    r_parts.append(((recon - noised[gi]) ** 2).flatten(1).mean(1))
+            denom = scales["elem_counts"][t].clamp_min(1.0)
+            flow_losses.append(sse / denom)
+            if has_velocity:
+                velocity_losses.append(v_sse / denom)
+            if self.has_recon_loss:
+                if not r_parts:
+                    recon_losses.append(zero)
+                elif loss_scales is not None:
+                    recon_losses.append(torch.cat(r_parts).sum()
+                                        / loss_scales["inst_counts"][t].clamp_min(1.0))
+                else:
+                    recon_losses.append(torch.cat(r_parts).mean())
         flow_total = sum(fl * fracs[t] for t, fl in enumerate(flow_losses))
 
         total = (text_loss * text_frac * self.text_loss_weight
                  + flow_total * self.flow_loss_weight)
-        return total, LossBreakdown(total=total, text=text_loss, flow=flow_losses)
+        if has_velocity:
+            total = total + sum(vl * fracs[t] for t, vl in enumerate(velocity_losses)) \
+                * self.velocity_consistency_loss_weight
+        if self.has_recon_loss:
+            total = total + sum(rl * fracs[t] for t, rl in enumerate(recon_losses)) \
+                * self.reconstruction_loss_weight
+        return total, LossBreakdown(total=total, text=text_loss, flow=flow_losses,
+                                    velocity=velocity_losses if has_velocity else None,
+                                    recon=recon_losses if self.has_recon_loss else None)
 
     def loss(self, batch=None, draws: Optional[LossDraws] = None, *, params=None,
              generator=None, times=None, num_modalities_to_times_fn=None,
-             velocity_consistency_ema_params=None, prob_uncond: Optional[float] = None,
-             return_breakdown: bool = False, train: bool = True, packed=None,
-             pipeline=None):
+             velocity_consistency_ema_params=None,
+             velocity_consistency_delta_time: float = 1e-3,
+             prob_uncond: Optional[float] = None, return_breakdown: bool = False,
+             train: bool = True, packed=None, pipeline=None):
         """Joint multimodal training loss of a ragged batch (a list of
-        samples, packed here with shift_friendly=True) or of `packed` (numpy
-        or torch). The draws come from `draws`, else from `generator`;
-        `times` Float[b, m] or `num_modalities_to_times_fn` override the
-        drawn times. `params`: an explicit parameter dict to differentiate
-        (default: the module's weights)."""
-        if velocity_consistency_ema_params is not None:
-            _not_in_port("the velocity-consistency loss", "velocity/reconstruction losses")
+        samples, encoded and packed here with shift_friendly=True) or of
+        `packed` (numpy or torch). The draws come from `draws`, else from
+        `generator`; `times` Float[b, m] or `num_modalities_to_times_fn`
+        override the drawn times. `params`: an explicit parameter dict to
+        differentiate (default: the module's weights).
+        `velocity_consistency_ema_params`: the EMA parameter dict of the
+        velocity-consistency term (its forward runs at t + delta)."""
         if pipeline is not None:
             _not_in_port("pipeline parallelism", "Queue 1 item 9, parallelism")
+        velocity = velocity_consistency_ema_params is not None
         if packed is None:
+            batch = self.encode_modalities(batch)
             packed = self.pack(batch, wrap_sos_eos=True, add_meta=True, shift_friendly=True)
         if not isinstance(packed.text, torch.Tensor):
             packed = packed.to_torch(self.device)
@@ -612,12 +853,14 @@ class Transfusion:
             pad = packed.spans.shape[1] - times.shape[1]
             times = np.pad(times, ((0, 0), (0, max(pad, 0))))
         if draws is None:
-            draws = self.make_draws(packed, generator, times)
+            draws = self.make_draws(packed, generator, times, velocity=velocity)
         elif times is not None:
             draws = dataclasses.replace(
                 draws, times=torch.as_tensor(times, dtype=torch.float32, device=self.device))
         total, breakdown = self._loss_impl(
-            params, packed, draws, float(default(prob_uncond, self.prob_uncond)), train)
+            params, packed, draws, float(default(prob_uncond, self.prob_uncond)), train,
+            ema_params=velocity_consistency_ema_params,
+            velocity_delta=float(velocity_consistency_delta_time))
         return (total, breakdown) if return_breakdown else total
 
     # ------------------------------------------------------------------
@@ -645,55 +888,96 @@ class Transfusion:
             return self._text_loss_impl(text)
         return self.core.text_forward(text)[0]
 
-    def _modality_flow(self, noised, times, modality_type: int):
-        """The predicted flow in latent space from the current state."""
-        out = self.core.modality_forward(noised, times, modality_type)
+    def _modality_flow(self, noised, times, modality_type: int, params=None):
+        """The predicted flow in latent space from the current state, on
+        `params` (a parameter dict, cast by `_compute_params`) when given,
+        else on the module's weights."""
+        if params is None:
+            out = self.core.modality_forward(noised, times, modality_type)
+        else:
+            out = torch.func.functional_call(self.core, self._compute_params(params),
+                                             (noised, times, modality_type),
+                                             {"method": "modality_forward"})
         if self.core.model_output_clean:
             out = model_output_to_flow(out, noised, times, self.core.eps)
         return out
 
-    def _modality_loss_impl(self, latents, times, noise, modality_type: int):
-        """Flow MSE of clean channel-last latents [b, *shape, d] noised to
-        x_t = t x + (1 - t) noise at times Float[b]. Returns (total, (flow,
-        velocity, reconstruction)); the last two are 0 until those losses
-        are ported."""
+    def _modality_loss_impl(self, latents, orig, times, noise, modality_type: int,
+                            params=None, ema_params=None, velocity_delta: float = 1e-5):
+        """The JAX `_modality_loss_impl` (`transfusion.py:1254-1306`) on
+        clean channel-last latents [b, *shape, d], noised to x_t = t x +
+        (1 - t) noise at times Float[b] (times (1 - delta) with
+        `ema_params`). Terms: the flow MSE; with `ema_params` the velocity
+        MSE of the true flow against the EMA model's flow from the CLEAN
+        latents at t + delta (no gradient reaches the trained parameters,
+        as in JAX); with `reconstruction_loss_weight` the MSE of
+        noise + flow (1 - t), decoded in the user layout when the modality
+        has a decoder, against `orig`, the input before encoding. Returns
+        (total, (flow, velocity, reconstruction))."""
+        orig_times = times
+        if ema_params is not None:
+            times = times * (1.0 - velocity_delta)
         noised, flow = noise_data(latents, noise, times)
-        pred_flow = self._modality_flow(noised, times, modality_type)
+        pred_flow = self._modality_flow(noised, times, modality_type, params)
         flow_loss = ((pred_flow - flow) ** 2).mean()
-        zero = torch.zeros((), device=flow_loss.device)
-        return flow_loss, (flow_loss, zero, zero)
+        velocity_loss = recon_loss = torch.zeros((), device=flow_loss.device)
+        if ema_params is not None:
+            with torch.no_grad():
+                ema_flow = self._modality_flow(latents, orig_times + velocity_delta,
+                                               modality_type, ema_params)
+            velocity_loss = ((flow - ema_flow) ** 2).mean()
+        if self.has_recon_loss:
+            t_b = times.reshape(-1, *(1,) * (latents.ndim - 1))
+            recon = noise + pred_flow * (1.0 - t_b)
+            if self.decoders[modality_type] is not None:
+                if self.modalities[modality_type].channel_first_latent:
+                    recon = recon.movedim(-1, 1)
+                recon = self._aux_apply(self.decoders, modality_type, recon)
+            recon_loss = ((recon - orig) ** 2).mean()
+        total = (flow_loss + velocity_loss * self.velocity_consistency_loss_weight
+                 + recon_loss * self.reconstruction_loss_weight)
+        return total, (flow_loss, velocity_loss, recon_loss)
 
     def forward_modality(self, modalities, times=None, noise=None, generator=None,
                          modality_type: Optional[int] = None, encode_modality: bool = True,
                          velocity_consistency_ema_params=None,
                          velocity_consistency_delta_time: float = 1e-5,
-                         return_loss: bool = True, return_loss_breakdown: bool = False):
-        """The modality-only path on latents [b, *shape, d] (user layout).
-        return_loss=False: the predicted flow at `times` Float[b]. Else the
-        flow loss on explicit draws: `times` (default uniform) and `noise`
-        shaped like the channel-last latents (default standard normal), each
-        drawn from `generator` when not given. The JAX package derives both
-        from one key (`transfusion.py:1265-1274`)."""
-        if velocity_consistency_ema_params is not None:
-            _not_in_port("the velocity-consistency loss", "velocity/reconstruction losses")
+                         return_loss: bool = True, return_loss_breakdown: bool = False,
+                         params=None):
+        """The modality-only path on a batch [b, *shape, ...] in the user
+        layout, encoded first when the modality has an encoder (and
+        `encode_modality`). return_loss=False: the predicted flow at `times`
+        Float[b]. Else the loss on explicit draws: `times` (default
+        uniform) and `noise` shaped like the channel-last latents (default
+        standard normal), each drawn from `generator` when not given (the
+        JAX package derives both from one key, `transfusion.py:1265-1274`).
+        `velocity_consistency_ema_params`: the EMA parameter dict of the
+        velocity term; `params`: a parameter dict to differentiate
+        (default: the module's weights)."""
         if self.num_modalities > 1 and modality_type is None:
             raise ValueError("modality_type is required with more than one modality")
         modality_type = default(modality_type, 0)
         mc = self.modalities[modality_type]
-        x = self._floats(modalities)
+        orig = self._floats(modalities)
+        x = orig
+        if encode_modality:
+            x = self._aux_apply(self.encoders, modality_type, x)
         if mc.channel_first_latent and x.ndim > 2:
             x = x.movedim(1, -1)  # the channel-last internal layout
         b = x.shape[0]
         if not return_loss:
             if times is None:
                 raise ValueError("forward_modality(return_loss=False) needs times")
-            out = self._modality_flow(x, self._floats(times), modality_type)
+            out = self._modality_flow(x, self._floats(times), modality_type, params)
             return out.movedim(-1, 1) if mc.channel_first_latent and out.ndim > 2 else out
         times = (torch.rand((b,), generator=generator, device=self.device) if times is None
                  else self._floats(times))
         noise = (torch.randn(x.shape, generator=generator, device=self.device) if noise is None
                  else self._floats(noise))
-        total, parts = self._modality_loss_impl(x, times, noise, modality_type)
+        total, parts = self._modality_loss_impl(
+            x, orig, times, noise, modality_type, params=params,
+            ema_params=velocity_consistency_ema_params,
+            velocity_delta=float(velocity_consistency_delta_time))
         return (total, parts) if return_loss_breakdown else total
 
     def forward(self, batch, generator=None, **kwargs):
@@ -832,9 +1116,8 @@ class Transfusion:
         """Sample batch_size latents of one modality by the flow ODE alone,
         from `noise` [b, *shape, d] channel-last (b replaces batch_size) or
         from a standard normal drawn with `generator`. Returns float32
-        latents in the user layout on the model's device (the port has no
-        modality decoders, so return_unprocessed_modalities changes
-        nothing)."""
+        latents in the user layout on the model's device, decoded when the
+        modality has a decoder (unless return_unprocessed_modalities)."""
         if self.num_modalities > 1 and modality_type is None:
             raise ValueError("modality_type is required with more than one modality")
         modality_type = default(modality_type, 0)
@@ -849,7 +1132,9 @@ class Transfusion:
                                           steps=int(modality_steps))
         if mc.channel_first_latent and sampled.ndim > 2:
             sampled = sampled.movedim(-1, 1)
-        return sampled
+        if return_unprocessed_modalities:
+            return sampled
+        return self._aux_apply(self.decoders, modality_type, sampled)
 
     # ------------------------------------------------------------------
     # multimodal sampling
@@ -907,7 +1192,11 @@ class Transfusion:
             if isinstance(p, tuple):
                 mtype, modality = p
                 mc = self.modalities[mtype]
-                cl = to_channel_last(np.asarray(modality, np.float32), mc.channel_first_latent)
+                modality = np.asarray(modality, np.float32)
+                if self.encoders[mtype] is not None:
+                    modality = self._aux_apply(self.encoders, mtype, modality[None])[0]
+                    modality = modality.cpu().numpy()
+                cl = to_channel_last(modality, mc.channel_first_latent)
                 shape_str = ",".join(map(str, cl.shape[:-1]))
                 meta_ids = ([self.meta_id] + [self.char_offset + ord(c) for c in shape_str]
                             + [self.som_ids[mtype]])
@@ -963,21 +1252,26 @@ class Transfusion:
         decodes per token and runs tail-only ODE steps (kv_quantize and
         incremental_cfg_cache act there only). A model without a text
         vocabulary samples one latent with `generate_modality_only`.
-        Returns the sample items (the port has no modality decoders, so
-        return_unprocessed_modalities changes nothing)."""
+        Returns the sample items, each modality decoded when it has a
+        decoder (unless return_unprocessed_modalities). A modality prompt
+        is encoded first."""
         if self.num_text_tokens == 0:
             logger.warning("num_text_tokens == 0: forwarding to generate_modality_only")
             return self.generate_modality_only(batch_size=1, generator=generator)
         sample_items = self._prompt_to_items(prompt)
         if not cache_kv:
-            return self._sample_uncached(
+            sample_items = self._sample_uncached(
                 sample_items, generator, max_length, text_temperature, text_min_p,
                 fixed_modality_shape, init_modality_noise, modality_steps, cfg_scale)
-        return self._sample_cached(
-            sample_items, generator, max_length, text_temperature,
-            text_min_p, fixed_modality_shape, init_modality_noise, modality_steps,
-            cfg_scale, kv_quantize=kv_quantize, incremental_cfg=incremental_cfg_cache,
-        )
+        else:
+            sample_items = self._sample_cached(
+                sample_items, generator, max_length, text_temperature,
+                text_min_p, fixed_modality_shape, init_modality_noise, modality_steps,
+                cfg_scale, kv_quantize=kv_quantize, incremental_cfg=incremental_cfg_cache,
+            )
+        if return_unprocessed_modalities:
+            return sample_items
+        return self.decode_modalities(sample_items)
 
     def sample_batch(self, prompts, **kwargs):
         """Batched multimodal sampling: R `sample(cache_kv=True)` state
@@ -1084,7 +1378,7 @@ class Transfusion:
             sample_items.append(
                 (mid, to_user_layout(sampled.cpu().numpy(), mc.channel_first_latent)))
             sample_items.append(np.asarray([self.eom_ids[mid]], np.int32))
-            curr_length += int(math.prod(spatial))
+            curr_length += self.seq_len_for(mid, spatial)
             trigger = None
 
         return sample_items
@@ -1215,7 +1509,7 @@ class Transfusion:
 
             mid, spatial = trigger
             mc = self.modalities[mid]
-            L = int(math.prod(spatial))
+            L = self.seq_len_for(mid, spatial)
 
             if pending_tok is not None:
                 stream_pending(pending_tok)

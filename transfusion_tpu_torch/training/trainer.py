@@ -16,9 +16,16 @@ batch's global loss denominators, sums their float32 gradients and makes
 one update: the same update as the whole batch at once
 (`_train_step_accum`, as the JAX `Trainer`).
 
+With `velocity_consistency=True` every step adds the velocity-consistency
+term, whose target is a no-grad forward of the state's EMA masters at
+t + delta (the JAX `Trainer`'s `state.ema.params`).
+
+Ragged batches are encoded (`Transfusion.encode_modalities`) before they
+are packed, each microbatch on its own under grad accumulation.
+
 Randomness: `train_step` takes the loss's draws (`LossDraws`, or a list of
 M of them) or makes them from a `torch.Generator`. Not ported yet
-(ROADMAP.md): meshes, pipeline parallelism, velocity consistency.
+(ROADMAP.md): meshes, pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -56,7 +63,9 @@ class Trainer:
     def __init__(self, model, learning_rate: float = 3e-4, grad_clip_norm: Optional[float] = 0.5,
                  ema_beta: float = 0.99, ema_update_every: int = 10,
                  ema_update_after_step: int = 100, mesh=None,
-                 velocity_consistency: bool = False, checkpoint_dir: Optional[str] = None,
+                 velocity_consistency: bool = False,
+                 velocity_consistency_delta_time: float = 1e-3,
+                 checkpoint_dir: Optional[str] = None,
                  pipeline_microbatches: Optional[int] = None,
                  grad_accumulation: Optional[int] = None):
         if mesh is not None:
@@ -65,9 +74,9 @@ class Trainer:
             _queued("pipeline parallelism", "Queue 1 item 9, parallelism")
         if grad_accumulation is not None and grad_accumulation < 2:
             raise ValueError("grad_accumulation must be >= 2 (None disables it)")
-        if velocity_consistency:
-            _queued("velocity consistency", "velocity/reconstruction losses")
         self.model = model
+        self.velocity_consistency = velocity_consistency
+        self.velocity_delta = velocity_consistency_delta_time
         self.learning_rate = learning_rate
         self.grad_clip_norm = grad_clip_norm
         self.ema_cfg = dict(ema_beta=ema_beta, ema_update_every=ema_update_every,
@@ -88,7 +97,7 @@ class Trainer:
     def _packed(self, batch):
         model = self.model
         if isinstance(batch, list):
-            batch = model.pack(batch, shift_friendly=True)
+            batch = model.pack(model.encode_modalities(batch), shift_friendly=True)
         if not isinstance(batch.text, torch.Tensor):
             batch = batch.to_torch(model.device)
         return batch
@@ -120,14 +129,27 @@ class Trainer:
         one (micro)batch at the state's master weights."""
         model = self.model
         leaves = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
-        loss, breakdown = model._loss_impl(leaves, packed, draws, model.prob_uncond,
-                                           train=True, loss_scales=loss_scales)
+        loss, breakdown = model._loss_impl(
+            leaves, packed, draws, model.prob_uncond, train=True, loss_scales=loss_scales,
+            ema_params=state.ema.params if self.velocity_consistency else None,
+            velocity_delta=self.velocity_delta)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(state.params.items(), grads)}
         return loss.detach(), breakdown, grads
 
-    def _apply(self, state: TrainState, grads, loss, text_loss, flow_losses):
+    @staticmethod
+    def _loss_parts(breakdown) -> dict:
+        """A loss breakdown as metrics: text_loss, flow_loss_{i}, and
+        velocity_loss_{i} / recon_loss_{i} when those terms are on."""
+        parts = {"text_loss": breakdown.text.detach()}
+        for name, losses in (("flow", breakdown.flow), ("velocity", breakdown.velocity),
+                             ("recon", breakdown.recon)):
+            for i, x in enumerate(losses or ()):
+                parts[f"{name}_loss_{i}"] = x.detach()
+        return parts
+
+    def _apply(self, state: TrainState, grads, loss, parts: dict):
         """The fused clip + Adam + EMA update; returns (new state, metrics)."""
         params, adam, ema_params, grad_norm = fused_clip_adam_ema(
             grads, state.params, state.adam, state.ema.params, state.ema.step,
@@ -137,24 +159,22 @@ class Trainer:
         new_state = TrainState(params=params, adam=adam,
                                ema=EmaState(params=ema_params, step=state.ema.step + 1),
                                step=state.step + 1)
-        metrics = {"loss": loss, "text_loss": text_loss.detach(), "grad_norm": grad_norm}
-        for i, fl in enumerate(flow_losses):
-            metrics[f"flow_loss_{i}"] = fl.detach()
-        return new_state, metrics
+        return new_state, {"loss": loss, "grad_norm": grad_norm, **parts}
 
     def train_step(self, state: TrainState, batch, draws=None, generator=None):
         """One optimizer step on a ragged batch (list of samples) or a
         packed batch (with grad_accumulation: a ragged batch or a list of M
         packed ones, and draws a list of M `LossDraws`). Returns (new state,
-        metrics): loss, text_loss, grad_norm and flow_loss_{i}, as 0-d
-        tensors on the device."""
+        metrics): loss, grad_norm and `_loss_parts` (text_loss,
+        flow_loss_{i}, velocity_loss_{i}, recon_loss_{i}), as 0-d tensors on
+        the device."""
         if self.grad_accumulation is not None:
             return self._train_step_accum(state, batch, draws, generator)
         packed = self._packed(batch)
         if draws is None:
-            draws = self.model.make_draws(packed, generator)
+            draws = self.model.make_draws(packed, generator, velocity=self.velocity_consistency)
         loss, breakdown, grads = self._grads(state, packed, draws)
-        return self._apply(state, grads, loss, breakdown.text, breakdown.flow)
+        return self._apply(state, grads, loss, self._loss_parts(breakdown))
 
     def _train_step_accum(self, state: TrainState, batch, draws, generator):
         """Exact gradient accumulation (the JAX `_train_step_accum`,
@@ -166,22 +186,24 @@ class Trainer:
         model = self.model
         packs = self._microbatches(batch)
         if draws is None:
-            draws = [model.make_draws(p, generator) for p in packs]
+            draws = [model.make_draws(p, generator, velocity=self.velocity_consistency)
+                     for p in packs]
         if len(draws) != len(packs):
             raise ValueError(f"{len(draws)} draws for {len(packs)} microbatches")
         scales = model.sum_loss_denominators(
             [model.loss_denominators(p, d) for p, d in zip(packs, draws)])
-        loss = text_loss = flow_losses = grads = None
+        loss = parts = grads = None
         for packed, d in zip(packs, draws):
             loss_m, bd, grads_m = self._grads(state, packed, d, scales)
+            parts_m = self._loss_parts(bd)
             if grads is None:
-                loss, text_loss, flow_losses, grads = loss_m, bd.text, list(bd.flow), grads_m
+                loss, parts, grads = loss_m, parts_m, grads_m
                 continue
-            loss, text_loss = loss + loss_m, text_loss + bd.text
-            flow_losses = [a + b for a, b in zip(flow_losses, bd.flow)]
+            loss = loss + loss_m
+            parts = {k: v + parts_m[k] for k, v in parts.items()}
             torch._foreach_add_(list(grads.values()), [grads_m[k] for k in grads])
             del grads_m  # not held through the next microbatch or the update
-        return self._apply(state, grads, loss, text_loss, flow_losses)
+        return self._apply(state, grads, loss, parts)
 
     def train_steps(self, state: TrainState, batch, steps: int, generator=None):
         """`steps` optimizer steps on one batch (packed once), each with
