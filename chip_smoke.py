@@ -11,8 +11,11 @@ Phases (any failure exits non-zero and prints no result line):
   2. kernels vs plain: each kernel against its plain PyTorch version on the
      same inputs, at synthetic shapes around the main paths' and at head
      dims 32 to 256, whole rows masked, row 1's envelope, 200 spans a row,
-     b * h past 65535, logits near the softcap, the decode kernel's every
-     path with whole chunks past lens and rows with no valid slot, and the
+     b * h past 65535, logits near the softcap, LASER's exp-space values
+     (exp(softclamp(6 N(0, 1), 15)), up to e^15; forward outputs held by
+     the row rule and after safe_log, the backward under do = g / out), the
+     decode kernel's every path with whole chunks past lens and rows with
+     no valid slot, and the
      kernels a decode call launches (at most 2) (forwards:
      bf16 within 2e-2, float32 within 1e-4 max abs error; every row's max
      error also within 0.08 (bf16) / 1e-3 (float32) of that row's RMS;
@@ -30,7 +33,14 @@ Phases (any failure exits non-zero and prints no result line):
      gradient (head-major and token-major attention) within 1e-4, and a
      small image model (patch codec, U-Net halves, pos-emb): one step's
      loss, its velocity and reconstruction terms and every gradient within
-     1e-4, cached `sample` latents and decoded images within 1e-3;
+     1e-4, cached `sample` latents and decoded images within 1e-3; and a
+     small model with LASER, 4 residual streams and fused projections: one
+     `Trainer(optimizer=muon_adam_atan2(...))` step's loss and every
+     gradient within 1e-4, its new parameters (Muon's bf16 Newton-Schulz:
+     each matrix's step within 0.5 of the CPU step's Frobenius norm; the
+     Adam-atan2 rest within 1e-5 but for at most 0.1 % of entries whose ~0
+     gradient takes its sign from rounding, each within 4 lr), cached
+     `sample` tokens equal and latents within 1e-3 with no decode launch;
   4. serving: the bench model at full width (dim 384, depth 8, 8x64 heads,
      bf16, seeded weights) through `generate_text_batch` (8 ragged prompts,
      128 new tokens, greedy; bf16 and int8 KV) and `sample(cache_kv=True)`
@@ -83,6 +93,20 @@ Phases (any failure exits non-zero and prints no result line):
      and decode calls (row 4 at nq 49 among them) are held against their
      plain versions, batched latents lie within the bf16 limits of solo
      and greedy tokens agree per position at >= 95 %;
+  4e. recipes: the same bench model with the example recipes' LASER
+     attention and 4 residual streams of 4 fracs: 20
+     `Trainer(optimizer=muon_adam_atan2(3e-4, 3e-4), grad_clip_norm=0.5)`
+     steps on bench.py's batch (n 256, rows 5 and 6 once per layer a step;
+     the loss falls; ms a step, packed tok/s and the optimizer update's ms
+     logged), cached `sample()` with CFG 3.0 on the seeded weights (its
+     row-1 prefill; no decode launch, the exclusion logged; s an image),
+     then `examples/train_text_only.py` at its own width (vocab 256, flash,
+     LASER): 8 calls of chain(clip 0.5, MultiSteps(adam(3e-4), 4)) through
+     `_text_loss_impl` on 4 x 257 bytes (2 updates, the EMA every call) and
+     `generate_text_batch` (its row-2 prefill). The captured LASER calls
+     (v = exp(softclamp(v, 15)), up to e^15) hold every output row within
+     the row rule and the outputs after safe_log within the forward
+     tolerance; the backward as in phase 2;
   5. training: the same bench model through `Trainer.train_step`: (a)
      `bench.py`'s batch, 32 x [32 text][14x14x32 latent][8 text], n 256
      after the shift (every layer takes the token-major route), and (b) 8
@@ -229,10 +253,18 @@ def compare(torch, out, ref):
     return diff.max().item(), rel
 
 
-def check_flash(torch, mods, a, iters=10, library=False, block_q=None):
+def laser_log_err(torch, out, ref):
+    """A LASER call's outputs after the model's safe_log: max abs error."""
+    log = lambda t: torch.log(t.float().clamp_min(1e-20))  # noqa: E731
+    return (log(out) - log(ref)).abs().max().item()
+
+
+def check_flash(torch, mods, a, iters=10, library=False, block_q=None, laser=False):
     """Kernel 1 against its plain version (block_q query rows at a time) on
     the arguments `a` of one flash_attention call (q, k, v, spans, causal,
-    softcap, offsets, lse)."""
+    softcap, offsets, lse). With `laser` (v = exp(softclamp(v, 15)), up to
+    e^15) `err` is the error after safe_log, `exp_space_err` the raw one;
+    the row rule holds the raw outputs."""
     fa = mods["flash"]
     q, k, v, spans = a["q"], a["k"], a["v"], a["spans"]
     q_off, kv_off = int(a["q_offset"] or 0), int(a["kv_offset"] or 0)
@@ -250,6 +282,10 @@ def check_flash(torch, mods, a, iters=10, library=False, block_q=None):
         live = ref_lse > -1e29
         err = max(err, (out_lse[live] - ref_lse[live]).abs().max().item() if live.any() else 0.0)
         require(bool((out_lse[~live] < -1e29).all()), "flash lse of a fully masked row")
+    extra = {}
+    if laser:
+        extra = dict(laser=True, exp_space_err=err)
+        err = laser_log_err(torch, out, ref)
     ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters)
     plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, spans, a["softcap"], q_off, kv_off,
                                                      block_q), max(2, iters // 3))
@@ -271,7 +307,7 @@ def check_flash(torch, mods, a, iters=10, library=False, block_q=None):
     lib = flex_ms(torch, q, k, v, spans, a["softcap"], q_off, kv_off, iters=iters)[0] \
         if library else None
     return dict(err=err, row_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                sdpa_no_softcap_ms=sdpa, library_ms=lib)
+                sdpa_no_softcap_ms=sdpa, library_ms=lib, **extra)
 
 
 def kernels_per_call(torch, fn, calls=10, attempts=5):
@@ -481,11 +517,11 @@ def check_flash_bwd(torch, mods, a, iters=5, library=False, block_q=None):
                 bound_by=by, library_ms=lib)
 
 
-def check_nhd(torch, mods, a, iters=5, library=False):
+def check_nhd(torch, mods, a, iters=5, library=False, laser=False):
     """The token-major forward and backward kernels against their plain
     versions on the arguments `a` of one flash_attention_nhd call plus its
-    output cotangent a['do'] (without one, the forward alone). Returns
-    (forward result, backward result or None)."""
+    output cotangent a['do'] (without one, the forward alone); `laser` as
+    in `check_flash`. Returns (forward result, backward result or None)."""
     fn = mods["nhd"]
     q, k, v, h, cos, sin = a["q"], a["k"], a["v"], a["h"], a["cos"], a["sin"]
     spans, cap, do = a["spans"], a["softcap"], a.get("do")
@@ -500,6 +536,10 @@ def check_nhd(torch, mods, a, iters=5, library=False):
         want = fn.flash_attention_nhd_backward_plain(*pargs)
     torch.cuda.synchronize()
     f_err, f_row = compare(torch, out, ref)
+    extra = {}
+    if laser:
+        extra = dict(laser=True, exp_space_err=f_err)
+        f_err = laser_log_err(torch, out, ref)
     live = ref_lse > -1e29
     f_err = max(f_err, (lse[live] - ref_lse[live]).abs().max().item())
     kw = dict(cos=cos, sin=sin, spans=spans, causal=a["causal"], softcap=cap)
@@ -531,7 +571,7 @@ def check_nhd(torch, mods, a, iters=5, library=False):
         lib_f, lib_b = flex_ms(torch, heads(qr), heads(kr), heads(v), spans, cap,
                                do=None if do is None else heads(do), iters=iters)
     fwd = dict(err=f_err, row_rel_err=f_row, ms=f_ms, plain_ms=f_plain, bound_ms=fb,
-               bound_by=fby, library_ms=lib_f)
+               bound_by=fby, library_ms=lib_f, **extra)
     if do is None:
         return fwd, None
     bwd = dict(err=b_err, rel_err=b_rel, row_rel_err=b_row, ms=b_ms, plain_ms=b_plain,
@@ -540,12 +580,15 @@ def check_nhd(torch, mods, a, iters=5, library=False):
 
 
 def flash_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, lse=False,
-               iters=10):
+               iters=10, laser=False):
+    """With `laser`, v = exp(softclamp(6 N(0, 1), 15)) (up to e^15)."""
     g = torch.Generator(device="cuda").manual_seed(n + d)
     q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=g).to(dtype) for _ in range(3))
+    if laser:
+        v = torch.exp(torch.tanh(6 * v.float() / 15.0) * 15.0).to(dtype)
     return check_flash(torch, mods, dict(
         q=q, k=k, v=v, spans=spans, causal=True, softcap=50.0, q_offset=q_offset,
-        kv_offset=kv_offset, return_lse=lse), iters)
+        kv_offset=kv_offset, return_lse=lse), iters, laser=laser)
 
 
 def bwd_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, g_lse=False,
@@ -569,15 +612,21 @@ def bwd_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, g_l
     return check_flash_bwd(torch, mods, a, iters, library)
 
 
-def nhd_case(torch, mods, b, h, n, d, dtype, spans, iters=5):
+def nhd_case(torch, mods, b, h, n, d, dtype, spans, iters=5, laser=False):
+    """With `laser`, LASER's exp-space values exp(softclamp(6 N(0, 1), 15))
+    (up to e^15) and safe_log's cotangent do = g / out."""
     g = torch.Generator(device="cuda").manual_seed(n + d + 2)
     q, k, v, do = (torch.randn(b, n, h * d, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
     pos = mods["spans"].spans_to_rotary_positions(n, spans)
     ang = mods["rope"].rope_angles(pos, d)
-    return check_nhd(torch, mods, dict(q=q, k=k, v=v, h=h, cos=torch.cos(ang),
-                                       sin=torch.sin(ang), spans=spans, causal=False,
-                                       softcap=50.0, do=do), iters)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if laser:
+        v = torch.exp(torch.tanh(6 * v.float() / 15.0) * 15.0).to(dtype)
+        ref, _ = mods["nhd"].flash_attention_nhd_plain(q, k, v, h, cos, sin, spans, 50.0)
+        do = (do.float() / ref.float().clamp_min(1e-20)).to(dtype)
+    return check_nhd(torch, mods, dict(q=q, k=k, v=v, h=h, cos=cos, sin=sin, spans=spans,
+                                       causal=False, softcap=50.0, do=do), iters, laser=laser)
 
 
 def decode_case(torch, mods, b, h, nq, cap, d, dtype, lens_list, int8, iters=20, library=False,
@@ -639,6 +688,12 @@ def phase_kernels(torch, mods):
     record("flash_fwd", "b2 h8 n64 d64 bf16 spans2 (row 1)",
            flash_case(torch, mods, 2, 8, 64, 64, bf16, spans_of(2, [(10, 30), (45, 12)]),
                       iters=20), bf16)
+    record("flash_fwd", "b2 h8 n64 d64 bf16 spans2 (row 1) LASER v ~ e^+-15",
+           flash_case(torch, mods, 2, 8, 64, 64, bf16, spans_of(2, [(10, 30), (45, 12)]),
+                      laser=True), bf16)
+    record("flash_fwd", "b4 h8 n512 d64 bf16 spans2 (row 2) LASER v ~ e^+-15",
+           flash_case(torch, mods, 4, 8, 512, 64, bf16, spans_of(4, [(10, 196), (300, 100)]),
+                      laser=True), bf16)
     record("flash_fwd", "b2 h8 n1000 d64 bf16 q_off=0 kv_off=300 spans1 lse (masked rows)",
            flash_case(torch, mods, 2, 8, 1000, 64, bf16, spans_of(2, [(700, 196)]), q_offset=0,
                       kv_offset=300, lse=True), bf16)
@@ -702,6 +757,14 @@ def phase_kernels(torch, mods):
         kind = str(dtype).split(".")[-1]
         record("flash_fwd_nhd", f"b{b} h8 n256 d64 {kind} rope spans2", fwd, dtype)
         record("flash_bwd_nhd", f"b{b} h8 n256 d64 {kind} rope spans2", bwd, dtype)
+        # LASER's values at their extremes (the model's captures, phase 4e,
+        # start near exp(0))
+        fwd, bwd = nhd_case(torch, mods, b, 8, 256, 64, dtype, spans_of(b, [(40, 196), (0, 0)]),
+                            laser=True)
+        record("flash_fwd_nhd", f"b{b} h8 n256 d64 {kind} rope spans2 LASER v ~ e^+-15", fwd,
+               dtype)
+        record("flash_bwd_nhd", f"b{b} h8 n256 d64 {kind} rope spans2 LASER v ~ e^+-15", bwd,
+               dtype)
     # the head-major backward: n 1024 training, row 7's envelope (no main
     # path reaches it, so its library yardstick is timed here), ring
     # attention's offsets with an lse cotangent, d 128, ragged n with whole
@@ -983,6 +1046,101 @@ def phase_reference_training(torch, Transfusion, Trainer, mods):
                         "loss": out["cpu"][0], "loss_err": loss_err, "max_grad_err": grad_err,
                         "launches": counts}))
     image_reference(torch, Transfusion, Trainer, mods)
+    laser_reference(torch, Transfusion, Trainer, mods)
+
+
+# the recipes' transformer options (examples/train_text_only.py:27-37,
+# train_image_only.py:51-57): LASER, 4 residual streams of 4 fracs, and the
+# fused projections
+RECIPE_OPTS = dict(attn_laser=True, num_residual_streams=4, num_residual_fracs=4)
+# Muon's Newton-Schulz runs in bf16 and amplifies rounding along a
+# gradient's small singular directions (3.4445x an iteration): a Muon
+# matrix's step on the card is held within this share of the CPU step's
+# Frobenius norm; Adam-atan2 entries within 1e-5 but those whose ~0
+# gradient takes its sign from rounding (at most 0.1 %, each within 4 lr)
+MUON_REL_TOL = 0.5
+
+
+def hold_new_params(torch, got, want, before, muon, lr):
+    """The card's parameters after one step against the CPU's (see
+    MUON_REL_TOL). Returns (largest Muon share, Adam entries past 1e-5)."""
+    worst, flips, total = 0.0, 0, 0
+    for k, w in want.items():
+        diff = got[k] - w
+        if k in muon:
+            share = diff.norm().item() / max((w - before[k]).norm().item(), 1e-30)
+            worst = max(worst, share)
+        else:
+            require(diff.abs().max().item() <= 4 * lr, f"{k}: new params card vs cpu")
+            flips += int((diff.abs() > 1e-5).sum())
+            total += diff.numel()
+    require(worst <= MUON_REL_TOL and flips <= 1e-3 * total,
+            f"new params card vs cpu: Muon share {worst}, {flips} of {total} Adam entries")
+    return worst, flips
+
+
+def laser_reference(torch, Transfusion, Trainer, mods):
+    """A small float32 model with the recipes' options and fused projections
+    (token-major route) on the card against the CPU: one
+    `Trainer(optimizer=muon_adam_atan2(...))` step's loss and every gradient
+    within 1e-4, its new parameters as `hold_new_params` says; cached
+    `sample` (CFG 3.0) tokens equal, latents within 1e-3, no decode launch."""
+    import numpy as np
+
+    from transfusion_tpu_torch.training import muon_adam_atan2
+
+    LossDraws = mods["transfusion"].LossDraws
+    cfg = dict(SMALL_NHD_CFG, transformer=dict(SMALL_NHD_CFG["transformer"], **RECIPE_OPTS,
+                                               fuse_projections=True))
+    gpu = Transfusion(device="cuda", dtype=torch.float32, seed=6, **cfg)
+    cpu = Transfusion(device="cpu", dtype=torch.float32, seed=6, **cfg)
+    cpu.core.load_state_dict({k: v.cpu() for k, v in gpu.core.state_dict().items()})
+    rng = np.random.default_rng(3)
+    batch = [[rng.integers(0, 16, 5).astype(np.int32),
+              (0, rng.standard_normal((4, 4, 8)).astype(np.float32)),
+              rng.integers(0, 16, 3).astype(np.int32)] for _ in range(4)]
+    packed = cpu.pack(batch, shift_friendly=True)
+    draws = cpu.make_draws(packed.to_torch("cpu"), torch.Generator().manual_seed(0))
+    out = {}
+    for m in (gpu, cpu):
+        dev = m.device
+        d = LossDraws(times=draws.times.to(dev), cfg_uniform=draws.cfg_uniform.to(dev),
+                      noises=tuple(t.to(dev) for t in draws.noises))
+        trainer = Trainer(m, optimizer=muon_adam_atan2(muon_lr=3e-4, adam_lr=3e-4))
+        state = trainer.init_state()
+
+        def step(trainer=trainer, state=state, d=d, dev=dev):
+            loss, _, grads = trainer._grads(state, packed.to_torch(dev), d)
+            new, _ = trainer._apply(state, grads, loss, {}, 0)
+            return loss.item(), grads, new.params
+
+        (loss, grads, new), counts = counted(mods, step)
+        out[dev.type] = (loss, {k: g.cpu() for k, g in grads.items()},
+                         {k: p.cpu() for k, p in new.items()},
+                         {k: p.cpu() for k, p in state.params.items()}, counts)
+    loss_err = abs(out["cuda"][0] - out["cpu"][0])
+    grad_err = max((out["cuda"][1][k] - g).abs().max().item() for k, g in out["cpu"][1].items())
+    counts = out["cuda"][4]
+    require(counts["flash_fwd_nhd"] > 0 and counts["flash_bwd_nhd"] > 0,
+            f"LASER reference step: kernel launches {counts}")
+    require(loss_err <= 1e-4 and grad_err <= 1e-4,
+            f"LASER reference step: loss err {loss_err}, grad err {grad_err}")
+    muon_share, flips = hold_new_params(torch, out["cuda"][2], out["cpu"][2], out["cpu"][3],
+                                        set(cpu.muon_parameters()), 3e-4)
+
+    noise = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    kw = dict(prompt=[np.asarray([3, gpu.som_ids[0]])], max_length=20, modality_steps=4,
+              init_modality_noise=noise, cfg_scale=3.0, text_temperature=0.0, cache_kv=True)
+    got, s_counts = counted(mods, lambda: gpu.sample(**kw))
+    lat_err = items_err(got, cpu.sample(**kw), "LASER model sample card vs cpu")
+    require(s_counts["flash_fwd"] > 0 and s_counts["decode_attn"] == 0,
+            f"LASER model sample: launches {s_counts}")
+    require(lat_err <= 1e-3, f"LASER model sample card vs cpu: latents {lat_err}")
+    log(json.dumps({"reference": "small f32 LASER + 4-stream + fused model, Muon step, "
+                    "card vs cpu", "loss": out["cpu"][0], "loss_err": loss_err,
+                    "max_grad_err": grad_err, "muon_step_share": muon_share,
+                    "adam_entries_past_1e-5": flips, "sample_latents_err": lat_err,
+                    "launches": {"step": counts, "sample": s_counts}}))
 
 
 # ---------------------------------------------------------------------------
@@ -1994,6 +2152,220 @@ def phase_image(torch, Transfusion, Trainer, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the example recipes' options at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def logged(name):
+    """While open, keep the messages that the logger `name` emits at INFO."""
+    import logging
+
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    logger, handler = logging.getLogger(name), Keep(logging.INFO)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def phase_recipes(torch, Transfusion, Trainer, mods):
+    """The bench model (bf16) with the recipes' LASER and 4 residual streams
+    of 4 fracs: 20 `Trainer(optimizer=muon_adam_atan2(...))` steps on
+    bench.py's batch and cached `sample()` on the seeded weights (no decode
+    launch: LASER's cached steps take the dense path, logged); then the
+    `train_text_only.py` recipe at its own width: 8 calls of
+    chain(clip 0.5, MultiSteps(adam(3e-4), 4)) through `_text_loss_impl`
+    with the EMA advancing on every call, and `generate_text_batch`. The
+    captured row-1, row-2, row-5 and row-6 calls are held against their
+    plain versions (`laser`). Returns the launch totals."""
+    import numpy as np
+
+    from transfusion_tpu_torch.training import (
+        MultiSteps,
+        adam,
+        apply_updates,
+        chain,
+        clip_by_global_norm,
+        ema_update,
+        init_ema,
+        muon_adam_atan2,
+    )
+
+    depth = BENCH_CFG["transformer"]["depth"]
+    cfg = dict(BENCH_CFG, transformer=dict(BENCH_CFG["transformer"], **RECIPE_OPTS))
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **cfg)
+    rng = np.random.default_rng(11)
+    totals = dict.fromkeys(KERNELS, 0)
+
+    # ---- training: bench.py's batch, n 256, the token-major route ----
+    name = "LASER + 4 streams, bench batch 32 x [32 text][14x14x32][8 text], Muon"
+    trainer = Trainer(model, optimizer=muon_adam_atan2(muon_lr=3e-4, adam_lr=3e-4),
+                      grad_clip_norm=0.5)
+    packed = model.pack([bench_sample(rng, 1) for _ in range(32)], shift_friendly=True)
+    require(packed.text.shape[1] == 257, f"{name}: packed to {packed.text.shape}")
+    packed = packed.to_torch("cuda")
+    state = trainer.init_state()
+    draws = model.make_draws(packed, torch.Generator("cuda").manual_seed(0))
+    with capturing(torch, mods, {"flash_fwd_nhd": lambda a: True}) as calls:
+        state, _ = trainer.train_step(state, packed, draws=draws)
+    torch.cuda.synchronize()
+    require("flash_fwd_nhd" in calls and "do" in calls["flash_fwd_nhd"],
+            f"{name}: no token-major attention call captured")
+    a = calls["flash_fwd_nhd"]
+    shape = f"main path, {name}: q {shape_str(a['q'])} rope spans {shape_str(a['spans'])}, LASER"
+    f_res, b_res = check_nhd(torch, mods, a, laser=True)
+    record("flash_fwd_nhd", shape, f_res, torch.bfloat16)
+    record("flash_bwd_nhd", shape, b_res, torch.bfloat16)
+    del calls
+
+    def steps(state=state):
+        out = []
+        for _ in range(TRAIN_STEPS):
+            state, metrics = trainer.train_step(state, packed, draws=draws)
+            out.append(metrics["loss"])
+        return state, [float(x) for x in out]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, losses), counts = counted(mods, steps)
+    dt = time.perf_counter() - t0
+    require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{name}: loss did not fall {losses[0]} -> {losses[-1]}")
+    want = depth * TRAIN_STEPS
+    require(counts["flash_fwd_nhd"] == want and counts["flash_bwd_nhd"] == want,
+            f"{name}: launches {counts}, want {want} of rows 5 and 6")
+    for k in totals:
+        totals[k] += counts[k]
+    # the optimizer update's share: clip + Muon / Adam-atan2 + apply + EMA,
+    # timed alone over 3 more steps
+    upd_s, apply = [0.0], trainer._apply
+
+    def timed_apply(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = apply(*a, **k)
+        torch.cuda.synchronize()
+        upd_s[0] += time.perf_counter() - t
+        return out
+
+    trainer._apply = timed_apply
+    try:
+        for _ in range(3):
+            state, _ = trainer.train_step(state, packed, draws=draws)
+    finally:
+        trainer._apply = apply
+    log(json.dumps({
+        "recipes": f"training, {name}", "steps": TRAIN_STEPS, "seconds": dt,
+        "ms_per_step": dt / TRAIN_STEPS * 1e3,
+        "packed_tokens_per_s": int(packed.total_tokens) * TRAIN_STEPS / dt,
+        "tokens_per_step": int(packed.total_tokens), "optimizer_update_ms": upd_s[0] / 3 * 1e3,
+        "loss_first": losses[0], "loss_last": losses[-1], "launches": counts}))
+    del trainer, state, packed, draws
+
+    # ---- cached sample() on the seeded weights: the dense cached path ----
+    name = "LASER + 4 streams sample(cache_kv=True) cfg 3.0"
+    noise = rng.standard_normal((196, 32)).astype(np.float32)
+    prompt = [np.asarray(list(rng.integers(0, 256, 24)) + [model.som_ids[0]], np.int32)]
+    kw = dict(text_temperature=0.0, cfg_scale=3.0, modality_steps=16, cache_kv=True,
+              fixed_modality_shape=(14, 14), init_modality_noise=noise, kv_quantize=False)
+    with capturing(torch, mods, {"flash_fwd": lambda a: True}) as calls:
+        model.sample(prompt, max_length=196, **{**kw, "modality_steps": 2})
+    torch.cuda.synchronize()
+    a = calls["flash_fwd"]
+    b, h, nq, d = a["q"].shape
+    row = mods["flash"].tpu_row(h, nq, a["k"].shape[2], d, bwd=False)
+    require(row == 1, f"{name}: prefill q {shape_str(a['q'])} is row {row}, not 1")
+    record("flash_fwd", f"main path, {name}: prefill q {shape_str(a['q'])} (row 1), LASER",
+           check_flash(torch, mods, a, laser=True), torch.bfloat16)
+    del calls
+    t0 = time.perf_counter()
+    with logged("transfusion_tpu_torch.models.transformer") as messages:
+        out, counts = counted(mods, lambda: model.sample(prompt, max_length=196, **kw))
+    dt = time.perf_counter() - t0
+    lat = [o[1] for o in out if isinstance(o, tuple)]
+    require(len(lat) == 1 and lat[0].shape == (14, 14, 32) and np.isfinite(lat[0]).all(),
+            f"{name}: latents {[x.shape for x in lat]}")
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] == 0,
+            f"{name}: launches {counts}")
+    excluded = "decode kernel excluded for this cached step (LASER attention)"
+    require(any(excluded in m for m in messages), f"{name}: the exclusion was not logged")
+    for k in totals:
+        totals[k] += counts[k]
+    log(json.dumps({"recipes": name, "s_per_image": dt, "launches": counts,
+                    "exclusions_logged": sum(excluded in m for m in messages)}))
+    del model
+
+    # ---- examples/train_text_only.py at its own width ----
+    name = "train_text_only recipe: 4 x 257 bytes, clip 0.5 + MultiSteps(adam(3e-4), 4)"
+    tmodel = Transfusion(device="cuda", dtype=torch.bfloat16, seed=1, num_text_tokens=256,
+                         dim_latent=384, modality_default_shape=(),
+                         transformer=dict(dim=384, depth=8, dim_head=64, heads=8,
+                                          attn_impl="flash", attn_laser=True))
+    tx = chain(clip_by_global_norm(0.5), MultiSteps(adam(3e-4), every_k_schedule=4))
+    params = {k: p.detach().float().clone() for k, p in tmodel.core.named_parameters()}
+    opt_state, ema = tx.init(params), init_ema(params)
+    data = torch.as_tensor(rng.integers(0, 256, (8, 4, 257)), device="cuda")
+
+    def text_steps(params=params, opt_state=opt_state, ema=ema):
+        out = []
+        for batch in data:
+            leaves = {k: p.requires_grad_(True) for k, p in params.items()}
+            loss = tmodel._text_loss_impl(batch, params=leaves)
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(leaves.items(), grads)}
+            updates, opt_state = tx.update(grads, opt_state, params)
+            params = apply_updates({k: p.detach() for k, p in params.items()}, updates)
+            ema = ema_update(ema, params)
+            out.append(float(loss.detach()))
+        return out, opt_state, ema
+
+    t0 = time.perf_counter()
+    (losses, opt_state, ema), counts = counted(mods, text_steps)
+    dt = time.perf_counter() - t0
+    require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    require(opt_state[1]["gradient_step"] == 2 and ema.step == 8,
+            f"{name}: {opt_state[1]['gradient_step']} updates, EMA step {ema.step}")
+    require(counts["flash_fwd_nhd"] == 8 * 8 and counts["flash_bwd_nhd"] == 8 * 8,
+            f"{name}: launches {counts}")
+    for k in totals:
+        totals[k] += counts[k]
+    log(json.dumps({"recipes": name, "calls": 8, "updates": 2, "seconds": dt,
+                    "ms_per_call": dt / 8 * 1e3, "losses": losses, "launches": counts}))
+
+    name = "train_text_only model generate_text_batch, 4 prompts of 300-480 bytes"
+    prompts = [rng.integers(0, 256, n) for n in (300, 360, 420, 480)]
+    with capturing(torch, mods, {"flash_fwd": lambda a: True}) as calls:
+        toks, counts = counted(mods, lambda: tmodel.generate_text_batch(
+            prompts, max_new_tokens=32, temperature=0.0))
+    torch.cuda.synchronize()
+    a = calls["flash_fwd"]
+    b, h, nq, d = a["q"].shape
+    row = mods["flash"].tpu_row(h, nq, a["k"].shape[2], d, bwd=False)
+    require(row == 2, f"{name}: prefill q {shape_str(a['q'])} is row {row}, not 2")
+    record("flash_fwd", f"main path, {name}: prefill q {shape_str(a['q'])} (row 2), LASER",
+           check_flash(torch, mods, a, laser=True), torch.bfloat16)
+    toks = toks.cpu()
+    require(tuple(toks.shape) == (4, 32) and bool(((toks >= 0) & (toks < 256)).all()),
+            f"{name}: tokens {tuple(toks.shape)}")
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] == 0, f"{name}: launches {counts}")
+    for k in totals:
+        totals[k] += counts[k]
+    log(json.dumps({"recipes": name, "launches": counts}))
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
@@ -2292,6 +2664,7 @@ def main() -> int:
     sampling_launches = timed_phase(phase_sampling, torch, Transfusion, mods)
     engine_launches = timed_phase(phase_engines, torch, Transfusion, mods)
     image_launches = timed_phase(phase_image, torch, Transfusion, Trainer, mods)
+    recipe_launches = timed_phase(phase_recipes, torch, Transfusion, Trainer, mods)
     train_launches, train_path = timed_phase(phase_training, torch, Transfusion, Trainer, mods)
     long_launches, long_path = timed_phase(phase_long_training, torch, Transfusion, Trainer,
                                            mods)
@@ -2306,6 +2679,7 @@ def main() -> int:
     for name, meta in KERNELS.items():
         total = (launches.get(name, 0) + sampling_launches.get(name, 0)
                  + engine_launches.get(name, 0) + image_launches.get(name, 0)
+                 + recipe_launches.get(name, 0)
                  + train_launches.get(name, 0) + long_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]

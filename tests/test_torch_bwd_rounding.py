@@ -1,7 +1,8 @@
 """PyTorch port: the rounding budget of the bf16 backward kernel, on the CPU.
 
-The bf16 backward (`csrc/flash_bwd.cu`) rounds p and ds to bf16 before the
-dv/dk/dq products and applies the d^-1/2 scale to the float32 sums;
+The bf16 backward (`csrc/flash_bwd.cu`) takes p as a bf16 pair hi + lo in
+the dv product, rounds ds to bf16 before the dk/dq products and applies the
+d^-1/2 scale to the float32 sums;
 `backward_plain_f32(round_operands=torch.bfloat16)` does the same in
 PyTorch. Here, on seeded bf16 inputs at small versions of the main paths'
 shapes (rows 6-9 of PERF.md's kernel table, and q/kv offsets with an lse

@@ -729,3 +729,118 @@ def test_decode_kernel_at_the_unet_rows_matches_plain(cuda_device, dtype, tol):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all() and (out[15] == 0).all()
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def laser_values(t):
+    """LASER's attention values exp(softclamp(v, 15)), up to e^15."""
+    return torch.exp(torch.tanh(t.float() / 15.0) * 15.0).to(t.dtype)
+
+
+def row_rel_err(out, ref):
+    """Each row's largest error over that row's RMS (the reference's)."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    rms = ref.float().pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    return (err / rms).max().item()
+
+
+@pytest.mark.parametrize("dtype,tol,row,rel", [(torch.float32, 1e-4, 1e-3, 1e-4),
+                                               (torch.bfloat16, 2e-2, 0.08, 1e-2)])
+def test_laser_values_through_the_flash_kernels_match_plain(cuda_device, dtype, tol, row, rel):
+    """LASER's exp-space values (v ~ 6 N(0, 1) through softclamp 15, so up
+    to ~3e6) through row 1 (head-major forward, 8 small heads), row 5 and
+    row 6 (token-major forward and backward with RoPE): every output row
+    within `row` of its RMS, the outputs after safe_log within the model's
+    tolerance, and the backward, under safe_log's cotangent do = g / out,
+    within `rel` of each gradient's largest element."""
+    spans = torch.tensor([[[0, 3, 30]], [[0, 10, 40]]], device=cuda_device)
+    # row 1: the head-major forward, as a LASER sample() prefill gives it
+    q, k = (randn(2, 8, 64, 64, seed=s, dtype=dtype) for s in (1, 2))
+    v = laser_values(randn(2, 8, 64, 64, seed=3, dtype=dtype) * 6)
+    assert flash_attn.tpu_row(8, 64, 64, 64, bwd=False) == 1
+    out = flash_attn.flash_attention(q, k, v, spans=spans, causal=True)
+    ref, _ = flash_attn.flash_attention_plain(q, k, v, spans, 50.0)
+    torch.cuda.synchronize()
+    assert v.float().max().item() > 1e5
+    assert row_rel_err(out, ref) <= row
+    log_err = (torch.log(out.float().clamp_min(1e-20)) - torch.log(ref.float().clamp_min(1e-20)))
+    assert log_err.abs().max().item() <= tol
+    # rows 5 and 6: the token-major route of the training step
+    b, n, h, d = 2, 256, 4, 64
+    q, k, g = (randn(b, n, h * d, seed=s, dtype=dtype) for s in (4, 5, 6))
+    v = laser_values(randn(b, n, h * d, seed=7, dtype=dtype) * 6)
+    ang = rope_angles(torch.arange(n, device=cuda_device), d)[None].expand(b, n, d)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    f = flash_attn_nhd
+    out, lse = f._forward(q, k, v, h, cos, sin, spans, 50.0)
+    ref, _ = f.flash_attention_nhd_plain(q, k, v, h, cos, sin, spans, 50.0)
+    do = (g.float() / out.float().clamp_min(1e-20)).to(dtype)
+    got = f.flash_attention_nhd_backward(q, k, v, out, lse, do, h, cos, sin, spans, 50.0)
+    delta = (do.float() * out.float()).view(b, n, h, d).sum(-1).transpose(1, 2)
+    want = f.flash_attention_nhd_backward_plain(q, k, v, do, lse, delta, h, cos, sin, spans,
+                                                50.0)
+    torch.cuda.synchronize()
+    assert row_rel_err(out, ref) <= row
+    log_err = (torch.log(out.float().clamp_min(1e-20)) - torch.log(ref.float().clamp_min(1e-20)))
+    assert log_err.abs().max().item() <= tol
+    assert_grads_close(got, want, rel)
+
+
+def test_laser_streams_muon_model_on_card_matches_cpu(cuda_device):
+    """The phase-3 model of chip_smoke.py (float32, LASER, 4 residual
+    streams, fused projections) on the card and on the CPU from the same
+    weights and draws: one `Trainer(optimizer=muon_adam_atan2(...))` step's
+    loss and every gradient within 1e-4 and the new parameters (Muon's bf16
+    Newton-Schulz rounds apart on the two devices: its matrices within 0.5
+    of their change's Frobenius norm; the Adam-atan2 rest within 1e-5 but
+    for entries whose ~0 gradient takes its sign from rounding, at most
+    0.1 % of them, each within 4 lr); then cached `sample` (CFG 3.0):
+    tokens equal, latents within 1e-3, no decode launch."""
+    from transfusion_tpu_torch.training import muon_adam_atan2
+
+    cfg = dict(CFG, transformer=dict(dim=64, depth=2, dim_head=64, heads=2, attn_impl="flash",
+                                     attn_laser=True, num_residual_streams=4,
+                                     fuse_projections=True))
+    models = [Transfusion(device=dev, seed=2, **cfg) for dev in ("cuda", "cpu")]
+    models[1].core.load_state_dict({k: t.cpu() for k, t in models[0].core.state_dict().items()})
+    rng = np.random.default_rng(0)
+    batch = [[rng.integers(0, 8, 5).astype(np.int32),
+              rng.standard_normal((4, 16)).astype(np.float32)] for _ in range(3)]
+    packed = models[1].pack(batch, shift_friendly=True).to_torch("cpu")
+    draws = models[1].make_draws(packed, torch.Generator().manual_seed(0))
+    out = []
+    for m in models:
+        dev = m.device
+        d = type(draws)(times=draws.times.to(dev), cfg_uniform=draws.cfg_uniform.to(dev),
+                        noises=tuple(t.to(dev) for t in draws.noises))
+        tr = Trainer(m, optimizer=muon_adam_atan2(3e-4, 3e-4))
+        state = tr.init_state()
+        loss, _, grads = tr._grads(state, packed.to_torch(dev), d)
+        new, _ = tr._apply(state, grads, loss, {}, 0)
+        out.append((loss.item(), {k: g.cpu() for k, g in grads.items()},
+                    {k: p.cpu() for k, p in new.params.items()},
+                    {k: p.cpu() for k, p in state.params.items()}))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4
+    muon = set(models[1].muon_parameters())
+    flips = total = 0
+    for k, g in out[1][1].items():
+        assert (out[0][1][k] - g).abs().max().item() <= 1e-4, k
+        diff = out[0][2][k] - out[1][2][k]
+        if k in muon:
+            assert diff.norm().item() <= 0.5 * (out[1][2][k] - out[1][3][k]).norm().item(), k
+        else:
+            assert diff.abs().max().item() <= 4 * 3e-4, k
+            flips += int((diff.abs() > 1e-5).sum())
+            total += diff.numel()
+    assert flips <= 1e-3 * total
+    noise = np.random.default_rng(1).standard_normal((4, 16)).astype(np.float32)
+    before = decode_attn.decode_attention.launches
+    kw = dict(prompt=[np.asarray([3, models[0].som_ids[0]])], max_length=20, modality_steps=4,
+              init_modality_noise=noise, cfg_scale=3.0, text_temperature=0.0, cache_kv=True)
+    got, want = (m.sample(**kw) for m in models)
+    assert decode_attn.decode_attention.launches == before
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if isinstance(a, tuple):
+            assert np.abs(a[1] - b[1]).max() <= 1e-3
+        else:
+            assert np.array_equal(a, b)

@@ -1,10 +1,11 @@
-"""The PyTorch port stands alone: it imports with `jax` and `transfusion_tpu`
-blocked, builds a small model on the CPU, serves from it (batched text,
-uncached `sample`, `sample_batch`, `generate_modality_only`, both
-continuous-batching engines) and takes a training step, takes a
+"""The PyTorch port stands alone: it imports with `jax`, `optax` and
+`transfusion_tpu` blocked, builds a small model on the CPU, serves from it
+(batched text, uncached `sample`, `sample_batch`, `generate_modality_only`,
+both continuous-batching engines) and takes a training step, takes a
 velocity-consistency step and samples from an image model (encoder,
-decoder, U-Net halves, pos-emb), and its entry points default to the card
-(raising when there is none)."""
+decoder, U-Net halves, pos-emb), takes a LASER + 4-stream step through
+`Trainer(optimizer=muon_adam_atan2(...))`, and its entry points default to
+the card (raising when there is none)."""
 
 import os
 import subprocess
@@ -17,6 +18,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
     sys.modules["jax"] = None
+    sys.modules["optax"] = None
     sys.modules["transfusion_tpu"] = None
     import numpy as np
     import torch
@@ -27,7 +29,8 @@ SCRIPT = textwrap.dedent(
         transfusion_tpu_torch.__path__, "transfusion_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    assert not any(k == "jax" or k.startswith(("jax.", "flax", "transfusion_tpu."))
+    assert not any(k in ("jax", "optax") or k.startswith(("jax.", "flax", "optax.",
+                                                          "transfusion_tpu."))
                    for k, v in sys.modules.items() if v is not None), "JAX was imported"
 
     from transfusion_tpu_torch import Transfusion
@@ -93,6 +96,16 @@ SCRIPT = textwrap.dedent(
     outs = im.sample_batch([(0, img), [np.asarray([3, im.som_ids[0]])]], max_length=6,
                            modality_steps=2, text_temperature=0.0, init_modality_noise=noise)
     assert all(o[1].shape == (8, 8, 2) for r in outs for o in r if isinstance(o, tuple))
+
+    # the recipes' options: LASER, 4 residual streams, fused projections, Muon
+    from transfusion_tpu_torch.training import muon_adam_atan2
+    lm = Transfusion(device="cpu", **dict(cfg, transformer=dict(
+        cfg["transformer"], attn_laser=True, num_residual_streams=4, fuse_projections=True)))
+    lt = Trainer(lm, optimizer=muon_adam_atan2(3e-4, 3e-4))
+    state, metrics = lt.train_step(lt.init_state(), batch,
+                                   generator=torch.Generator().manual_seed(0))
+    assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+    assert "transformer.blocks.1.attn.to_value_residual_mix.weight" in lm.muon_parameters()
 
     if not torch.cuda.is_available():
         try:

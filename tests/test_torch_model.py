@@ -213,14 +213,26 @@ def test_cache_helpers():
 
 
 def test_unported_paths_raise(jax_ref):
-    """Unported options raise; the uncached flash `text_forward` (which
-    raised before the training slice) now equals the JAX one, and so does
-    `add_pos_emb` (which raised before the modality I/O slice): the joint
-    forward's logits and flows, and the modality-only flow."""
-    with pytest.raises(NotImplementedError, match="LASER"):
-        Transfusion(transformer=dict(tcfg("flash"), attn_laser=True), device="cpu", **CFG)
-    with pytest.raises(NotImplementedError, match="hyper-connections"):
-        Transfusion(transformer=dict(tcfg("flash"), num_residual_streams=2), device="cpu", **CFG)
+    """Unported options (dropout, context-parallel attention) raise; the
+    uncached flash `text_forward` (which raised before the training slice)
+    now equals the JAX one, and so do `add_pos_emb` (which raised before the
+    modality I/O slice: the joint forward's logits and flows, and the
+    modality-only flow) and LASER and two residual streams (which raised
+    before the recipe-options slice: the causal text forward)."""
+    with pytest.raises(NotImplementedError, match="dropout"):
+        Transfusion(transformer=dict(tcfg("flash"), dropout=0.1), device="cpu", **CFG)
+    with pytest.raises(NotImplementedError, match="parallelism"):
+        Transfusion(transformer=tcfg("ring"), device="cpu", **CFG)
+    toks = np.asarray([[8, 1, 2, 3, 7, 5], [8, 4, 4, 0, 1, 2]], np.int32)
+    for opt in (dict(attn_laser=True), dict(num_residual_streams=2)):
+        jm = JaxTransfusion(transformer=dict(tcfg("flash"), **opt), **CFG)
+        p_opt = jitter(jm.init_params(jax.random.PRNGKey(4)))
+        tm = Transfusion(transformer=dict(tcfg("flash"), **opt), device="cpu", **CFG)
+        tm.load_flax(jax.tree.map(np.asarray, p_opt))
+        j_logits = jm.core.apply(p_opt, jnp.asarray(toks), method="text_forward")[0]
+        t_logits, _ = tm.core.text_forward(torch.tensor(toks, dtype=torch.int64))
+        np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=1e-4,
+                                   err_msg=str(opt))
     jm = JaxTransfusion(transformer=tcfg("dense"), add_pos_emb=True, **CFG)
     p_pos = jitter(jm.init_params(jax.random.PRNGKey(3)))
     tm = Transfusion(transformer=tcfg("flash"), add_pos_emb=True, device="cpu", **CFG)

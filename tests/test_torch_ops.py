@@ -133,11 +133,15 @@ def test_odeint_adaptive_not_ported():
 def test_single_stream_is_plain_residual():
     x = torch.tensor(X)
     s = thc.expand_stream(x)
-    branch, mixed = thc.HyperConnection()(s)
+    branch, mixed = thc.HyperConnection(16)(s)
     assert torch.equal(branch, x)
-    assert torch.equal(thc.reduce_stream(thc.HyperConnection()(mixed, x)), 2 * x)
-    with pytest.raises(NotImplementedError, match="hyper-connections"):
-        thc.HyperConnection(streams=2)
+    assert torch.equal(thc.reduce_stream(thc.HyperConnection(16)(mixed, x)), 2 * x)
+    # more streams are ported (tests/test_torch_laser_streams.py holds them
+    # against JAX): the JAX module's parameters, fracs splitting the channels
+    shapes = {k: tuple(p.shape) for k, p in thc.HyperConnection(16, streams=2, fracs=4)
+              .named_parameters()}
+    assert shapes == {"alpha_logit": (4, 2), "beta": (4, 2), "mix_logit": (4, 2, 2),
+                      "alpha_dyn_kernel": (4, 4), "alpha_dyn_scale": (4,)}
 
 
 def test_quantize_rows():

@@ -202,8 +202,9 @@ def test_trainer_steps_match_jax(tmp_path):
     # checkpoint round trip: the restored state takes the same next step
     ttr.save(state_t)
     restored = ttr.restore()
-    assert restored.step == 3 and restored.adam.count == 3 and restored.ema.step == 3
-    for a, b in ((restored.params, state_t.params), (restored.adam.nu, state_t.adam.nu),
+    adam_t, adam_r = state_t.opt_state[1], restored.opt_state[1]  # (clip, adam)
+    assert restored.step == 3 and adam_r["count"] == 3 and restored.ema.step == 3
+    for a, b in ((restored.params, state_t.params), (adam_r["nu"], adam_t["nu"]),
                  (restored.ema.params, state_t.ema.params)):
         assert all(torch.equal(a[k], b[k]) for k in b)
     draws = draws_from_key(jax.random.PRNGKey(9), packed)

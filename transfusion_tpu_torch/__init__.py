@@ -23,7 +23,14 @@ The port goes slice by slice (ROADMAP.md):
     pooled KV cache each, with the dispatch planners of `models/serving.py`
     (`plan_dispatch`, `plan_dispatch_mm`) choosing between them and static
     batching from a cost model `warmup()` fits on the card;
-    `training.metrics.MetricsLogger` logs their ticks.
+    `training.metrics.MetricsLogger` logs their ticks;
+  * image models: modality encoders / decoders, U-Net pre / post
+    projections, the axial position embedding, and the reconstruction and
+    velocity-consistency losses;
+  * the example recipes' options: LASER attention, multi-stream
+    hyper-connections, fused projections, the optimizers of
+    `training/optim.py` behind `Trainer(optimizer=)`, metrics and profiler
+    windows, `Transfusion.create_ema` and `muon_parameters`.
 
 Every TPU kernel on these paths has a hand-written CUDA kernel for
 `sm_90a` (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`: bf16 on the tensor

@@ -29,7 +29,8 @@
 // folded in, `:591-593`) is computed by the caller in PyTorch.
 //
 // What bounds it on the H100: operations. Five products of n x n x d per
-// head (s, dp, dv, dk, dq) over ~8 b h n d elements of traffic: at d >= 64
+// head (s, dp, dv, dk, dq; the bf16 kernel runs dv's twice, for p's hi and
+// lo halves) over ~8 b h n d elements of traffic: at d >= 64
 // and the long causal path that is far above the 295 FLOP/byte ridge. Once
 // the products run on the tensor cores, the per-pair float32 work (tanh,
 // exp, the chain rule, the mask) costs about as much as the products.
@@ -46,9 +47,10 @@
 //     RoPE, q and k go through registers instead (rotated in float32 and
 //     rounded to bf16 as the forward does; the partner column 2j^1 is in
 //     the same 16 bytes).
-//   * Every product is mma.sync m16n8k16 (bf16 -> float32), five per
-//     visible pair: s^T = K Q^T and dp^T = V dO^T; p^T and ds^T, rounded to
-//     bf16, are already the A operand of dV += p^T dO and dK += ds^T Q
+//   * Every product is mma.sync m16n8k16 (bf16 -> float32), six per
+//     visible pair: s^T = K Q^T and dp^T = V dO^T; p^T (as a bf16 pair hi +
+//     lo, two products) and ds^T (rounded to bf16) are already the A
+//     operand of dV += p^T dO and dK += ds^T Q
 //     (FlashAttention-2's register reuse; dO and Q read with
 //     ldmatrix.trans); ds^T goes to shared memory, and dQ += ds K of the q
 //     tile (ds read back transposed) is added into a float32 [b, h, nq, d]
@@ -717,11 +719,15 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
     else
       grads(std::true_type());
     // dV += p^T dO and dK += ds^T Q over the warp's DW columns: p^T and
-    // ds^T are A fragments as they stand
+    // ds^T are A fragments as they stand. p^T goes in as a bf16 pair hi +
+    // lo: rounded once, p's error reaches dV through dO, whose rows can
+    // span orders of magnitude (LASER's dO = g / O) and cancel, far beyond
+    // the rounding of dV itself
 #pragma unroll
     for (int j = 0; j < 8; j += 2) {
-      uint32_t pa[4], sa[4];
+      uint32_t pa[4], pl[4], sa[4];
       acc_to_a(pa, st[j], st[j + 1]);
+      acc_to_a_residual(pl, pa, st[j], st[j + 1]);
       acc_to_a(sa, dpt[j], dpt[j + 1]);
 #pragma unroll
       for (int c = 0; c < DW / 8; c += 2) {
@@ -729,7 +735,9 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
         ldsm_x4_t(of, ldsm_rows(Ob, LD, 8 * j, cw + 8 * c, lane));
         ldsm_x4_t(qf, ldsm_rows(Qb, LD, 8 * j, cw + 8 * c, lane));
         mma(dv[c], pa, of[0], of[1]);
+        mma(dv[c], pl, of[0], of[1]);
         mma(dv[c + 1], pa, of[2], of[3]);
+        mma(dv[c + 1], pl, of[2], of[3]);
         mma(dk[c], sa, qf[0], qf[1]);
         mma(dk[c + 1], sa, qf[2], qf[3]);
       }

@@ -95,6 +95,18 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// The A fragment of what `acc_to_a`'s rounding to `hi` left out of the same
+// C fragments: hi + lo carries each value to ~2^-16 of itself
+__device__ __forceinline__ void acc_to_a_residual(uint32_t (&lo)[4], const uint32_t (&hi)[4],
+                                                  const float (&c0)[4], const float (&c1)[4]) {
+  const float2 h0 = unpack_bf16(hi[0]), h1 = unpack_bf16(hi[1]);
+  const float2 h2 = unpack_bf16(hi[2]), h3 = unpack_bf16(hi[3]);
+  lo[0] = pack_bf16(c0[0] - h0.x, c0[1] - h0.y);
+  lo[1] = pack_bf16(c0[2] - h1.x, c0[3] - h1.y);
+  lo[2] = pack_bf16(c1[0] - h2.x, c1[1] - h2.y);
+  lo[3] = pack_bf16(c1[2] - h3.x, c1[3] - h3.y);
+}
+
 // 16 bytes from device to shared memory, asynchronously (L2 only); with
 // valid = false no byte is read and the 16 bytes are zero-filled
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {

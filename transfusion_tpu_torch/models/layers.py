@@ -23,9 +23,13 @@ from torch import nn
 from transfusion_tpu_torch.ops.decode_attn import decode_attention
 from transfusion_tpu_torch.ops.flash_attn import flash_attention, supported
 from transfusion_tpu_torch.ops.flash_attn_nhd import flash_attention_nhd, nhd_eligible
-from transfusion_tpu_torch.ops.norms import l2norm, max_neg_value, softclamp
+from transfusion_tpu_torch.ops.norms import l2norm, max_neg_value, safe_log, softclamp
 from transfusion_tpu_torch.ops.rope import apply_rope
 from transfusion_tpu_torch.ops.spans import span_allowed
+
+
+# LASER's clamp of the values before exp (the JAX `laser_softclamp_value`)
+LASER_SOFTCLAMP = 15.0
 
 
 def random_fourier_embed(times, dim: int, weights):
@@ -81,6 +85,13 @@ class Attention(nn.Module):
     value-residual mixing, per-head output gates, tanh softcap, interleaved
     RoPE, KV cache. forward returns (out, orig_values, new_cache).
 
+    `laser`: LASER attention, on every route: the attention reads the
+    values as exp(softclamp(v, LASER_SOFTCLAMP)) and its output is
+    taken back with safe_log; the value residual and the cache keep v
+    itself. `fuse_projections`: to_qk, to_v, to_value_residual_mix and
+    to_gates run as one product over their concatenated weights (the same
+    parameters; the mix bias is added after it).
+
     Routes (as `transfusion_tpu.models.layers.Attention`):
       * uncached with a flash spec, inside `nhd_eligible(h, n, d)` (the
         training step at the bench shape) -> the token-major route:
@@ -96,12 +107,15 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  softcap_value: float = 50.0, gate_values: bool = True,
-                 learned_value_residual_mix: bool = False, attn_impl: str = "dense"):
+                 learned_value_residual_mix: bool = False, attn_impl: str = "dense",
+                 laser: bool = False, fuse_projections: bool = False):
         super().__init__()
         inner = dim_head * heads
         self.heads, self.dim_head = heads, dim_head
         self.softcap_value = softcap_value
         self.attn_impl = attn_impl
+        self.laser = laser
+        self.fuse_projections = fuse_projections
         self.to_qk = nn.Linear(dim, inner * 2, bias=False)
         self.to_v = nn.Linear(dim, inner, bias=False)
         self.to_value_residual_mix = (
@@ -114,7 +128,30 @@ class Attention(nn.Module):
         b, n, _ = t.shape
         return t.view(b, n, self.heads, self.dim_head).transpose(1, 2)
 
-    def _forward_nhd(self, x, q, k, v, rope, value_residual, flash_spec):
+    def _project(self, x):
+        """(q, k, v, mix logits | None, gate logits | None), each [b, n, *]."""
+        h, inner = self.heads, self.heads * self.dim_head
+        mix, gates = self.to_value_residual_mix, self.to_gates
+        if not self.fuse_projections:
+            q, k = self.to_qk(x).chunk(2, dim=-1)
+            return (q, k, self.to_v(x), None if mix is None else mix(x),
+                    None if gates is None else gates(x))
+        mods = [m for m in (self.to_qk, self.to_v, mix, gates) if m is not None]
+        y = F.linear(x, torch.cat([m.weight for m in mods]))
+        q, k, v = y[..., :inner], y[..., inner:2 * inner], y[..., 2 * inner:3 * inner]
+        off = 3 * inner
+        mix_pre = gates_pre = None
+        if mix is not None:
+            mix_pre = y[..., off:off + h] + mix.bias
+            off += h
+        if gates is not None:
+            gates_pre = y[..., off:off + h]
+        return q, k, v, mix_pre, gates_pre
+
+    def _laser_values(self, v):
+        return torch.exp(softclamp(v, LASER_SOFTCLAMP)) if self.laser else v
+
+    def _forward_nhd(self, x, q, k, v, mix_pre, gates_pre, rope, value_residual, flash_spec):
         """The token-major route (JAX `layers.py:236-286`): q/k/v and the
         value residual stay [b, n, h*d]; per-head mix and gates are repeated
         over each head's d columns."""
@@ -122,8 +159,8 @@ class Attention(nn.Module):
         d = self.dim_head
         orig_v = v
         if value_residual is not None:
-            if self.to_value_residual_mix is not None:
-                mix = torch.sigmoid(self.to_value_residual_mix(x)).repeat_interleave(d, dim=-1)
+            if mix_pre is not None:
+                mix = torch.sigmoid(mix_pre).repeat_interleave(d, dim=-1)
             else:
                 mix = 0.5
             v = v * mix + value_residual * (1.0 - mix)
@@ -132,27 +169,30 @@ class Attention(nn.Module):
             ang = (rope if rope.ndim > 2 else rope[None]).float().expand(b, n, d)
             cos, sin = torch.cos(ang), torch.sin(ang)
         out = flash_attention_nhd(
-            q, k, v, self.heads, cos=cos, sin=sin, spans=flash_spec.get("spans"),
-            causal=flash_spec.get("causal", False), softcap=self.softcap_value,
+            q, k, self._laser_values(v), self.heads, cos=cos, sin=sin,
+            spans=flash_spec.get("spans"), causal=flash_spec.get("causal", False),
+            softcap=self.softcap_value,
         )
-        if self.to_gates is not None:
-            out = out * torch.sigmoid(self.to_gates(x)).repeat_interleave(d, dim=-1)
+        if self.laser:
+            out = safe_log(out)
+        if gates_pre is not None:
+            out = out * torch.sigmoid(gates_pre).repeat_interleave(d, dim=-1)
         return self.to_out(out), orig_v, None
 
     def forward(self, x, mask=None, rope=None, cache=None, value_residual=None,
                 flash_spec=None, decode_bias=None, decode_lens=None, prefill=False):
         b, n, _ = x.shape
-        q, k = self.to_qk(x).chunk(2, dim=-1)
-        v = self.to_v(x)
+        q, k, v, mix_pre, gates_pre = self._project(x)
         uncached_flash = flash_spec is not None and self.attn_impl == "flash" and cache is None
         if uncached_flash and decode_bias is None and nhd_eligible(self.heads, n, self.dim_head):
-            return self._forward_nhd(x, q, k, v, rope, value_residual, flash_spec)
+            return self._forward_nhd(x, q, k, v, mix_pre, gates_pre, rope, value_residual,
+                                     flash_spec)
         q, k, v = (self._split_heads(t) for t in (q, k, v))
         orig_v = v
 
         if value_residual is not None:
-            if self.to_value_residual_mix is not None:
-                mix = torch.sigmoid(self.to_value_residual_mix(x)).transpose(1, 2)[..., None]
+            if mix_pre is not None:
+                mix = torch.sigmoid(mix_pre).transpose(1, 2)[..., None]
             else:
                 mix = 0.5
             v = v * mix + value_residual * (1.0 - mix)
@@ -190,7 +230,7 @@ class Attention(nn.Module):
             cache is not None or supported(n, self.dim_head)
         ):
             out = flash_attention(
-                q, k_full, v_full, spans=flash_spec.get("spans"),
+                q, k_full, self._laser_values(v_full), spans=flash_spec.get("spans"),
                 causal=flash_spec.get("causal", False), softcap=self.softcap_value,
             )
         else:
@@ -207,10 +247,13 @@ class Attention(nn.Module):
             if mask is not None:
                 sim = sim.masked_fill(~mask, max_neg_value(torch.float32))
             attn = torch.softmax(sim, dim=-1)
-            out = torch.matmul(attn.to(v_full.dtype).float(), v_full.float()).to(x.dtype)
+            v_att = self._laser_values(v_full)
+            out = torch.matmul(attn.to(v_att.dtype).float(), v_att.float()).to(x.dtype)
 
-        if self.to_gates is not None:
-            out = out * torch.sigmoid(self.to_gates(x)).transpose(1, 2)[..., None]
+        if self.laser:
+            out = safe_log(out)
+        if gates_pre is not None:
+            out = out * torch.sigmoid(gates_pre).transpose(1, 2)[..., None]
         out = out.transpose(1, 2).reshape(b, n, -1)
         return self.to_out(out), orig_v, new_cache
 
@@ -263,7 +306,9 @@ class AdaptiveWrapper(nn.Module):
         nn.init.constant_(self.to_ada_ln_zero.bias, ada_ln_zero_init_bias)
 
     def forward(self, fn, x, cond=None, cond_index=None, is_any_modality=None, **kwargs):
-        dtype = x.dtype
+        # the compute dtype is the wrapper's own (flax's `dtype=`): a float32
+        # stream of a multi-stream bf16 model enters the branch in bf16
+        dtype = self.layerscale.dtype
         x_ln = F.layer_norm(x.float(), (self.dim,), eps=1e-5).to(dtype)
         gamma_ln = self.layernorm_gamma.to(dtype)
         layerscale = self.layerscale.to(dtype)

@@ -5,9 +5,11 @@ and `plan_dispatch_mm` with their wall-clock estimators.
 The JAX package picks the decode path and the KV dtype from crossovers
 measured on its own accelerator. Those do not carry over to the H100, and
 the port has not measured its own yet (queued in ROADMAP.md). Until it
-does, the plan decides only the KV dtype: int8 when the caller passes
-`kv_quantize=True`. Every kernel-eligible cached step goes to the decode
-kernel; `Transformer._use_decode_kernel` decides eligibility per call.
+does, the plan excludes the decode kernel only where the JAX plan does for
+structure (a model that is not 'flash', or LASER), and the KV dtype is
+int8 only when the caller passes `kv_quantize=True`. Every other
+kernel-eligible cached step goes to the decode kernel;
+`Transformer._use_decode_kernel` decides eligibility per call.
 
 The dispatch planners are pure Python and return what the JAX planners
 return for the same arguments. Their default costs are the card's:
@@ -27,19 +29,37 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class ServingPlan:
-    """kv_quantize: int8 cache. reason: one clause, for logs."""
+    """use_decode_kernel: cached steps may take the decode kernel.
+    kv_quantize: int8 cache. reasons: one clause per decision, for logs."""
 
+    use_decode_kernel: bool
     kv_quantize: bool
-    reason: str
+    reasons: tuple
 
 
-def plan_serving(cache_capacity: int, batch: int, *,
+def plan_serving(cache_capacity: int, batch: int, *, laser: bool = False, flash: bool = True,
                  kv_quantize: Optional[bool] = None) -> ServingPlan:
+    """The decode route and KV dtype of a serving workload. The exclusions
+    and their reasons are the JAX `plan_serving`'s; without a measured
+    H100 crossover an eligible model keeps the kernel at any capacity."""
     quantize = bool(kv_quantize)
-    return ServingPlan(quantize, (
-        f"{'int8 KV: requested' if quantize else 'bf16/f32 KV: int8 not requested'} "
-        f"(cap {cache_capacity}, batch {batch}; H100 crossovers not measured yet)"
-    ))
+    excluded = None
+    if not flash:
+        excluded = "attn_impl != 'flash'"
+    elif laser:
+        excluded = "LASER attention (needs per-value renorm the kernel lacks)"
+    if excluded is not None:
+        reasons = [f"decode kernel excluded: {excluded}"]
+    else:
+        reasons = [f"decode kernel: every eligible cached step (cap {cache_capacity}, "
+                   f"batch {batch}; H100 crossovers not measured yet)"]
+    if quantize:
+        reasons.append("int8 KV: requested")
+    elif excluded is not None:
+        reasons.append("bf16 KV: int8 only wins via the in-kernel dequant")
+    else:
+        reasons.append("bf16/f32 KV: int8 not requested")
+    return ServingPlan(excluded is None, quantize, tuple(reasons))
 
 
 # ---------------------------------------------------------------------------

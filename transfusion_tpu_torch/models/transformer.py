@@ -1,14 +1,18 @@
 """The Transfusion transformer stack (counterpart of
 `transfusion_tpu/models/transformer.py`): random-fourier time conditioning,
 per-block adaLN wrappers, U-Net skips, value residual from the first layer,
-and a preallocated KV cache that prefill and decode share.
+multi-stream hyper-connections (`num_residual_streams`, `num_residual_fracs`;
+a U-Net skip keeps the whole stream tensor), LASER attention (`attn_laser`),
+one fused projection product per attention (`fuse_projections`), and a
+preallocated KV cache that prefill and decode share.
 
 Routing of a cached call (the same decisions as the JAX `Transformer`):
   * prefill (`prefill=True`, attn_impl 'flash', causal and/or spans): the
     flash kernel over the chunk alone; the cache is written;
   * a decode step whose mask reduces to per-slot validity (no spans, and
     causality only through the write index, i.e. single-token text steps or
-    non-causal modality rows): the decode kernel over the cache, with an
+    non-causal modality rows), in a model without LASER: the decode kernel
+    over the cache, with an
     additive bias built from the cache mask and per-row bounds lens = idx + n;
   * anything else: the dense cached path with an explicit boolean mask.
 
@@ -97,27 +101,35 @@ def cache_mark_valid(cache: dict, new_valid):
 
 
 class TransformerBlock(nn.Module):
-    """One (skip? -> attention -> feedforward) layer."""
+    """One (skip? -> attention -> feedforward) layer over the residual
+    streams s [streams, b, n, dim]. Its hyper-connections are anchored at
+    layer indices 2 * ind (attention) and 2 * ind + 1 (feedforward), as in
+    the JAX block."""
 
     def __init__(self, dim, dim_head, heads, ff_expansion_factor, attn_softcap,
-                 attn_gate_values, attn_impl, streams, is_first, has_skip):
+                 attn_gate_values, attn_impl, attn_laser, fuse_projections, streams, fracs,
+                 ind, is_first, has_skip):
         super().__init__()
         self.skip_proj = nn.Linear(dim * 2, dim, bias=False) if has_skip else None
         self.attn = Attention(
             dim=dim, dim_head=dim_head, heads=heads, softcap_value=attn_softcap,
             gate_values=attn_gate_values, learned_value_residual_mix=not is_first,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, laser=attn_laser, fuse_projections=fuse_projections,
         )
         self.ff = FeedForward(dim, ff_expansion_factor)
         self.attn_ada = AdaptiveWrapper(dim, dim * 4)
         self.ff_ada = AdaptiveWrapper(dim, dim * 4)
-        self.hc_attn = HyperConnection(streams)
-        self.hc_ff = HyperConnection(streams)
+        self.hc_attn = HyperConnection(dim, streams, fracs, layer_index=2 * ind)
+        self.hc_ff = HyperConnection(dim, streams, fracs, layer_index=2 * ind + 1)
 
     def forward(self, s, skip, cond, cond_index, mask, rope, is_any_modality,
                 value_residual, layer_cache, flash_spec, decode_bias, decode_lens, prefill):
         if self.skip_proj is not None and skip is not None:
-            s = self.skip_proj(torch.cat([s, skip], dim=-1)) + s
+            # the projection runs in its weight's dtype (flax's Dense(dtype=)
+            # casts its input); the float32 streams of a multi-stream bf16
+            # model keep their dtype through the residual
+            cat = torch.cat([s, skip], dim=-1)
+            s = self.skip_proj(cat.to(self.skip_proj.weight.dtype)) + s
         ada = dict(cond=cond, cond_index=cond_index, is_any_modality=is_any_modality)
 
         branch, s_mixed = self.hc_attn(s)
@@ -150,6 +162,7 @@ class Transformer(nn.Module):
                  num_residual_streams: int = 1, attn_impl: str = "dense",
                  attn_softcap: float = 50.0, attn_gate_values: bool = True,
                  rope_theta: float = 10000.0, attn_laser: bool = False,
+                 num_residual_fracs: int = 4, fuse_projections: bool = False,
                  dropout: float = 0.0, remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         if dropout > 0:
@@ -159,11 +172,6 @@ class Transformer(nn.Module):
             )
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={remat_policy!r} (one of {REMAT_POLICIES})")
-        if attn_laser:
-            raise NotImplementedError(
-                "attn_laser=True: LASER attention is queued in ROADMAP.md "
-                "(Queue 1, 'LASER'); the port runs softmax attention"
-            )
         if attn_impl not in ("dense", "flash"):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r}: context-parallel attention is "
@@ -175,6 +183,7 @@ class Transformer(nn.Module):
         self.unet_skips = unet_skips
         self.streams = num_residual_streams
         self.attn_impl = attn_impl
+        self.attn_laser = attn_laser
         self.rope_theta = rope_theta
         self.remat, self.remat_policy = remat, remat_policy
         # fixed (non-trainable) frequencies of the time embedding; from_flax
@@ -184,7 +193,8 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(
                 dim, dim_head, heads, ff_expansion_factor, attn_softcap,
-                attn_gate_values, attn_impl, num_residual_streams,
+                attn_gate_values, attn_impl, attn_laser, fuse_projections,
+                num_residual_streams, num_residual_fracs, ind,
                 is_first=ind == 0, has_skip=unet_skips and ind >= depth / 2,
             )
             for ind in range(depth)
@@ -193,16 +203,23 @@ class Transformer(nn.Module):
 
     def _use_decode_kernel(self, cache, prefill, spans, causal, n):
         """A cached step goes to the decode kernel when its mask reduces to
-        per-slot validity. Exclusions are logged so a silently dense serving
-        path is visible."""
+        per-slot validity and the model is not LASER (the kernel reads v
+        itself, not exp(v)). Exclusions are logged so a silently dense
+        serving path is visible."""
         if cache is None or prefill or self.attn_impl != "flash":
             return False
+
+        def excluded(why):
+            _logger.info("decode kernel excluded for this cached step (%s) — "
+                         "falling back to the dense cached path", why)
+            return False
+
+        if self.attn_laser:
+            return excluded("LASER attention")
         if spans is not None:
-            _logger.info("decode kernel excluded: structural span mask")
-            return False
+            return excluded("structural span/attention mask")
         if causal and n != 1:
-            _logger.info("decode kernel excluded: multi-token causal chunk (n=%d)", n)
-            return False
+            return excluded(f"multi-token causal chunk (n={n})")
         return decode_supported(self.dim_head, n)
 
     def _remat_block(self, block, *args):

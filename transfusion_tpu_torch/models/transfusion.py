@@ -194,6 +194,11 @@ class TransfusionCore(nn.Module):
         parameter dict."""
         return getattr(self, method)(*args, **kwargs)
 
+    def text_logits(self, embed):
+        """The logits head, in the compute dtype (a multi-stream bf16
+        model's transformer output is float32, as in flax)."""
+        return self.to_text_logits(embed.to(self.dtype))
+
     def embed_text(self, text):
         return self.text_embed(text.clamp_min(0)).to(self.dtype)
 
@@ -246,7 +251,7 @@ class TransfusionCore(nn.Module):
         return x, spans_to_rotary_positions(n, spans), group_rows
 
     def joint_out(self, embed, packed, times, group_rows, return_logits: bool = True):
-        logits = self.to_text_logits(embed) if return_logits else None
+        logits = self.text_logits(embed) if return_logits else None
         pred_flows = []
         for g, noised_rows in zip(packed.groups, group_rows):
             idx = g.offsets[:, None] + torch.arange(g.seq_len, device=embed.device)[None, :]
@@ -280,7 +285,7 @@ class TransfusionCore(nn.Module):
         embed, new_cache = self.transformer(
             x, times=times_tok, rotary_pos=rotary_pos, cache=cache, is_any_modality=False,
         )
-        return self.to_text_logits(embed), new_cache
+        return self.text_logits(embed), new_cache
 
     def decode_modality_rows(self, latents, t, rotary_pos, cache, modality_type: int):
         """Cached forward of one modality's rows (the ODE tail). latents
@@ -310,7 +315,7 @@ class TransfusionCore(nn.Module):
             self.embed_text(text), causal=True, rotary_pos=rotary_pos,
             cache=cache, prefill=prefill,
         )
-        return self.to_text_logits(embed), new_cache
+        return self.text_logits(embed), new_cache
 
     def modality_forward(self, noised, times, modality_type: int):
         """The flow-matching forward of one modality alone (JAX
@@ -469,6 +474,10 @@ class Transfusion:
         for module in (self.core.latent_to_model, self.core.model_to_latent,
                        self.core.pos_emb_mlps):
             module.float()
+        # so do the hyper-connections' weights (the JAX module has no dtype)
+        for block in self.core.transformer.blocks:
+            block.hc_attn.float()
+            block.hc_ff.float()
         self._param_dtypes = {k: p.dtype for k, p in self.core.named_parameters()}
 
     def _norm_aux(self, x) -> list:
@@ -594,6 +603,22 @@ class Transfusion:
         outside it; a pre/post projection is part of it)."""
         return dict(self.core.named_parameters())
 
+    def create_ema(self, params: Optional[dict] = None, beta: float = 0.99, **kwargs):
+        """An `EMA` of `params` (default: the model's weights); its samplers
+        run the model on the EMA weights."""
+        from transfusion_tpu_torch.training.ema import EMA
+
+        return EMA(self, default(params, self.parameters_without_encoder_decoder()),
+                   beta=beta, **kwargs)
+
+    def muon_parameters(self, params: Optional[dict] = None) -> list:
+        """The names of the parameters that `muon_param_mask` hands to Muon
+        (the JAX mask's selection, `to_value_residual_mix` included)."""
+        from transfusion_tpu_torch.training.optim import muon_param_mask
+
+        mask = muon_param_mask(default(params, self.parameters_without_encoder_decoder()))
+        return [k for k, m in mask.items() if m]
+
     def _ids(self, x):
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=torch.int64)
@@ -608,8 +633,11 @@ class Transfusion:
         )
 
     def _plan(self, cap, batch, kv_quantize):
-        plan = plan_serving(cap, batch, kv_quantize=kv_quantize)
-        logger.debug("serving plan: %s", plan.reason)
+        cfg = self.transformer_cfg
+        plan = plan_serving(cap, batch, laser=bool(cfg.get("attn_laser", False)),
+                            flash=cfg.get("attn_impl", "dense") == "flash",
+                            kv_quantize=kv_quantize)
+        logger.debug("serving plan: %s", "; ".join(plan.reasons))
         return plan
 
     # ------------------------------------------------------------------
@@ -868,11 +896,18 @@ class Transfusion:
     # `forward_modality`, `forward`, `transfusion.py:1214-1404`)
     # ------------------------------------------------------------------
 
-    def _text_loss_impl(self, text):
+    def _text_loss_impl(self, text, params=None):
         """Next-token CE of text Int[b, n] over the text vocabulary, mean
-        over the labels that are not ignore_index."""
+        over the labels that are not ignore_index; on `params` (a parameter
+        dict, cast by `_compute_params`) when given, else on the module's
+        weights."""
         inp, labels = text[:, :-1], text[:, 1:]
-        logits = self.core.text_forward(inp)[0].float()
+        if params is None:
+            logits = self.core.text_forward(inp)[0]
+        else:
+            logits = torch.func.functional_call(self.core, self._compute_params(params), (inp,),
+                                                {"method": "text_forward"})[0]
+        logits = logits.float()
         text_only = torch.arange(self.vocab_size, device=logits.device) < self.num_text_tokens
         logits = torch.where(text_only, logits, max_neg_value(torch.float32))
         logp = torch.log_softmax(logits, dim=-1)
@@ -1288,7 +1323,7 @@ class Transfusion:
         b, m = packed.batch, packed.spans.shape[1]
         times = torch.ones((b, m), device=self.device)
         _, embed, _, _, _ = self.core.joint(packed, times, return_logits=False)
-        last = self.core.to_text_logits(embed[0, packed.lengths[0] - 1]).float()
+        last = self.core.text_logits(embed[0, packed.lengths[0] - 1]).float()
         return gumbel_sample(min_p_filter(last, min_p), temperature, generator)
 
     def _sample_ode_impl(self, packed, noise, cfg_scale, *, gi, row_cond, row_uncond,

@@ -126,9 +126,9 @@ def backward_plain_f32(q, k, v, do, lse, delta, spans=None, softcap=50.0, q_offs
     again. Returns float32 (dq, dk, dv). block_q: block_q query rows at a
     time, dk and dv summed over the blocks in float32. round_operands (a
     dtype, e.g. torch.bfloat16): the bf16 kernel's rounding instead, for
-    measuring its error budget: p and ds rounded to that dtype before the
-    dv/dk/dq products, q unscaled in the products and the scale applied to
-    the float32 results."""
+    measuring its error budget: p as a pair hi + lo of that dtype in the dv
+    product, ds rounded to it before the dk/dq products, q unscaled in the
+    products and the scale applied to the float32 results."""
     if block_q is not None and block_q < q.shape[2]:
         dqs, dk, dv = [], 0.0, 0.0
         for i in range(0, q.shape[2], block_q):
@@ -159,7 +159,9 @@ def backward_plain_f32(q, k, v, do, lse, delta, spans=None, softcap=50.0, q_offs
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * chain
     if round_operands is not None:
-        p, ds = p.to(round_operands).float(), ds.to(round_operands).float()
+        hi = p.to(round_operands).float()
+        p = hi + (p - hi).to(round_operands).float()
+        ds = ds.to(round_operands).float()
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dq = torch.matmul(ds, kf) * scale

@@ -19,43 +19,28 @@ The step counters are host integers (no device sync).
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
-
-@dataclasses.dataclass(frozen=True)
-class AdamState:
-    mu: dict
-    nu: dict
-    count: int
+from transfusion_tpu_torch.training.optim import _bias_correction, global_norm
 
 
-def init_adam(params: dict) -> AdamState:
-    return AdamState(mu={k: torch.zeros_like(p) for k, p in params.items()},
-                     nu={k: torch.zeros_like(p) for k, p in params.items()}, count=0)
-
-
-def global_norm(grads: list):
-    """The L2 norm over every leaf (the norm of the per-leaf norms)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-
-
-def fused_clip_adam_ema(grads: dict, params: dict, adam: AdamState, ema_params: dict,
+def fused_clip_adam_ema(grads: dict, params: dict, adam: dict, ema_params: dict,
                         ema_step: int, *, learning_rate: float, grad_clip_norm,
                         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                         ema_beta: float = 0.99, ema_update_every: int = 10,
                         ema_update_after_step: int = 100):
-    """Returns (new_params, new AdamState, new_ema_params, grad_norm); every
-    dict has params' keys, and grads must hold one tensor per key."""
+    """`adam` is the state of `training.optim.adam` ({"count", "mu",
+    "nu"}). Returns (new_params, new adam state, new_ema_params,
+    grad_norm); every dict has params' keys, and grads must hold one tensor
+    per key."""
     keys = list(params)
     g = [grads[k] for k in keys]
     p = [params[k] for k in keys]
-    mu = [adam.mu[k] for k in keys]
-    nu = [adam.nu[k] for k in keys]
+    mu = [adam["mu"][k] for k in keys]
+    nu = [adam["nu"][k] for k in keys]
     e = [ema_params[k] for k in keys]
 
-    g_norm = global_norm(g)
+    g_norm = global_norm(grads)
     if grad_clip_norm is not None:
         # select(norm < c, g, (g / norm) * c): dividing by 1 and multiplying
         # by 1 below the threshold leaves g exact
@@ -65,10 +50,8 @@ def fused_clip_adam_ema(grads: dict, params: dict, adam: AdamState, ema_params: 
                           torch.full_like(g_norm, grad_clip_norm))
         g = torch._foreach_mul(torch._foreach_div(g, denom), mul)
 
-    count = adam.count + 1
-    f32 = torch.float32
-    c1 = float(1 - torch.tensor(b1, dtype=f32) ** count)
-    c2 = float(1 - torch.tensor(b2, dtype=f32) ** count)
+    count = adam["count"] + 1
+    c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
 
     mu_n = torch._foreach_add(torch._foreach_mul(g, 1 - b1), torch._foreach_mul(mu, b1))
     nu_n = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
@@ -90,5 +73,5 @@ def fused_clip_adam_ema(grads: dict, params: dict, adam: AdamState, ema_params: 
     def as_dict(xs):
         return dict(zip(keys, xs))
 
-    return (as_dict(p_n), AdamState(mu=as_dict(mu_n), nu=as_dict(nu_n), count=count),
+    return (as_dict(p_n), {"count": count, "mu": as_dict(mu_n), "nu": as_dict(nu_n)},
             as_dict(e_n), g_norm)

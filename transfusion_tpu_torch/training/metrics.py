@@ -1,14 +1,23 @@
-"""Structured metrics logging (counterpart of `MetricsLogger` in
-`transfusion_tpu/training/metrics.py`): a JSONL stream of (step, wall time,
-scalars) rows with an in-memory history and EWMA summaries. The serving
-engines' `metrics=` argument logs one row a tick to it."""
+"""Observability (counterpart of `transfusion_tpu/training/metrics.py`):
+
+  * `MetricsLogger`: a JSONL stream of (step, wall time, scalars) rows with
+    an in-memory history and EWMA summaries. The serving engines'
+    `metrics=` argument logs one row a tick to it; the `Trainer` one row a
+    step;
+  * `ProfilerHook`: a `torch.profiler` trace (CPU, and CUDA where there is
+    a card) of a window of training steps, written to a directory as a
+    Chrome trace.
+"""
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 
 class MetricsLogger:
@@ -51,3 +60,29 @@ class MetricsLogger:
     def close(self):
         if self._fh:
             self._fh.close()
+
+
+class ProfilerHook:
+    """Trace steps [start_step, start_step + num_steps): call it with the
+    step about to run; the trace goes to
+    `logdir/trace_steps_{start}-{stop}.json` when the window closes."""
+
+    def __init__(self, logdir: str, start_step: int = 10, num_steps: int = 3):
+        self.logdir = logdir
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self._prof = None
+
+    def __call__(self, step: int):
+        if step == self.start_step and self._prof is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.__enter__()
+        elif step >= self.stop_step and self._prof is not None:
+            self._prof.__exit__(None, None, None)
+            os.makedirs(self.logdir, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(
+                self.logdir, f"trace_steps_{self.start_step}-{self.stop_step}.json"))
+            self._prof = None

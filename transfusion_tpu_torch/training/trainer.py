@@ -1,9 +1,16 @@
-"""Trainer: the joint training step with clip + Adam + EMA, and checkpoints
-(counterpart of `transfusion_tpu/training/trainer.py` with its default
-fused update).
+"""Trainer: the joint training step with gradient clipping, an optimizer
+and the EMA, metrics, a profiler window and checkpoints (counterpart of
+`transfusion_tpu/training/trainer.py`).
 
-The state holds float32 master weights, Adam moments and the EMA copy as
-dicts keyed by the core's parameter names. Each step casts the masters to
+The optimizer is `chain(clip_by_global_norm(grad_clip_norm), optimizer)`
+(`training/optim.py`; `optimizer` defaults to `adam(learning_rate)`). With
+the default optimizer and a constant learning rate the step takes the fused
+clip + Adam + EMA pass (`training/fused_update.py`; `fused_update=`
+overrides), else `update` -> `apply_updates` -> `ema_update`; grad_norm is
+the global norm of the raw gradients either way.
+
+The state holds float32 master weights, the optimizer's state and the EMA
+copy, keyed by the core's parameter names. Each step casts the masters to
 the model's compute dtype inside the autograd graph (`Transfusion.loss`
 with `params=`), so the gradients arrive in float32, as they do for flax
 modules with `dtype=bf16` over float32 params. The model's own module
@@ -23,6 +30,11 @@ t + delta (the JAX `Trainer`'s `state.ema.params`).
 Ragged batches are encoded (`Transfusion.encode_modalities`) before they
 are packed, each microbatch on its own under grad accumulation.
 
+`metrics_path` logs every step's metrics and packed tokens as JSONL
+(`MetricsLogger`); `profile_logdir` writes a `torch.profiler` trace of
+steps [profile_start_step, profile_start_step + profile_num_steps)
+(`ProfilerHook`).
+
 Randomness: `train_step` takes the loss's draws (`LossDraws`, or a list of
 M of them) or makes them from a `torch.Generator`. Not ported yet
 (ROADMAP.md): meshes, pipeline parallelism.
@@ -33,24 +45,22 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from transfusion_tpu_torch.data.packing import PackedBatch
-from transfusion_tpu_torch.training.ema import EmaState, init_ema
-from transfusion_tpu_torch.training.fused_update import (
-    AdamState,
-    fused_clip_adam_ema,
-    init_adam,
-)
+from transfusion_tpu_torch.training import optim
+from transfusion_tpu_torch.training.ema import EmaState, ema_update, init_ema
+from transfusion_tpu_torch.training.fused_update import fused_clip_adam_ema
+from transfusion_tpu_torch.training.metrics import MetricsLogger, ProfilerHook
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainState:
     params: dict  # float32 master weights
-    adam: AdamState
+    opt_state: Any  # the optimizer chain's state (`training/optim.py`)
     ema: EmaState
     step: int
 
@@ -60,29 +70,45 @@ def _queued(what: str, item: str):
 
 
 class Trainer:
-    def __init__(self, model, learning_rate: float = 3e-4, grad_clip_norm: Optional[float] = 0.5,
+    def __init__(self, model, optimizer: Optional[optim.GradientTransformation] = None,
+                 learning_rate=3e-4, grad_clip_norm: Optional[float] = 0.5,
                  ema_beta: float = 0.99, ema_update_every: int = 10,
                  ema_update_after_step: int = 100, mesh=None,
                  velocity_consistency: bool = False,
                  velocity_consistency_delta_time: float = 1e-3,
-                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None, metrics_path: Optional[str] = None,
+                 profile_logdir: Optional[str] = None, profile_start_step: int = 10,
+                 profile_num_steps: int = 3,
                  pipeline_microbatches: Optional[int] = None,
-                 grad_accumulation: Optional[int] = None):
+                 grad_accumulation: Optional[int] = None,
+                 fused_update: Optional[bool] = None):
         if mesh is not None:
             _queued("mesh sharding", "Queue 1 item 9, parallelism")
         if pipeline_microbatches is not None:
             _queued("pipeline parallelism", "Queue 1 item 9, parallelism")
         if grad_accumulation is not None and grad_accumulation < 2:
             raise ValueError("grad_accumulation must be >= 2 (None disables it)")
+        if fused_update is None:
+            fused_update = optimizer is None and isinstance(learning_rate, (int, float))
+        if fused_update and optimizer is not None:
+            raise ValueError("fused_update runs clip + Adam only; it takes no optimizer")
         self.model = model
         self.velocity_consistency = velocity_consistency
         self.velocity_delta = velocity_consistency_delta_time
         self.learning_rate = learning_rate
         self.grad_clip_norm = grad_clip_norm
-        self.ema_cfg = dict(ema_beta=ema_beta, ema_update_every=ema_update_every,
-                            ema_update_after_step=ema_update_after_step)
+        tx = optimizer or optim.adam(learning_rate)
+        if grad_clip_norm is not None:
+            tx = optim.chain(optim.clip_by_global_norm(grad_clip_norm), tx)
+        self.tx = tx
+        self.fused_update = fused_update
+        self.ema_cfg = dict(beta=ema_beta, update_every=ema_update_every,
+                            update_after_step=ema_update_after_step)
         self.checkpoint_dir = checkpoint_dir
         self.grad_accumulation = grad_accumulation
+        self.metrics = MetricsLogger(metrics_path) if metrics_path else None
+        self.profiler = (ProfilerHook(profile_logdir, profile_start_step, profile_num_steps)
+                         if profile_logdir else None)
 
     def init_state(self, params: Optional[dict] = None) -> TrainState:
         """Masters from `params` (a state dict, e.g. `weights.from_flax`'s;
@@ -92,7 +118,8 @@ class Trainer:
         src = params if params is not None else dict(self.model.core.named_parameters())
         masters = {k: src[k].detach().to(device=self.model.device, dtype=torch.float32).clone()
                    for k in names}
-        return TrainState(params=masters, adam=init_adam(masters), ema=init_ema(masters), step=0)
+        return TrainState(params=masters, opt_state=self.tx.init(masters),
+                          ema=init_ema(masters), step=0)
 
     def _packed(self, batch):
         model = self.model
@@ -149,17 +176,29 @@ class Trainer:
                 parts[f"{name}_loss_{i}"] = x.detach()
         return parts
 
-    def _apply(self, state: TrainState, grads, loss, parts: dict):
-        """The fused clip + Adam + EMA update; returns (new state, metrics)."""
-        params, adam, ema_params, grad_norm = fused_clip_adam_ema(
-            grads, state.params, state.adam, state.ema.params, state.ema.step,
-            learning_rate=self.learning_rate, grad_clip_norm=self.grad_clip_norm,
-            **self.ema_cfg,
-        )
-        new_state = TrainState(params=params, adam=adam,
-                               ema=EmaState(params=ema_params, step=state.ema.step + 1),
-                               step=state.step + 1)
-        return new_state, {"loss": loss, "grad_norm": grad_norm, **parts}
+    def _apply(self, state: TrainState, grads, loss, parts: dict, tokens: int):
+        """The update (fused, or the optimizer chain then the EMA); logs the
+        metrics when `metrics_path` is set. Returns (new state, metrics)."""
+        if self.fused_update:
+            clipped = self.grad_clip_norm is not None
+            adam = state.opt_state[1] if clipped else state.opt_state
+            params, adam, ema_params, grad_norm = fused_clip_adam_ema(
+                grads, state.params, adam, state.ema.params, state.ema.step,
+                learning_rate=self.learning_rate, grad_clip_norm=self.grad_clip_norm,
+                **{f"ema_{k}": v for k, v in self.ema_cfg.items()},
+            )
+            opt_state = (state.opt_state[0], adam) if clipped else adam
+            ema = EmaState(params=ema_params, step=state.ema.step + 1)
+        else:
+            grad_norm = optim.global_norm(grads)
+            updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
+            params = optim.apply_updates(state.params, updates)
+            ema = ema_update(state.ema, params, **self.ema_cfg)
+        new_state = TrainState(params=params, opt_state=opt_state, ema=ema, step=state.step + 1)
+        metrics = {"loss": loss, "grad_norm": grad_norm, **parts}
+        if self.metrics is not None:
+            self.metrics.log(new_state.step, metrics, tokens=tokens)
+        return new_state, metrics
 
     def train_step(self, state: TrainState, batch, draws=None, generator=None):
         """One optimizer step on a ragged batch (list of samples) or a
@@ -168,13 +207,16 @@ class Trainer:
         metrics): loss, grad_norm and `_loss_parts` (text_loss,
         flow_loss_{i}, velocity_loss_{i}, recon_loss_{i}), as 0-d tensors on
         the device."""
+        if self.profiler is not None:
+            self.profiler(state.step)
         if self.grad_accumulation is not None:
             return self._train_step_accum(state, batch, draws, generator)
         packed = self._packed(batch)
         if draws is None:
             draws = self.model.make_draws(packed, generator, velocity=self.velocity_consistency)
         loss, breakdown, grads = self._grads(state, packed, draws)
-        return self._apply(state, grads, loss, self._loss_parts(breakdown))
+        return self._apply(state, grads, loss, self._loss_parts(breakdown),
+                           int(packed.total_tokens))
 
     def _train_step_accum(self, state: TrainState, batch, draws, generator):
         """Exact gradient accumulation (the JAX `_train_step_accum`,
@@ -203,7 +245,7 @@ class Trainer:
             parts = {k: v + parts_m[k] for k, v in parts.items()}
             torch._foreach_add_(list(grads.values()), [grads_m[k] for k in grads])
             del grads_m  # not held through the next microbatch or the update
-        return self._apply(state, grads, loss, parts)
+        return self._apply(state, grads, loss, parts, sum(int(p.total_tokens) for p in packs))
 
     def train_steps(self, state: TrainState, batch, steps: int, generator=None):
         """`steps` optimizer steps on one batch (packed once), each with
@@ -237,9 +279,8 @@ class Trainer:
         os.makedirs(self._dir(), exist_ok=True)
         path = os.path.join(self._dir(), f"step_{state.step}.pt")
         torch.save({
-            "params": state.params, "mu": state.adam.mu, "nu": state.adam.nu,
-            "count": state.adam.count, "ema": state.ema.params, "ema_step": state.ema.step,
-            "step": state.step,
+            "params": state.params, "opt_state": state.opt_state, "ema": state.ema.params,
+            "ema_step": state.ema.step, "step": state.step,
         }, path)
         return path
 
@@ -253,6 +294,5 @@ class Trainer:
         step = max(found) if step is None else step
         path = os.path.join(self._dir(), f"step_{step}.pt")
         ck = torch.load(path, map_location=self.model.device, weights_only=True)
-        return TrainState(params=ck["params"],
-                          adam=AdamState(mu=ck["mu"], nu=ck["nu"], count=ck["count"]),
+        return TrainState(params=ck["params"], opt_state=ck["opt_state"],
                           ema=EmaState(params=ck["ema"], step=ck["ema_step"]), step=ck["step"])

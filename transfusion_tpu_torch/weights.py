@@ -7,7 +7,9 @@ numpy arrays (e.g. `jax.tree.map(np.asarray, params)`) and returns a
   * `nn.Dense` kernels [in, out] become `nn.Linear.weight` [out, in];
   * `nn.Embed` embeddings become `nn.Embedding.weight`;
   * `block_{i}` becomes `blocks.{i}`; a block's children drop their
-    `_{i}` suffix (`attn_3` -> `attn`); `latent_to_model_{i}` becomes
+    `_{i}` suffix (`attn_3` -> `attn`, `hc_ff_3` -> `hc_ff`: the
+    hyper-connections' leaves are not `kernel`s and keep their layout);
+    `latent_to_model_{i}` becomes
     `latent_to_model.{i}`; `pos_emb_mlps_{i}/Dense_{j}` becomes
     `pos_emb_mlps.{i}.layers.{j}`;
   * the subtree of a custom modality projection (a
@@ -32,7 +34,7 @@ import torch
 
 _BLOCK = re.compile(r"block_(\d+)")
 _INDEXED_LIST = re.compile(r"(latent_to_model|model_to_latent)_(\d+)")
-_BLOCK_CHILD = re.compile(r"(skip_proj|attn_ada|ff_ada|attn|ff)_(\d+)")
+_BLOCK_CHILD = re.compile(r"(skip_proj|attn_ada|ff_ada|hc_attn|hc_ff|attn|ff)_(\d+)")
 _PRE_POST = re.compile(r"pre_post_enc_dec_(\d+)_([01])")
 _POS_MLP = re.compile(r"pos_emb_mlps_(\d+)")
 _DENSE = re.compile(r"Dense_(\d+)")
