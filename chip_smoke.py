@@ -107,6 +107,24 @@ Phases (any failure exits non-zero and prints no result line):
      (v = exp(softclamp(v, 15)), up to e^15) hold every output row within
      the row rule and the outputs after safe_log within the forward
      tolerance; the backward as in phase 2;
+  4f. the single-process user surface: (a) `PackingLoader` over 64
+     bench-shaped samples (batch 32, prefetch 2) feeding the bench model:
+     `Trainer.train_steps(state, [b0, b1], 20)` over two of its batches (rows
+     5 and 6 once per layer a step; the captured call held), then 10
+     `train_step(next(loader))` calls, the waits in `next()` timed; (b)
+     dropout: a small float32 dropout-0.1 model's joint forward and every
+     gradient with the same keep masks, card against CPU within 1e-4, on the
+     dense route (attention and feedforward masks) and the flash route; the
+     bench model with dropout 0.1 gives its dropout-0 twin's cached
+     `sample()` and `loss(train=False)` exactly, and `loss(train=True)` is
+     refused; (c) the bench model exported as a transfusion-pytorch
+     state_dict and loaded into a fresh model: logits bit-equal, cached
+     `sample()` equal, its row-1 prefill, its decode call and a
+     `generate_text_batch` row-2 prefill captured and held; (d) the ten
+     example twins (`python -m transfusion_tpu_torch.examples.<name>
+     --device cuda`: 3 steps sampling once, `train_mnist_vae` with 5
+     autoencoder steps, `serve_text` at its defaults with every demo), all
+     started together, each exit code checked, seconds and last loss logged;
   5. training: the same bench model through `Trainer.train_step`: (a)
      `bench.py`'s batch, 32 x [32 text][14x14x32 latent][8 text], n 256
      after the shift (every layer takes the token-major route), and (b) 8
@@ -2366,6 +2384,305 @@ def phase_recipes(torch, Transfusion, Trainer, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the single-process user surface at full width
+# ---------------------------------------------------------------------------
+
+SURFACE_SAMPLES, SURFACE_BATCH = 64, 32
+# the example twins, each with --device cuda and these flags
+TWINS = {name: ["--steps", "3", "--sample-every", "3"] for name in (
+    "train_toy", "train_text_only", "train_mnist", "train_mnist_with_unet", "train_image_only",
+    "train_image_only_with_unet", "train_latent_only", "train_latent_with_text")}
+TWINS["train_mnist_vae"] = ["--steps", "3", "--sample-every", "3", "--ae-steps", "5"]
+TWINS["serve_text"] = ["--ragged", "--engine", "--mm-engine", "--multimodal"]
+
+
+def row_of(mods, a):
+    """The TPU kernel-table row of a captured flash_attention call."""
+    b, h, nq, d = a["q"].shape
+    return mods["flash"].tpu_row(h, nq, a["k"].shape[2], d, bwd=False)
+
+
+def surface_training(torch, Transfusion, Trainer, mods, totals):
+    """(a) `PackingLoader` over 64 bench-shaped samples feeding the bench
+    model: `train_steps` over two of its batches, then `train_step` on its
+    next 10, timing the waits in `next()`."""
+    import numpy as np
+
+    from transfusion_tpu_torch.data.dataloader import PackingLoader
+
+    depth = BENCH_CFG["transformer"]["depth"]
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
+    trainer = Trainer(model, learning_rate=3e-4)
+    rng = np.random.default_rng(21)
+    dataset = [bench_sample(rng, 1) for _ in range(SURFACE_SAMPLES)]
+    gen = torch.Generator("cuda").manual_seed(0)
+    name = f"PackingLoader {SURFACE_SAMPLES} x bench sample, batch {SURFACE_BATCH}"
+    t0 = time.perf_counter()
+    loader = PackingLoader(model, dataset, batch_size=SURFACE_BATCH, prefetch=2, seed=0)
+    try:
+        b0 = next(loader)
+        first_batch_s = time.perf_counter() - t0
+        b1 = next(loader)
+        require(b0.text.shape == b1.text.shape == (SURFACE_BATCH, 257),
+                f"{name}: packed to {b0.text.shape}, {b1.text.shape}")
+        state = trainer.init_state()
+        with capturing(torch, mods, {"flash_fwd_nhd": lambda a: True}) as calls:
+            state, m0 = trainer.train_step(state, b0, generator=gen)
+        torch.cuda.synchronize()
+        require("do" in calls.get("flash_fwd_nhd", {}), f"{name}: no token-major call captured")
+        a = calls["flash_fwd_nhd"]
+        shape = f"main path, {name}: q {shape_str(a['q'])} rope spans {shape_str(a['spans'])}"
+        f_res, b_res = check_nhd(torch, mods, a)
+        record("flash_fwd_nhd", shape, f_res, torch.bfloat16)
+        record("flash_bwd_nhd", shape, b_res, torch.bfloat16)
+        del calls, a
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, metrics), counts = counted(
+            mods, lambda: trainer.train_steps(state, [b0, b1], TRAIN_STEPS, generator=gen))
+        dt = time.perf_counter() - t0
+        want = depth * TRAIN_STEPS
+        require(counts["flash_fwd_nhd"] == want and counts["flash_bwd_nhd"] == want,
+                f"{name}: train_steps launches {counts}, want {want} of rows 5 and 6")
+        require(np.isfinite(float(metrics["loss"])), f"{name}: loss {metrics['loss']}")
+        for k in totals:
+            totals[k] += counts[k]
+
+        waits, losses = [], [float(m0["loss"])]
+
+        def loader_steps(state=state):
+            for _ in range(10):
+                t = time.perf_counter()
+                batch = next(loader)
+                waits.append(time.perf_counter() - t)
+                state, m = trainer.train_step(state, batch, generator=gen)
+                losses.append(float(m["loss"]))
+            return state
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, counts2 = counted(mods, loader_steps)
+        dt2 = time.perf_counter() - t1
+    finally:
+        loader.close()
+    require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    require(counts2["flash_fwd_nhd"] == depth * 10 and counts2["flash_bwd_nhd"] == depth * 10,
+            f"{name}: loader steps launches {counts2}")
+    for k in totals:
+        totals[k] += counts2[k]
+    log(json.dumps({
+        "surface": f"training, {name}", "train_steps": TRAIN_STEPS, "seconds": dt,
+        "ms_per_step": dt / TRAIN_STEPS * 1e3,
+        "packed_tokens_per_s": int(b0.total_tokens) * TRAIN_STEPS / dt,
+        "row5_row6_launches_per_step": [counts["flash_fwd_nhd"] / TRAIN_STEPS,
+                                        counts["flash_bwd_nhd"] / TRAIN_STEPS],
+        "loss_first": losses[0], "loss_after_train_steps": float(metrics["loss"]),
+        "loss_last": losses[-1], "first_batch_s": first_batch_s,
+        "loader_steps_ms_per_step": dt2 / 10 * 1e3, "mean_next_wait_ms": 1e3 * sum(waits) / 10,
+        "max_next_wait_ms": 1e3 * max(waits), "launches": counts}))
+
+
+def surface_dropout(torch, Transfusion, mods):
+    """(b) A small float32 dropout model's joint forward and backward with
+    the same keep masks, card against CPU, on the dense route (attention
+    and feedforward masks) and the flash route (feedforward masks); then the
+    bench model with dropout 0.1 against its dropout-0 twin (same weights):
+    cached `sample()` and `loss(train=False)` equal, `loss(train=True)`
+    refused."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    batch = [[rng.integers(0, 16, 6).astype(np.int32),
+              (0, rng.standard_normal((4, 4, 8)).astype(np.float32)),
+              rng.integers(0, 16, 3).astype(np.int32)], [rng.integers(0, 16, 11).astype(np.int32)]]
+    errs = {}
+    for attn_impl in ("dense", "flash"):
+        cfg = dict(SMALL_CFG, transformer=dict(SMALL_CFG["transformer"], attn_impl=attn_impl,
+                                               dropout=0.1))
+        models = {"cuda": Transfusion(device="cuda", dtype=torch.float32, seed=4, **cfg),
+                  "cpu": Transfusion(device="cpu", dtype=torch.float32, seed=4, **cfg)}
+        models["cpu"].core.load_state_dict(
+            {k: v.cpu() for k, v in models["cuda"].core.state_dict().items()})
+        packed = models["cpu"].pack(batch, shift_friendly=True)
+        b, n = packed.text.shape
+        masks = models["cpu"].core.transformer.draw_dropout_masks(
+            torch.Generator().manual_seed(0), b, n, spans=packed.spans, device="cpu")
+        route = "dense" if masks[0]["attn"] is not None else "flash"
+        require(all(m["ff"] is not None and (m["attn"] is not None) == (attn_impl == "dense")
+                    for m in masks), f"dropout masks of the {attn_impl} model")
+        out = {}
+        for dev, m in models.items():
+            leaves = {k: p.detach().clone().requires_grad_(True)
+                      for k, p in m.core.named_parameters()}
+            p = packed.to_torch(dev)
+            times = torch.full(p.spans.shape[:2], 0.4, device=dev)
+            dmasks = [{k: None if v is None else v.to(dev) for k, v in d.items()} for d in masks]
+            logits, _, flows, _, _ = torch.func.functional_call(
+                m.core, leaves, (p, times), {"dropout": dmasks})
+            g = torch.Generator().manual_seed(1)
+            w_l = torch.randn(logits.shape, generator=g).to(dev) / logits.numel() ** 0.5
+            w_f = torch.randn(flows[0].shape, generator=g).to(dev) / flows[0].numel() ** 0.5
+            score = (logits * w_l).sum() + (flows[0] * w_f).sum()
+            grads = torch.autograd.grad(score, list(leaves.values()), allow_unused=True)
+            out[dev] = [logits.detach().cpu(), flows[0].detach().cpu()] + [
+                torch.zeros(1) if x is None else x.cpu() for x in grads]
+        err = max((a - b).abs().max().item() for a, b in zip(out["cuda"], out["cpu"]))
+        require(err <= 1e-4, f"dropout {attn_impl} ({route} route) card vs cpu: {err}")
+        errs[f"{attn_impl} ({route} route)"] = err
+
+    cfg = dict(BENCH_CFG, transformer=dict(BENCH_CFG["transformer"], dropout=0.1))
+    drop = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **cfg)
+    plain = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
+    sd = plain.core.state_dict()
+    require(all(torch.equal(v, sd[k]) for k, v in drop.core.state_dict().items()),
+            "dropout model weights differ from the dropout-0 model's")
+    noise = rng.standard_normal((196, 32)).astype(np.float32)
+    prompt = [np.asarray(list(rng.integers(0, 256, 24)) + [plain.som_ids[0]], np.int32)]
+    kw = dict(text_temperature=0.0, cfg_scale=3.0, modality_steps=16, cache_kv=True,
+              init_modality_noise=noise, max_length=212)
+    outs = [m.sample(prompt, **kw) for m in (drop, plain)]
+    items_err(outs[0], outs[1], "dropout vs dropout-0 sample")
+    require(all(not isinstance(x, tuple) or np.array_equal(x[1], y[1])
+                for x, y in zip(*outs)), "dropout vs dropout-0 sample: latents differ")
+    samples = [bench_sample(rng, 1) for _ in range(4)]
+    packed = plain.pack(samples, shift_friendly=True).to_torch("cuda")
+    draws = plain.make_draws(packed, torch.Generator("cuda").manual_seed(2))
+    losses = [m.loss(packed=packed, draws=draws, train=False) for m in (drop, plain)]
+    require(torch.equal(losses[0], losses[1]), f"loss(train=False) {losses}")
+    try:
+        drop.loss(packed=packed, draws=draws, train=True)
+    except ValueError as e:
+        require("needs PRNG" in str(e), f"loss(train=True) refused with {e}")
+    else:
+        raise SmokeFailure("loss(train=True) with dropout was not refused")
+    log(json.dumps({"surface": "dropout", "small_f32_card_vs_cpu_err": errs,
+                    "bench_sample_equal": True, "bench_eval_loss": float(losses[0]),
+                    "train_loss_refused": True}))
+
+
+def surface_reference(torch, Transfusion, mods, totals):
+    """(c) The bench model's seeded weights exported as a transfusion-pytorch
+    state_dict and loaded into a fresh model: logits bit-equal, cached
+    `sample()` equal. Its row-1 prefill and decode calls and a
+    `generate_text_batch` row-2 prefill are captured and held."""
+    import numpy as np
+
+    from transfusion_tpu_torch.models.port import export_to_reference, port_from_reference
+
+    src = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
+    t0 = time.perf_counter()
+    sd = export_to_reference(src)
+    dst = Transfusion(device="cuda", dtype=torch.bfloat16, seed=7, **BENCH_CFG)
+    port_from_reference(sd, dst)
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, 256, (2, 300))
+    logits = [m.forward_text(ids, return_loss=False) for m in (src, dst)]
+    require(torch.equal(logits[0], logits[1]), "ported logits are not bit-equal")
+    noise = rng.standard_normal((196, 32)).astype(np.float32)
+    prompt = [np.asarray(list(rng.integers(0, 256, 24)) + [src.som_ids[0]], np.int32)]
+    kw = dict(text_temperature=0.0, cfg_scale=3.0, modality_steps=16, cache_kv=True,
+              init_modality_noise=noise, max_length=212)
+    want = {"flash_fwd": lambda a: row_of(mods, a) == 1, "decode_attn": lambda a: True}
+    with capturing(torch, mods, want) as calls:
+        out_src, counts = counted(mods, lambda: src.sample(prompt, **kw))
+    out_dst = dst.sample(prompt, **kw)
+    items_err(out_src, out_dst, "ported model's sample")
+    require(all(not isinstance(x, tuple) or np.array_equal(x[1], y[1])
+                for x, y in zip(out_src, out_dst)), "ported model's sampled latents differ")
+    require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0, f"sample launches {counts}")
+    prompts = [rng.integers(0, 256, n) for n in (300, 360, 420, 480)]
+    with capturing(torch, mods, {"flash_fwd": lambda a: row_of(mods, a) == 2}) as calls2:
+        toks, counts2 = counted(mods, lambda: dst.generate_text_batch(
+            prompts, max_new_tokens=32, temperature=0.0))
+    require(tuple(toks.shape) == (4, 32), f"generate_text_batch tokens {tuple(toks.shape)}")
+    require(set(calls) == {"flash_fwd", "decode_attn"} and "flash_fwd" in calls2,
+            f"captured {sorted(calls)}, {sorted(calls2)}")
+    name = "reference-checkpoint bench model"
+    record("flash_fwd", f"main path, {name} sample(): prefill q {shape_str(calls['flash_fwd']['q'])}"
+           " (row 1)", check_flash(torch, mods, calls["flash_fwd"]), torch.bfloat16)
+    record("flash_fwd", f"main path, {name} generate_text_batch: prefill q "
+           f"{shape_str(calls2['flash_fwd']['q'])} (row 2)",
+           check_flash(torch, mods, calls2["flash_fwd"]), torch.bfloat16)
+    dc = calls["decode_attn"]
+    record("decode_attn", f"main path, {name} sample(): q {shape_str(dc['q'])} cache "
+           f"{shape_str(dc['k'])}", check_decode(torch, mods, dc, count=True), torch.bfloat16)
+    for k in totals:
+        totals[k] += counts[k] + counts2[k]
+    log(json.dumps({"surface": f"reference checkpoint, {name}", "keys": len(sd),
+                    "export_and_load_s": load_s, "logits_bit_equal": True, "sample_equal": True,
+                    "launches": {"sample": counts, "generate_text_batch": counts2}}))
+
+
+def surface_twins():
+    """(d) The ten example twins on the card, all started together, each in
+    its own process; returns {name: (exit code, seconds, last loss or None,
+    output tail)}."""
+    import re
+
+    workdir = os.path.join(HERE, "build", "example_twins")
+    os.makedirs(workdir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1")
+    procs = {}
+    for name, flags in TWINS.items():
+        out = open(os.path.join(workdir, f"{name}.log"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", f"transfusion_tpu_torch.examples.{name}", "--device", "cuda",
+             *flags], cwd=workdir, env=env, stdout=out, stderr=subprocess.STDOUT, text=True),
+            out, time.perf_counter())
+    results, deadline = {}, time.perf_counter() + 600
+    try:
+        while len(results) < len(procs):
+            require(time.perf_counter() < deadline,
+                    f"example twins still running after 600 s: {sorted(set(procs) - set(results))}")
+            for name, (proc, out, t0) in procs.items():
+                if name in results or proc.poll() is None:
+                    continue
+                seconds = time.perf_counter() - t0
+                out.seek(0)
+                text = out.read()
+                losses = re.findall(r"^\d+: (?:train )?([-+0-9.eE]+|nan|inf)", text, re.M)
+                results[name] = (proc.returncode, seconds, float(losses[-1]) if losses else None,
+                                 text[-1500:])
+            time.sleep(0.2)
+    finally:
+        for proc, out, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    return results
+
+
+def phase_surface(torch, Transfusion, Trainer, mods):
+    """Phase 4f: (a) data -> training, (b) dropout, (c) the reference
+    checkpoint, (d) the example twins. Returns the launch totals of the
+    in-process paths."""
+    import numpy as np
+
+    totals = dict.fromkeys(KERNELS, 0)
+    surface_training(torch, Transfusion, Trainer, mods, totals)
+    surface_dropout(torch, Transfusion, mods)
+    surface_reference(torch, Transfusion, mods, totals)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = surface_twins()
+    for name, (rc, seconds, loss, tail) in results.items():
+        log(json.dumps({"surface": f"example twin {name}", "exit_code": rc, "seconds": seconds,
+                        "last_loss": loss, "flags": TWINS[name]}))
+    for name, (rc, seconds, loss, tail) in results.items():
+        require(rc == 0, f"example twin {name} exited {rc}:\n{tail}")
+        require(name == "serve_text" or (loss is not None and np.isfinite(loss)),
+                f"example twin {name}: last loss {loss}\n{tail}")
+    require("multimodal sample()" in results["serve_text"][3],
+            "serve_text: no multimodal sample line")
+    log(json.dumps({"surface": "example twins, 10 at once", "seconds": time.perf_counter() - t0}))
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
@@ -2665,6 +2982,7 @@ def main() -> int:
     engine_launches = timed_phase(phase_engines, torch, Transfusion, mods)
     image_launches = timed_phase(phase_image, torch, Transfusion, Trainer, mods)
     recipe_launches = timed_phase(phase_recipes, torch, Transfusion, Trainer, mods)
+    surface_launches = timed_phase(phase_surface, torch, Transfusion, Trainer, mods)
     train_launches, train_path = timed_phase(phase_training, torch, Transfusion, Trainer, mods)
     long_launches, long_path = timed_phase(phase_long_training, torch, Transfusion, Trainer,
                                            mods)
@@ -2679,7 +2997,7 @@ def main() -> int:
     for name, meta in KERNELS.items():
         total = (launches.get(name, 0) + sampling_launches.get(name, 0)
                  + engine_launches.get(name, 0) + image_launches.get(name, 0)
-                 + recipe_launches.get(name, 0)
+                 + recipe_launches.get(name, 0) + surface_launches.get(name, 0)
                  + train_launches.get(name, 0) + long_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]

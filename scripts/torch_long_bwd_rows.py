@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Repeat the long-context backward hold of `chip_smoke.py` (phase 6) on
+fresh captures, to see how its row rule varies from one training step to
+the next.
+
+    python3 scripts/torch_long_bwd_rows.py [N]
+
+Builds the port's kernels, then N times (default 20): resets the 573M model
+(`chip_smoke.LONG_CFG`, seed 0) to its initial weights, runs one
+`Trainer(grad_accumulation=2).train_step` on the two seeded n 16384 packs
+while capturing the first `flash_attention` call and its output cotangent,
+and holds `flash_attention_backward` against its plain version on that call
+with `chip_smoke.check_flash_bwd` (plain in 1024-row blocks). The dq
+atomics upstream make each capture's cotangent differ in its last bits.
+Prints the card's name and power limit, then one JSON line per capture
+(max abs error, error over the gradient's largest element, max row error
+over the row's RMS) and, for a capture past the row rule (0.08), the three
+worst rows of dq, dk and dv with their RMS and first elements. Needs one
+card (about 2.5 s a capture after a minute of building).
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from transfusion_tpu_torch import Transfusion
+    from transfusion_tpu_torch.models import layers
+    from transfusion_tpu_torch.ops import _build, flash_attn, spans
+    from transfusion_tpu_torch.training import Trainer
+
+    if not torch.cuda.is_available():
+        print("torch_long_bwd_rows: no CUDA device", file=sys.stderr)
+        return 2
+    n_captures = int(sys.argv[1]) if len(sys.argv) > 1 else 20
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    _build.build_all()
+    mods = dict(flash=flash_attn, layers=layers, spans=spans)
+
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **cs.LONG_CFG)
+    rng = np.random.default_rng(0)
+    packs = [model.pack([cs.long_sample(rng)], shift_friendly=True).to_torch("cuda")
+             for _ in range(2)]
+    gen = torch.Generator("cuda").manual_seed(0)
+    draws = [model.make_draws(p, gen) for p in packs]
+    initial = {k: v.clone() for k, v in model.core.state_dict().items()}
+    t0 = time.perf_counter()
+    for i in range(n_captures):
+        model.core.load_state_dict(initial)
+        trainer = Trainer(model, learning_rate=3e-4, grad_accumulation=2)
+        state = trainer.init_state()
+        with cs.capturing(torch, mods, {"flash_fwd": lambda a: True}) as calls:
+            trainer.train_step(state, packs, draws=draws)
+        torch.cuda.synchronize()
+        a = calls.pop("flash_fwd")
+        del trainer, state, calls
+        res = cs.check_flash_bwd(torch, mods, a, iters=1, block_q=cs.LONG_BLOCK_Q)
+        line = {"capture": i, "err": res["err"], "rel_err": res["rel_err"],
+                "row_rel_err": res["row_rel_err"], "seconds": time.perf_counter() - t0}
+        if res["row_rel_err"] > cs.ROW_REL_TOL["bfloat16"]:
+            line["worst_rows"] = worst_rows(torch, flash_attn, a)
+        print(json.dumps(line), flush=True)
+        del a
+    return 0
+
+
+def worst_rows(torch, fa, a, per_grad=3):
+    """The rows of dq, dk and dv with the largest error over their RMS."""
+    import numpy as np
+
+    q, k, v, sp, cap, do = a["q"], a["k"], a["v"], a["spans"], a["softcap"], a["do"]
+    out, lse = fa.flash_attention(q, k, v, spans=sp, causal=a["causal"], softcap=cap,
+                                  return_lse=True)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, sp, cap)
+    delta = (do.float() * out.float()).sum(-1)
+    want = fa.flash_attention_backward_plain(q, k, v, do, lse, delta, sp, cap, 0, 0, 1024)
+    rows = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w.float()).abs().amax(-1)
+        rms = w.float().pow(2).mean(-1).sqrt()
+        rel = torch.where(rms > 0, err / rms.clamp_min(1e-38), (err > 0).float() * float("inf"))
+        top = rel.flatten().topk(per_grad)
+        for val, idx in zip(top.values.tolist(), top.indices.tolist()):
+            ix = tuple(int(x) for x in np.unravel_index(idx, rel.shape))
+            rows.append({"grad": name, "b_h_row": ix, "rel": val, "err": err[ix].item(),
+                         "ref_rms": rms[ix].item(), "median_rms": rms.median().item(),
+                         "got": g[ix][:6].float().tolist(), "want": w[ix][:6].float().tolist()})
+    return rows
+
+
+if __name__ == "__main__":
+    sys.exit(main())

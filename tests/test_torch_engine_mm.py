@@ -188,6 +188,17 @@ def test_mm_engine_warmup_inert_and_cost_model(model):
                                           cfg_scale=1.0), 2e-5)
 
 
+def test_mm_engine_warmup_takes_the_jax_signature(model, caplog):
+    """A warmup call written for the JAX engine runs: its prompt_widths and
+    group_sizes only choose compiles there, and are ignored (logged)."""
+    eng = MultimodalServingEngine(model, max_requests=2, max_seq_len=64, modality_steps=2,
+                                  **GREEDY)
+    with caplog.at_level("INFO", logger="transfusion_tpu_torch.models.engine_mm"):
+        eng.warmup(shapes=[(0, (3,))], prompt_widths=[16, 32], group_sizes=[1, 2])
+    assert eng._cost_frozen and eng.ode_cost(0, (3,)) > 0
+    assert any("ignored" in r.getMessage() for r in caplog.records)
+
+
 @pytest.mark.parametrize("plan", ["engine", "waves"])
 def test_mm_engine_serve_routes(model, monkeypatch, plan):
     prompts = make_prompts(model)

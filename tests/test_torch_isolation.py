@@ -1,11 +1,14 @@
-"""The PyTorch port stands alone: it imports with `jax`, `optax` and
-`transfusion_tpu` blocked, builds a small model on the CPU, serves from it
+"""The PyTorch port stands alone: it imports with `jax`, `flax`, `optax`,
+`jaxtyping` and `transfusion_tpu` blocked (every module, the example twins
+included), builds a small model on the CPU, serves from it
 (batched text, uncached `sample`, `sample_batch`, `generate_modality_only`,
 both continuous-batching engines) and takes a training step, takes a
 velocity-consistency step and samples from an image model (encoder,
 decoder, U-Net halves, pos-emb), takes a LASER + 4-stream step through
-`Trainer(optimizer=muon_adam_atan2(...))`, and its entry points default to
-the card (raising when there is none)."""
+`Trainer(optimizer=muon_adam_atan2(...))`, feeds a training step from a
+`PackingLoader`, loads a transfusion-pytorch state_dict with
+`port_from_reference`, and its entry points default to the card (raising
+when there is none)."""
 
 import os
 import subprocess
@@ -18,7 +21,9 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
     sys.modules["jax"] = None
+    sys.modules["flax"] = None
     sys.modules["optax"] = None
+    sys.modules["jaxtyping"] = None
     sys.modules["transfusion_tpu"] = None
     import numpy as np
     import torch
@@ -29,9 +34,10 @@ SCRIPT = textwrap.dedent(
         transfusion_tpu_torch.__path__, "transfusion_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    assert not any(k in ("jax", "optax") or k.startswith(("jax.", "flax", "optax.",
+    assert not any(k in ("jax", "optax") or k.startswith(("jax.", "flax", "optax.", "jaxtyping",
                                                           "transfusion_tpu."))
                    for k, v in sys.modules.items() if v is not None), "JAX was imported"
+    assert "transfusion_tpu_torch.examples.serve_text" in names
 
     from transfusion_tpu_torch import Transfusion
     cfg = dict(num_text_tokens=8, dim_latent=16, modality_default_shape=(4,),
@@ -106,6 +112,22 @@ SCRIPT = textwrap.dedent(
                                    generator=torch.Generator().manual_seed(0))
     assert state.step == 1 and np.isfinite(float(metrics["loss"]))
     assert "transformer.blocks.1.attn.to_value_residual_mix.weight" in lm.muon_parameters()
+
+    # a PackingLoader feeding the Trainer, and a reference checkpoint
+    from transfusion_tpu_torch.data.dataloader import PackingLoader
+    from transfusion_tpu_torch.models.port import export_to_reference, port_from_reference
+    loader = PackingLoader(m, [b[0] for b in [batch] * 4], batch_size=2)
+    try:
+        state, metrics = trainer.train_step(trainer.init_state(), next(loader),
+                                            generator=torch.Generator().manual_seed(1))
+    finally:
+        loader.close()
+    assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+    sd = export_to_reference(m)
+    fresh = Transfusion(device="cpu", seed=5, **cfg)
+    port_from_reference(sd, fresh)
+    assert all(torch.equal(fresh.core.state_dict()[k], v)
+               for k, v in m.core.state_dict().items())
 
     if not torch.cuda.is_available():
         try:

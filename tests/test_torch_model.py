@@ -213,14 +213,17 @@ def test_cache_helpers():
 
 
 def test_unported_paths_raise(jax_ref):
-    """Unported options (dropout, context-parallel attention) raise; the
+    """Unported options (context-parallel attention) raise; a dropout model
+    (which raised before the single-process surface slice) builds, and its
+    training loss is refused as in JAX (tests/test_torch_dropout.py); the
     uncached flash `text_forward` (which raised before the training slice)
     now equals the JAX one, and so do `add_pos_emb` (which raised before the
     modality I/O slice: the joint forward's logits and flows, and the
     modality-only flow) and LASER and two residual streams (which raised
     before the recipe-options slice: the causal text forward)."""
-    with pytest.raises(NotImplementedError, match="dropout"):
-        Transfusion(transformer=dict(tcfg("flash"), dropout=0.1), device="cpu", **CFG)
+    dm = Transfusion(transformer=dict(tcfg("flash"), dropout=0.1), device="cpu", **CFG)
+    with pytest.raises(ValueError, match="dropout"):
+        dm.loss([[np.asarray([1, 2, 3], np.int32)]], generator=torch.Generator())
     with pytest.raises(NotImplementedError, match="parallelism"):
         Transfusion(transformer=tcfg("ring"), device="cpu", **CFG)
     toks = np.asarray([[8, 1, 2, 3, 7, 5], [8, 4, 4, 0, 1, 2]], np.int32)

@@ -217,6 +217,53 @@ def test_trainer_steps_match_jax(tmp_path):
     assert all(torch.equal(p, restored.params[k]) for k, p in tm.core.named_parameters())
 
 
+def test_train_steps_cycle_batches_like_jax(monkeypatch):
+    """`Trainer.train_steps` over a list of two packed batches and 4 steps
+    against the JAX scan (step i takes batches[i % 2], its draws from the
+    i-th split of the key), float32: parameters within 1e-4. Batches of
+    different packed structures are refused on both sides."""
+    jm = JaxTransfusion(transformer=TCFG["token-major"], **CFG)
+    tm = Transfusion(transformer=TCFG["token-major"], device="cpu", **CFG)
+    kw = dict(learning_rate=1e-3, ema_beta=0.9, ema_update_every=1, ema_update_after_step=1)
+    jtr = JaxTrainer(jm, **kw)
+    params = init_params("token-major", seed=4)
+    state_j = JaxTrainState(params=params, opt_state=jtr.tx.init(params),
+                            ema=j_init_ema(params), step=jnp.zeros((), jnp.int32))
+    tm.load_flax(np_tree(params))
+    ttr = Trainer(tm, **kw)
+    state_t = ttr.init_state(core_params(tm, params))
+
+    packs = [jm.pack(samples(seed), shift_friendly=True) for seed in (1, 2)]
+    rng = jax.random.PRNGKey(11)
+    state_j, met_j = jtr.train_steps(state_j, [jax.tree.map(jnp.asarray, p) for p in packs],
+                                     rng, 4)
+    schedule, key = [], rng
+    for i in range(4):
+        key, k = jax.random.split(key)
+        schedule.append(draws_from_key(k, packs[i % 2]))
+    monkeypatch.setattr(tm, "make_draws", lambda packed, generator=None, velocity=False:
+                        schedule.pop(0))
+    state_t, met_t = ttr.train_steps(
+        state_t, [tm.pack(samples(seed), shift_friendly=True) for seed in (1, 2)], 4)
+    assert not schedule and state_t.step == int(state_j.step) == 4
+    np.testing.assert_allclose(float(met_t["loss"]), float(met_j["loss"]), atol=2e-4)
+    for name, tree, got in (("params", state_j.params, state_t.params),
+                            ("ema", state_j.ema.params, state_t.ema.params)):
+        want = core_params(tm, tree)
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), atol=1e-4,
+                                       err_msg=f"{name} {k}")
+
+    other = tm.pack(samples(1)[:2], shift_friendly=True)
+    with pytest.raises(ValueError, match="one packed structure"):
+        ttr.train_steps(state_t, [tm.pack(samples(1), shift_friendly=True), other], 2)
+    with pytest.raises(ValueError, match="one packed structure"):
+        jtr.train_steps(state_j, [jax.tree.map(jnp.asarray, packs[0]),
+                                  jax.tree.map(jnp.asarray, jm.pack(samples(1)[:2],
+                                                                    shift_friendly=True))],
+                        rng, 2)
+
+
 def test_ema_schedule_matches_jax():
     rng = np.random.default_rng(3)
     tree = {"a": rng.standard_normal((3, 4)).astype(np.float32),
@@ -235,7 +282,9 @@ def test_ema_schedule_matches_jax():
 
 
 def test_unported_training_options_raise():
-    """The pipeline, the mesh and dropout still raise. The velocity and
+    """The pipeline and the mesh still raise; so does a dropout model's
+    training step (refused as in JAX; dropout raised at construction before
+    the single-process surface slice). The velocity and
     reconstruction options (which raised before the modality I/O slice)
     now give the JAX loss: `loss(velocity_consistency_ema_params=)` on a
     model with `reconstruction_loss_weight`, its breakdown within 1e-4, and
@@ -245,8 +294,9 @@ def test_unported_training_options_raise():
                       (dict(mesh=object()), "parallelism")):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(tm, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Transfusion(transformer=dict(TCFG["head-major"], dropout=0.1), device="cpu", **CFG)
+    dm = Transfusion(transformer=dict(TCFG["head-major"], dropout=0.1), device="cpu", **CFG)
+    with pytest.raises(ValueError, match="needs PRNG"):
+        Trainer(dm).train_step(Trainer(dm).init_state(), samples(), generator=torch.Generator())
     assert Trainer(tm, velocity_consistency=True).velocity_consistency
     jm = JaxTransfusion(transformer=dict(TCFG["head-major"], attn_impl="dense"),
                         reconstruction_loss_weight=0.1, **CFG)

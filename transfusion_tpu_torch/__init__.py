@@ -30,7 +30,13 @@ The port goes slice by slice (ROADMAP.md):
   * the example recipes' options: LASER attention, multi-stream
     hyper-connections, fused projections, the optimizers of
     `training/optim.py` behind `Trainer(optimizer=)`, metrics and profiler
-    windows, `Transfusion.create_ema` and `muon_parameters`.
+    windows, `Transfusion.create_ema` and `muon_parameters`;
+  * the single-process user surface: the data loaders and offline
+    datasets (`data/`), the transfusion-pytorch checkpoint loader
+    (`models/port.py`), module-level dropout, the remaining helpers
+    (`ops/spans.py`, `utils/helpers.py`, `utils/typing.py`) and twins of the
+    example scripts (`examples/`, `python -m
+    transfusion_tpu_torch.examples.<name>`).
 
 Every TPU kernel on these paths has a hand-written CUDA kernel for
 `sm_90a` (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`: bf16 on the tensor

@@ -389,13 +389,19 @@ class MultimodalServingEngine:
                                       mid=mid, L=L, R=self.R)
         return _sb._fetch(sampled)
 
-    def warmup(self, shapes=None):
+    def warmup(self, shapes=None, prompt_widths=None, group_sizes=None):
         """Time the text-chunk ladder (every power of two k <= text_chunk,
         twice, the first run excluded) and one grouped ODE + append per
         (modality, shape) in `shapes` (default: every modality's default
         shape), all on inert rows, so the pool is left as it was; fit the
         cost model and freeze it. A shape whose segment does not fit after
-        the pool's highest index is not timed (logged)."""
+        the pool's highest index is not timed (logged). `prompt_widths` and
+        `group_sizes` choose which admission prefills the JAX engine
+        compiles ahead; nothing here compiles, so they are accepted and
+        ignored (logged)."""
+        if prompt_widths is not None or group_sizes is not None:
+            logger.info("warmup: prompt_widths=%s, group_sizes=%s only choose compiles in the "
+                        "JAX engine; ignored", prompt_widths, group_sizes)
         R, rows = self.R, self.rows
         toks0, pos0 = np.zeros(R, np.int64), np.zeros(rows, np.int64)
         inert, rem = np.zeros(R, bool), np.ones(R, np.int64)

@@ -53,6 +53,27 @@ def _quantize_rows(x, eps: float = 1e-8):
     return q.to(torch.int8), scale
 
 
+def apply_dropout(x, keep_mask, rate: float):
+    """flax's `nn.Dropout` with the caller's keep mask Bool (x's shape):
+    where(keep_mask, x / (1 - rate), 0) in x's dtype; zeros at rate 1; x
+    itself without a mask or at rate 0 (flax's `deterministic=True`)."""
+    if keep_mask is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if tuple(keep_mask.shape) != tuple(x.shape):
+        raise ValueError(f"dropout mask {tuple(keep_mask.shape)} for a tensor {tuple(x.shape)}")
+    return torch.where(keep_mask, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
+
+
+def draw_keep_mask(shape, rate: float, generator, device):
+    """A Bool keep mask of `shape`, True with probability 1 - rate (flax's
+    `bernoulli(rng, 1 - rate, shape)`), drawn from `generator` on
+    `device`."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 class RMSNorm(nn.Module):
     """l2norm(x) * sqrt(dim) * (gamma + 1), computed in float32."""
 
@@ -67,23 +88,34 @@ class RMSNorm(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feedforward, inner width int(dim * expansion * 2 / 3)."""
+    """GEGLU feedforward, inner width int(dim * expansion * 2 / 3), with
+    dropout on the gated hidden layer ([b, n, inner]) when a keep mask is
+    given."""
 
-    def __init__(self, dim: int, expansion_factor: float = 4.0):
+    def __init__(self, dim: int, expansion_factor: float = 4.0, dropout: float = 0.0):
         super().__init__()
-        dim_inner = int(dim * expansion_factor * 2 / 3)
-        self.proj_in = nn.Linear(dim, dim_inner * 2)
-        self.proj_out = nn.Linear(dim_inner, dim)
+        self.dim_inner = int(dim * expansion_factor * 2 / 3)
+        self.dropout = dropout
+        self.proj_in = nn.Linear(dim, self.dim_inner * 2)
+        self.proj_out = nn.Linear(self.dim_inner, dim)
 
-    def forward(self, x):
+    def forward(self, x, dropout_mask=None):
         h, gates = self.proj_in(x).chunk(2, dim=-1)
-        return self.proj_out(F.gelu(gates, approximate="none") * h)
+        h = apply_dropout(F.gelu(gates, approximate="none") * h, dropout_mask, self.dropout)
+        return self.proj_out(h)
 
 
 class Attention(nn.Module):
     """Multi-head attention: fused QK projection + separate V, learned
     value-residual mixing, per-head output gates, tanh softcap, interleaved
     RoPE, KV cache. forward returns (out, orig_values, new_cache).
+
+    `dropout`: dropout on the float32 attention probabilities, with the
+    caller's keep mask [b, h, n, kv], on the dense route of a call without
+    a flash spec only (the JAX module's einsum path); the flash,
+    token-major and decode routes, and the dense path that a flash spec
+    takes for shapes the kernel does not take, apply none, as in the JAX
+    package.
 
     `laser`: LASER attention, on every route: the attention reads the
     values as exp(softclamp(v, LASER_SOFTCLAMP)) and its output is
@@ -108,10 +140,11 @@ class Attention(nn.Module):
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  softcap_value: float = 50.0, gate_values: bool = True,
                  learned_value_residual_mix: bool = False, attn_impl: str = "dense",
-                 laser: bool = False, fuse_projections: bool = False):
+                 laser: bool = False, fuse_projections: bool = False, dropout: float = 0.0):
         super().__init__()
         inner = dim_head * heads
         self.heads, self.dim_head = heads, dim_head
+        self.dropout = dropout
         self.softcap_value = softcap_value
         self.attn_impl = attn_impl
         self.laser = laser
@@ -179,12 +212,26 @@ class Attention(nn.Module):
             out = out * torch.sigmoid(gates_pre).repeat_interleave(d, dim=-1)
         return self.to_out(out), orig_v, None
 
+    def route(self, n: int, flash_spec, cache, decode_bias, prefill: bool) -> str:
+        """The route of a call on n query tokens: 'nhd', 'decode', 'flash'
+        or 'dense' (see the class docstring)."""
+        flash = flash_spec is not None and self.attn_impl == "flash"
+        if flash and cache is None and decode_bias is None and nhd_eligible(
+                self.heads, n, self.dim_head):
+            return "nhd"
+        if cache is not None and decode_bias is not None and not prefill:
+            return "decode"
+        if flash and (cache is not None or supported(n, self.dim_head)):
+            return "flash"
+        return "dense"
+
     def forward(self, x, mask=None, rope=None, cache=None, value_residual=None,
-                flash_spec=None, decode_bias=None, decode_lens=None, prefill=False):
+                flash_spec=None, decode_bias=None, decode_lens=None, prefill=False,
+                dropout_mask=None):
         b, n, _ = x.shape
         q, k, v, mix_pre, gates_pre = self._project(x)
-        uncached_flash = flash_spec is not None and self.attn_impl == "flash" and cache is None
-        if uncached_flash and decode_bias is None and nhd_eligible(self.heads, n, self.dim_head):
+        route = self.route(n, flash_spec, cache, decode_bias, prefill)
+        if route == "nhd":
             return self._forward_nhd(x, q, k, v, mix_pre, gates_pre, rope, value_residual,
                                      flash_spec)
         q, k, v = (self._split_heads(t) for t in (q, k, v))
@@ -204,11 +251,10 @@ class Attention(nn.Module):
             k = apply_rope(angles, k)
 
         new_cache = None
-        use_decode_kernel = False
+        use_decode_kernel = route == "decode"
         if cache is not None:
             k_buf, v_buf, k_sc, v_sc = _write_cache(cache, k, v)
             new_cache = {**cache, "idx": cache["idx"] + n}
-            use_decode_kernel = decode_bias is not None and not prefill
             if prefill and flash_spec is not None:
                 k_full, v_full = k, v  # the chunk is the whole valid prefix
             elif use_decode_kernel:
@@ -226,9 +272,7 @@ class Attention(nn.Module):
                 q, k_buf, v_buf, decode_bias, k_scale=k_sc, v_scale=v_sc,
                 softcap=self.softcap_value, lens=decode_lens,
             )
-        elif flash_spec is not None and self.attn_impl == "flash" and (
-            cache is not None or supported(n, self.dim_head)
-        ):
+        elif route == "flash":
             out = flash_attention(
                 q, k_full, self._laser_values(v_full), spans=flash_spec.get("spans"),
                 causal=flash_spec.get("causal", False), softcap=self.softcap_value,
@@ -247,6 +291,8 @@ class Attention(nn.Module):
             if mask is not None:
                 sim = sim.masked_fill(~mask, max_neg_value(torch.float32))
             attn = torch.softmax(sim, dim=-1)
+            if flash_spec is None:  # the flash function's dense path drops nothing
+                attn = apply_dropout(attn, dropout_mask, self.dropout)
             v_att = self._laser_values(v_full)
             out = torch.matmul(attn.to(v_att.dtype).float(), v_att.float()).to(x.dtype)
 

@@ -19,6 +19,15 @@ Routing of a cached call (the same decisions as the JAX `Transformer`):
 With `remat` an uncached call (training) recomputes each block's forward in
 the backward instead of keeping its activations, as `nn.remat` does in the
 JAX `Transformer` (`transformer.py:541-550`).
+
+Dropout (`dropout` > 0) is flax's module-level dropout: on the feedforward's
+gated hidden layer and, on the dense attention path of a call without a
+flash spec only, on the attention probabilities. It is live only in a call
+given keep masks (`forward(dropout=)`: one {'attn', 'ff'} dict per block, or a
+`torch.Generator` to draw them from), the counterpart of applying the JAX
+core with `deterministic=False` and a 'dropout' rng; every other call is
+deterministic. The masks are inputs of the (rematerialized) block, so a
+recomputed forward uses the same ones.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from transfusion_tpu_torch.models.layers import (
     Attention,
     FeedForward,
     RMSNorm,
+    draw_keep_mask,
     random_fourier_embed,
 )
 from transfusion_tpu_torch.ops.decode_attn import decode_supported
@@ -108,22 +118,24 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim, dim_head, heads, ff_expansion_factor, attn_softcap,
                  attn_gate_values, attn_impl, attn_laser, fuse_projections, streams, fracs,
-                 ind, is_first, has_skip):
+                 ind, is_first, has_skip, dropout=0.0):
         super().__init__()
         self.skip_proj = nn.Linear(dim * 2, dim, bias=False) if has_skip else None
         self.attn = Attention(
             dim=dim, dim_head=dim_head, heads=heads, softcap_value=attn_softcap,
             gate_values=attn_gate_values, learned_value_residual_mix=not is_first,
             attn_impl=attn_impl, laser=attn_laser, fuse_projections=fuse_projections,
+            dropout=dropout,
         )
-        self.ff = FeedForward(dim, ff_expansion_factor)
+        self.ff = FeedForward(dim, ff_expansion_factor, dropout)
         self.attn_ada = AdaptiveWrapper(dim, dim * 4)
         self.ff_ada = AdaptiveWrapper(dim, dim * 4)
         self.hc_attn = HyperConnection(dim, streams, fracs, layer_index=2 * ind)
         self.hc_ff = HyperConnection(dim, streams, fracs, layer_index=2 * ind + 1)
 
     def forward(self, s, skip, cond, cond_index, mask, rope, is_any_modality,
-                value_residual, layer_cache, flash_spec, decode_bias, decode_lens, prefill):
+                value_residual, layer_cache, flash_spec, decode_bias, decode_lens, prefill,
+                dropout_masks=None):
         if self.skip_proj is not None and skip is not None:
             # the projection runs in its weight's dtype (flax's Dense(dtype=)
             # casts its input); the float32 streams of a multi-stream bf16
@@ -131,17 +143,20 @@ class TransformerBlock(nn.Module):
             cat = torch.cat([s, skip], dim=-1)
             s = self.skip_proj(cat.to(self.skip_proj.weight.dtype)) + s
         ada = dict(cond=cond, cond_index=cond_index, is_any_modality=is_any_modality)
+        dropout_masks = dropout_masks or {}
 
         branch, s_mixed = self.hc_attn(s)
         attn_out, attn_values, new_cache = self.attn_ada(
             self.attn, branch, mask=mask, rope=rope, cache=layer_cache,
             value_residual=value_residual, flash_spec=flash_spec,
-            decode_bias=decode_bias, decode_lens=decode_lens, prefill=prefill, **ada,
+            decode_bias=decode_bias, decode_lens=decode_lens, prefill=prefill,
+            dropout_mask=dropout_masks.get("attn"), **ada,
         )
         s = self.hc_attn(s_mixed, attn_out)
 
         branch, s_mixed = self.hc_ff(s)
-        s = self.hc_ff(s_mixed, self.ff_ada(self.ff, branch, **ada))
+        s = self.hc_ff(s_mixed, self.ff_ada(self.ff, branch, dropout_mask=dropout_masks.get("ff"),
+                                            **ada))
         return s, attn_values, new_cache
 
 
@@ -165,11 +180,6 @@ class Transformer(nn.Module):
                  num_residual_fracs: int = 4, fuse_projections: bool = False,
                  dropout: float = 0.0, remat: bool = False, remat_policy: str = "full"):
         super().__init__()
-        if dropout > 0:
-            raise NotImplementedError(
-                f"dropout={dropout}: attention/feedforward dropout is queued in "
-                "ROADMAP.md (Queue 1, 'dropout'); the port trains with dropout 0"
-            )
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={remat_policy!r} (one of {REMAT_POLICIES})")
         if attn_impl not in ("dense", "flash"):
@@ -186,6 +196,7 @@ class Transformer(nn.Module):
         self.attn_laser = attn_laser
         self.rope_theta = rope_theta
         self.remat, self.remat_policy = remat, remat_policy
+        self.dropout = dropout
         # fixed (non-trainable) frequencies of the time embedding; from_flax
         # carries the JAX model's draw across
         self.register_buffer("fourier_weights", torch.randn(dim // 2))
@@ -195,7 +206,7 @@ class Transformer(nn.Module):
                 dim, dim_head, heads, ff_expansion_factor, attn_softcap,
                 attn_gate_values, attn_impl, attn_laser, fuse_projections,
                 num_residual_streams, num_residual_fracs, ind,
-                is_first=ind == 0, has_skip=unet_skips and ind >= depth / 2,
+                is_first=ind == 0, has_skip=unet_skips and ind >= depth / 2, dropout=dropout,
             )
             for ind in range(depth)
         )
@@ -237,8 +248,43 @@ class Transformer(nn.Module):
         return checkpoint(_call_block, block, dict(block.named_parameters()), *args,
                           use_reentrant=False, **kw)
 
-    def _build_mask(self, n, cache, causal, spans):
-        """Bool[b|1, 1, n, kv] or None."""
+    def _flash_spec(self, spans, causal, cache, prefill):
+        """The flash kernel's mask spec for a call, or None when the call
+        does not go to the flash kernel."""
+        flash = self.attn_impl == "flash" and (cache is None or prefill)
+        if flash and (spans is not None or causal):
+            return {"spans": spans, "causal": causal}
+        return None
+
+    def draw_dropout_masks(self, generator: torch.Generator, b: int, n: int, spans=None,
+                           causal: bool = False, cache: Optional[dict] = None,
+                           prefill: bool = False, device=None) -> list:
+        """The keep masks that `forward(dropout=generator)` draws for a call
+        on b x n tokens with these spans / causal / cache / prefill: one
+        {'attn': Bool[b, h, n, kv] | None, 'ff': Bool[b, n, ff_inner]} dict
+        per block (None entries where nothing is dropped), drawn block by
+        block, attention before feedforward, on `device` (default the
+        model's). The attention mask is drawn only when the call's
+        attention is the dense path without a flash spec, the only one that
+        drops (the JAX module's einsum path). Draw them on one device and
+        move them to replay the same call elsewhere."""
+        if self.dropout == 0.0:
+            return [None] * self.depth
+        device = self.fourier_weights.device if device is None else device
+        drop_attn = self._flash_spec(spans, causal, cache, prefill) is None and not (
+            self._use_decode_kernel(cache, prefill, spans, causal, n))
+        kv = n if cache is None else cache_capacity(cache)
+        masks = []
+        for block in self.blocks:
+            attn = None
+            if drop_attn:
+                attn = draw_keep_mask((b, self.heads, n, kv), self.dropout, generator, device)
+            ff = draw_keep_mask((b, n, block.ff.dim_inner), self.dropout, generator, device)
+            masks.append({"attn": attn, "ff": ff})
+        return masks
+
+    def _build_mask(self, n, cache, causal, spans, device):
+        """Bool[b|1, 1, n, kv] on `device`, or None."""
         masks = []
         if cache is not None:
             cap = cache_capacity(cache)
@@ -257,7 +303,7 @@ class Transformer(nn.Module):
                 masks.append(F.pad(m, (0, cap - n))[:, None])
         else:
             if causal:
-                seq = torch.arange(n)
+                seq = torch.arange(n, device=device)
                 masks.append((seq[:, None] >= seq[None, :])[None, None])
             if spans is not None:
                 masks.append(spans_to_attn_mask(n, spans)[:, None])
@@ -270,14 +316,17 @@ class Transformer(nn.Module):
 
     def forward(self, x, times=None, times_inst=None, spans=None, is_any_modality=None,
                 rotary_pos=None, cache: Optional[dict] = None, causal: bool = False,
-                prefill: bool = False):
+                prefill: bool = False, dropout=None):
         """x Float[b, n, dim]: only the tokens to process (the tail when
         decoding). times Float[b] | Float[b, n] per-token conditioning, or
         times_inst Float[b, m] per span instance (needs spans). times
         Float[b] with is_any_modality=True, no spans, no cache and not
         causal is the JAX `modality_only` forward: every token conditioned
         as modality on its sample's time, dense attention with no mask.
-        Returns (out, new_cache)."""
+        `dropout`: None (deterministic), a list of one {'attn': Bool[b, h,
+        n, kv] | None, 'ff': Bool[b, n, ff_inner] | None} keep-mask dict per
+        block, or a torch.Generator to draw them from. Returns (out,
+        new_cache)."""
         b, n, _ = x.shape
 
         cond = cond_index = None
@@ -297,12 +346,9 @@ class Transformer(nn.Module):
             rfe = random_fourier_embed(times, self.dim, self.fourier_weights)
             cond = F.silu(self.to_time_cond(rfe.to(x.dtype)))
 
-        use_flash = self.attn_impl == "flash" and cache is None
-        prefill_flash = prefill and cache is not None and self.attn_impl == "flash"
-        flash_spec = decode_bias = decode_lens = mask = None
-        if (use_flash or prefill_flash) and (spans is not None or causal):
-            flash_spec = {"spans": spans, "causal": causal}
-        elif self._use_decode_kernel(cache, prefill, spans, causal, n):
+        flash_spec = self._flash_spec(spans, causal, cache, prefill)
+        decode_bias = decode_lens = mask = None
+        if flash_spec is None and self._use_decode_kernel(cache, prefill, spans, causal, n):
             cap = cache_capacity(cache)
             idx = cache["idx"]
             if "mask" in cache:
@@ -315,8 +361,8 @@ class Transformer(nn.Module):
             # chunk writes; NOT sum(valid): after a padded prefill the valid
             # slots are not a prefix
             decode_lens = (idx + n).to(torch.int32).reshape(-1).expand(b).contiguous()
-        else:
-            mask = self._build_mask(n, cache, causal, spans)
+        elif flash_spec is None:
+            mask = self._build_mask(n, cache, causal, spans, x.device)
 
         if is_any_modality is None and spans is not None:
             is_any_modality = spans_to_is_any_modality(n, spans)
@@ -324,6 +370,15 @@ class Transformer(nn.Module):
         rope = None
         if rotary_pos is not None:
             rope = rope_angles(rotary_pos, self.dim_head, self.rope_theta)
+
+        dropout_masks = [None] * self.depth
+        if dropout is not None and self.dropout > 0.0:
+            if isinstance(dropout, torch.Generator):
+                dropout = self.draw_dropout_masks(dropout, b, n, spans, causal, cache, prefill,
+                                                  x.device)
+            if len(dropout) != self.depth:
+                raise ValueError(f"{len(dropout)} dropout mask dicts for {self.depth} blocks")
+            dropout_masks = list(dropout)
 
         s = expand_stream(x, self.streams)
         skips = []
@@ -341,7 +396,8 @@ class Transformer(nn.Module):
                 layer_cache["idx"] = cache["idx"]
 
             args = (s, skip, cond, cond_index, mask, rope, is_any_modality,
-                    value_residual, layer_cache, flash_spec, decode_bias, decode_lens, prefill)
+                    value_residual, layer_cache, flash_spec, decode_bias, decode_lens, prefill,
+                    dropout_masks[ind])
             s, attn_values, _ = self._remat_block(block, *args) if remat else block(*args)
             if value_residual is None:
                 value_residual = attn_values

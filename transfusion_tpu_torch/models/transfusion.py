@@ -26,8 +26,11 @@ built with `device="cpu"`.
 
 The joint loss has the JAX package's velocity-consistency term (an EMA
 forward at t + delta, `loss(velocity_consistency_ema_params=)`) and its
-reconstruction term (`reconstruction_loss_weight`). Not ported yet
-(ROADMAP.md): dropout.
+reconstruction term (`reconstruction_loss_weight`). Dropout is the JAX
+package's: module-level, live only where the core is applied with keep
+masks (`TransfusionCore.joint(dropout=)` etc.); every sampler and
+`loss(train=False)` run without it, and `loss(train=True)` with dropout > 0
+is refused, as flax refuses it there for want of a 'dropout' rng.
 """
 
 from __future__ import annotations
@@ -262,15 +265,18 @@ class TransfusionCore(nn.Module):
             pred_flows.append(self.seq_to_latent(out_rows, g.modality_type, g.seq_shape))
         return logits, pred_flows
 
-    def joint(self, packed, times, cache: Optional[dict] = None, return_logits: bool = True):
+    def joint(self, packed, times, cache: Optional[dict] = None, return_logits: bool = True,
+              dropout=None):
         """Forward a packed (torch) batch; times Float[b, m]. With a cache
         this is the cached prefill: attention runs over the chunk alone
-        through the flash kernel and the cache is written. Returns
-        (logits | None, embed, pred_flows, group_rows, new_cache)."""
+        through the flash kernel and the cache is written. `dropout`: the
+        transformer's keep masks or a generator for them (`Transformer.
+        forward`); None is deterministic. Returns (logits | None, embed,
+        pred_flows, group_rows, new_cache)."""
         x, rotary_pos, group_rows = self.joint_embed_in(packed)
         embed, new_cache = self.transformer(
             x, times_inst=times, spans=packed.spans, rotary_pos=rotary_pos,
-            cache=cache, prefill=cache is not None,
+            cache=cache, prefill=cache is not None, dropout=dropout,
         )
         logits, pred_flows = self.joint_out(embed, packed, times, group_rows, return_logits)
         return logits, embed, pred_flows, group_rows, new_cache
@@ -305,19 +311,21 @@ class TransfusionCore(nn.Module):
             out_rows = model_output_to_flow(out_rows, rows, times_row, self.eps)
         return self.seq_to_latent(out_rows, modality_type, seq_shape), new_cache
 
-    def text_forward(self, text, cache=None, rotary_pos=None, prefill: bool = False):
+    def text_forward(self, text, cache=None, rotary_pos=None, prefill: bool = False,
+                     dropout=None):
         """Causal LM forward of the chunk `text` Int[b, n]. rotary_pos
-        defaults to arange(n); pass absolute positions when decoding."""
+        defaults to arange(n); pass absolute positions when decoding.
+        `dropout` as in `joint`."""
         n = text.shape[1]
         if rotary_pos is None:
             rotary_pos = torch.arange(n, device=text.device)
         embed, new_cache = self.transformer(
             self.embed_text(text), causal=True, rotary_pos=rotary_pos,
-            cache=cache, prefill=prefill,
+            cache=cache, prefill=prefill, dropout=dropout,
         )
         return self.text_logits(embed), new_cache
 
-    def modality_forward(self, noised, times, modality_type: int):
+    def modality_forward(self, noised, times, modality_type: int, dropout=None):
         """The flow-matching forward of one modality alone (JAX
         `modality_forward`, `transfusion.py:392-407`): noised Float[b,
         *latent_shape, d_latent] channel-last, times Float[b]; every token
@@ -328,10 +336,11 @@ class TransfusionCore(nn.Module):
         Attention here is dense and unmasked. The JAX transformer gives a
         modality-only call neither a flash spec nor a decode bias and runs
         XLA's einsum attention, no Pallas kernel, so the port's dense path
-        is its counterpart, not a fallback from a kernel."""
+        is its counterpart, not a fallback from a kernel. `dropout` as in
+        `joint`."""
         rows, seq_shape = self.latent_to_seq(noised, modality_type)
         embed, _ = self.transformer(self.input_rows(rows, modality_type, seq_shape),
-                                    times=times, is_any_modality=True)
+                                    times=times, is_any_modality=True, dropout=dropout)
         return self.seq_to_latent(embed, modality_type, seq_shape)
 
 
@@ -512,6 +521,40 @@ class Transfusion:
             else:
                 out.append(_frozen(item[0], item[1], self.device))
         return out
+
+    # ------------------------------------------------------------------
+    # accessors (JAX `transfusion.py:632-656`)
+    # ------------------------------------------------------------------
+
+    def get_modality_info(self, modality_type: Optional[int] = None) -> dict:
+        """Modality `modality_type`'s (default 0) configuration, its token
+        ids and its frozen encoder / decoder (None where it has none)."""
+        i = default(modality_type, 0)
+        mc = self.modalities[i]
+        return dict(
+            modality_type=i, dim_latent=mc.dim_latent,
+            channel_first_latent=mc.channel_first_latent, add_pos_emb=mc.add_pos_emb,
+            num_dim=mc.num_dim, default_shape=mc.default_shape, to_shape_fn=mc.to_shape_fn,
+            som_id=self.som_ids[i], eom_id=self.eom_ids[i],
+            encoder=self.encoders[i], decoder=self.decoders[i],
+        )
+
+    def get_all_modality_info(self) -> list:
+        return [self.get_modality_info(i) for i in range(self.num_modalities)]
+
+    def get_modality_shape(self, modality, modality_type: Optional[int] = None) -> tuple:
+        """The spatial shape of one modality item in the user's layout."""
+        mc = self.modalities[default(modality_type, 0)]
+        shape = tuple(np.shape(modality))
+        if mc.channel_first_latent and len(shape) > 1:
+            shape = shape[1:] + shape[:1]
+        return shape[:-1]
+
+    def create_dataloader(self, dataset, **kwargs):
+        """A list-collating `DataLoader` over `dataset` (`data/dataloader.py`)."""
+        from transfusion_tpu_torch.data.dataloader import create_dataloader
+
+        return create_dataloader(dataset, **kwargs)
 
     # ------------------------------------------------------------------
     # weights and packing
@@ -775,6 +818,14 @@ class Transfusion:
         the microbatches' losses and gradients sum to the whole batch's),
         or by this batch's own. Returns (total, LossBreakdown)."""
         T = self.num_modalities
+        dropout = self.transformer_cfg.get("dropout", 0.0)
+        if train and dropout > 0:
+            raise ValueError(
+                f"loss(train=True) with dropout={dropout}: the JAX package applies the core "
+                "with deterministic=False and no 'dropout' rng there, and flax refuses it "
+                "(InvalidRngError: Dropout_0 needs PRNG for \"dropout\"); the port refuses "
+                "the same call. Use train=False (dropout is then a no-op), or apply the "
+                "core's joint / text_forward / modality_forward with explicit dropout masks")
         scales = loss_scales
         if scales is None:
             scales = self.loss_denominators(packed, draws, train, prob_uncond)

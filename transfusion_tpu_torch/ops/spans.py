@@ -2,12 +2,26 @@
 
 A batch's modality layout is `spans: Int[b, m, 3]` holding
 `(modality_type, offset, length)` triples, zero-padded (length <= 0 rows
-are inert).
+are inert). `sort_spans_by_offset` and `spans_to_token_times` carry the JAX
+functions' shape annotations, checked when `TYPECHECK` is set
+(`utils/typing.py`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from transfusion_tpu_torch.utils.typing import Float, Int, Tensor, typecheck
+
+
+@typecheck
+def sort_spans_by_offset(spans: Int[Tensor, "b m 3"]):
+    """Sort spans by ascending offset, empty (length <= 0) rows last (a
+    stable sort, as `jnp.argsort`). Returns (sorted spans Int[b, m, 3],
+    sort indices Int[b, m])."""
+    keys = torch.where(spans[..., 2] <= 0, torch.iinfo(torch.int32).max, spans[..., 1])
+    order = torch.argsort(keys, dim=-1, stable=True)
+    return torch.take_along_dim(spans, order[..., None], dim=1), order
 
 
 def spans_to_instance_mask(seq_len: int, spans):
@@ -65,3 +79,12 @@ def spans_to_rotary_positions(seq_len: int, spans):
     is_any = spans_to_is_any_modality(seq_len, shrunk)
     seq = torch.arange(seq_len, device=spans.device)[None, :]
     return seq - torch.cumsum(is_any.to(torch.int64), dim=-1)
+
+
+@typecheck
+def spans_to_token_times(seq_len: int, spans: Int[Tensor, "b m 3"],
+                         times: Float[Tensor, "b m"]) -> Float[Tensor, "b {seq_len}"]:
+    """Float[b, n] per-token time conditioning: a token inside span
+    instance m gets times[b, m], text tokens 0."""
+    inst = spans_to_instance_mask(seq_len, spans)
+    return torch.einsum("bmn,bm->bn", inst.to(times.dtype), times)

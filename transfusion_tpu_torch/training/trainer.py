@@ -69,6 +69,14 @@ def _queued(what: str, item: str):
     raise NotImplementedError(f"{what} is not in the PyTorch port yet (ROADMAP.md: {item})")
 
 
+def _structure(packed: PackedBatch) -> tuple:
+    """What must match for packed batches to stack: the buffers' shapes and
+    each latent group's type, sequence shape and shapes."""
+    return (tuple(packed.text.shape), tuple(packed.spans.shape), tuple(
+        (g.modality_type, tuple(g.seq_shape), tuple(g.latents.shape), tuple(g.batch_idx.shape))
+        for g in packed.groups))
+
+
 class Trainer:
     def __init__(self, model, optimizer: Optional[optim.GradientTransformation] = None,
                  learning_rate=3e-4, grad_clip_norm: Optional[float] = 0.5,
@@ -247,15 +255,32 @@ class Trainer:
             del grads_m  # not held through the next microbatch or the update
         return self._apply(state, grads, loss, parts, sum(int(p.total_tokens) for p in packs))
 
-    def train_steps(self, state: TrainState, batch, steps: int, generator=None):
-        """`steps` optimizer steps on one batch (packed once), each with
-        fresh draws from `generator`: the per-step semantics of the JAX
-        `train_steps` scan, as a Python loop. Returns (state, last metrics)."""
-        packed = (self._microbatches(batch) if self.grad_accumulation is not None
-                  else self._packed(batch))
+    def train_steps(self, state: TrainState, batches, steps: int, generator=None):
+        """`steps` optimizer steps, each with fresh draws from `generator`:
+        the per-step semantics of the JAX `train_steps` scan, as a Python
+        loop. Without grad_accumulation, a list or tuple of packed batches
+        is cycled (step i takes batches[i % len]) and must share one packed
+        structure, as the JAX scan stacks them; one packed batch, or a
+        ragged batch (a list of samples, packed once), is reused every
+        step. With grad_accumulation, `batches` is one step's batch (a
+        ragged list or M packed microbatches), reused every step. Returns
+        (state, last metrics)."""
+        if self.grad_accumulation is not None:
+            packs = [self._microbatches(batches)]
+        elif isinstance(batches, (list, tuple)) and any(
+                isinstance(b, PackedBatch) for b in batches):
+            packs = [self._packed(b) for b in batches]
+            if len({_structure(p) for p in packs}) > 1:
+                raise ValueError(
+                    "train_steps batches must share one packed structure (same padded "
+                    "length and same modality group shapes), as the JAX scan stacks them: "
+                    "pack with a fixed pad_len and shape-bucketed modalities, or use "
+                    "train_step per batch")
+        else:
+            packs = [self._packed(batches)]
         metrics = {}
-        for _ in range(steps):
-            state, metrics = self.train_step(state, packed, generator=generator)
+        for i in range(steps):
+            state, metrics = self.train_step(state, packs[i % len(packs)], generator=generator)
         return state, metrics
 
     def sync_model(self, state: TrainState):

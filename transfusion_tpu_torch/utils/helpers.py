@@ -1,6 +1,6 @@
-"""Host-side helpers (counterpart of `transfusion_tpu/utils/helpers.py`,
-only what the serving slice uses) plus device resolution for the port's
-entry points."""
+"""Host-side helpers (counterpart of `transfusion_tpu/utils/helpers.py`)
+plus device resolution for the port's entry points. A modality sample's
+items may be numpy arrays or torch tensors (on any device)."""
 
 from __future__ import annotations
 
@@ -8,8 +8,24 @@ import numpy as np
 import torch
 
 
+def exists(v) -> bool:
+    return v is not None
+
+
 def default(v, d):
     return v if v is not None else d
+
+
+def identity(t, *args, **kwargs):
+    return t
+
+
+def first(it):
+    return it[0]
+
+
+def divisible_by(num, den) -> bool:
+    return (num % den) == 0
 
 
 def cast_tuple(t, length: int = 1) -> tuple:
@@ -40,7 +56,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 def is_int_array(t) -> bool:
+    if isinstance(t, torch.Tensor):
+        return not (t.is_floating_point() or t.is_complex() or t.dtype == torch.bool)
     return hasattr(t, "dtype") and np.issubdtype(np.asarray(t).dtype, np.integer)
+
+
+def is_float_array(t) -> bool:
+    if isinstance(t, torch.Tensor):
+        return t.is_floating_point()
+    return hasattr(t, "dtype") and np.issubdtype(np.asarray(t).dtype, np.floating)
 
 
 def concat_contiguous_text(modality_sample: list) -> list:
@@ -57,6 +81,23 @@ def concat_contiguous_text(modality_sample: list) -> list:
             output[-1] = np.concatenate([np.asarray(output[-1]), np.asarray(item)])
         else:
             output.append(item)
+    return output
+
+
+def print_modality_sample(modality_sample: list) -> list[tuple]:
+    """Print a `(kind, shape)` summary of a modality sample ('text',
+    'modality', or 'modality:{type}' for a (type, array) item) and return
+    it."""
+    output = []
+    for item in modality_sample:
+        if isinstance(item, tuple):
+            modality_type, item = item
+            output.append((f"modality:{modality_type}", tuple(np.shape(item))))
+        elif is_int_array(item):
+            output.append(("text", tuple(np.shape(item))))
+        else:
+            output.append(("modality", tuple(np.shape(item))))
+    print(output)
     return output
 
 
