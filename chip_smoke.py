@@ -16,12 +16,16 @@ Phases (any failure exits non-zero and prints no result line):
      the row rule and after safe_log, the backward under do = g / out), the
      decode kernel's every path with whole chunks past lens and rows with
      no valid slot, and the
-     kernels a decode call launches (at most 2) (forwards:
+     kernels a decode call enqueues (1 or 2, by the wrapper's own counter;
+     the profiler names them and must see no more than 2) (forwards:
      bf16 within 2e-2, float32 within 1e-4 max abs error; every row's max
      error also within 0.08 (bf16) / 1e-3 (float32) of that row's RMS;
      backwards: dq/dk/dv within 1e-2 (bf16) / 1e-4 (float32) of the
-     gradient's largest element, rows as the forwards), with kernel ms,
-     plain ms and the card's bound;
+     gradient's largest element, rows as the forwards; a backward past the
+     row rule saves its capture under build/ and logs its worst rows:
+     RMS, error, how far the row cancels and what rounding the kernel's
+     bf16 operands alone gives it), with kernel ms, plain ms and the
+     card's bound;
   3. reference: a small float32 model on the card (kernels) against the
      same weights on the CPU (plain versions): prefill logits, greedy
      tokens and sampled latents must agree (cached and uncached `sample`
@@ -148,6 +152,22 @@ Phases (any failure exits non-zero and prints no result line):
      and the backward 12 x 2 times, the loss must be finite and fall, and
      one step with remat_policy 'dots' from the same state and draws must
      give the same loss within 1e-3 relative;
+  parallel. context parallelism and the mesh trainer, on one card: (a) the
+     ring and all-gather schedules of 4 ranks, run one rank after another
+     (`parallel/context.py`'s `ring_local` / `allgather_local`, the chunks
+     a rank would receive sliced from the whole K/V) on phase 6's captured
+     n 16384 call, forward and backward: the assembled output against the
+     whole-sequence kernel call, dq / dk / dv against the whole-sequence
+     backward kernel at the schedule's own output and lse (the bounds of
+     phase 2), launches by TPU row (ring: rows 2 / 8; all-gather: 3 / 9),
+     chunks skipped, ms against the whole call; (b) the bench model with
+     attn_impl 'ring' under `Trainer(mesh=make_mesh())` on a one-rank NCCL
+     group for 20 steps (loss finite and falling, the first step equal to
+     a mesh-less flash step within 1e-3, one forward and one backward
+     launch per layer per step), then the twin of
+     `examples/train_distributed.py` under torchrun with one rank (its exit
+     code checked). Communication between ranks is held on the CPU only
+     (tests/test_torch_distributed.py, gloo);
   7. the `kernels` line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -332,9 +352,10 @@ def kernels_per_call(torch, fn, calls=10, attempts=5):
     """(device kernels and copies a call of fn launches, their names),
     counted by the profiler over `calls` calls after a warm-up call. The
     profiler drops device events now and then (a window may even come back
-    empty or short of one event a call), so a count is a lower bound: the
-    most of up to `attempts` windows, stopping at the first that saw at
-    least one a call."""
+    empty or short of one event a call), so a count is a lower bound, good
+    for names and as an upper-bound check only: the most of up to
+    `attempts` windows, stopping at the first that saw at least one a
+    call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -411,9 +432,19 @@ def check_decode(torch, mods, a, iters=20, library=False, count=False):
     plain = time_ms(lambda: da.decode_attention_plain(*args), max(2, iters // 4))
     extra = {}
     if count:
-        n, names = kernels_per_call(torch, lambda: da.decode_attention(*args))
-        extra["kernels_per_call"] = n
-        require(1 <= n <= 2, f"decode_attention launched {n} kernels a call (at most 2): {names}")
+        # the wrapper's own count of the kernels it enqueued; the profiler
+        # names them and bounds them from above (it may drop events, never
+        # add them)
+        calls = 10
+        da.decode_attention.kernels = 0
+        for _ in range(calls):
+            da.decode_attention(*args)
+        n = da.decode_attention.kernels / calls
+        seen, names = kernels_per_call(torch, lambda: da.decode_attention(*args), calls)
+        extra["kernels_per_call"], extra["profiler_kernels_per_call"] = n, seen
+        require(1 <= n <= 2, f"decode_attention enqueued {n} kernels a call (1 or 2)")
+        require(seen <= 2, f"the profiler saw {seen} device kernels a decode call (at most 2): "
+                f"{names}")
     if library:
         extra["library_ms"], extra["library_max_abs_err"] = flex_decode_ms(torch, mods, a, iters)
     b, h, nq, d = q.shape
@@ -505,6 +536,74 @@ def bwd_bound(torch, b, h, nq, nkv, d, itemsize, visible, extra_bytes=0):
     return nbytes, 10 * h * d * visible
 
 
+def row_cancellation(torch, mods, a, lse, delta, grad, ix):
+    """|sum of the terms| / sum of |terms| (RMS over d) of one row of dq (a
+    query row) or dk / dv (a key row), from the float32 plain arithmetic:
+    near 0 when the row's gradient cancels, so its RMS sits far below the
+    terms that the kernel rounds."""
+    q, k, v, do, sp, cap = a["q"], a["k"], a["v"], a["do"], a["spans"], a["softcap"]
+    b, h, i = ix
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = (t[b, h].float() for t in (q, k, v, do))
+    rows = torch.arange(q.shape[2], device=q.device) + int(a["q_offset"] or 0)
+    cols = torch.arange(k.shape[2], device=q.device) + int(a["kv_offset"] or 0)
+    if grad == "dq":
+        s = (qf[i:i + 1] * scale) @ kf.T
+        rows, lse_r, delta_r = rows[i:i + 1], lse[b, h, i:i + 1], delta[b, h, i:i + 1]
+    else:
+        s = (qf * scale) @ kf[i:i + 1].T
+        cols, lse_r, delta_r = cols[i:i + 1], lse[b, h], delta[b, h]
+    t = torch.tanh(s / cap) * cap
+    allowed = mods["spans"].span_allowed(rows, cols, None if sp is None else sp[b:b + 1])[0]
+    p = torch.where(allowed, torch.exp(t - lse_r.float()[:, None]), 0.0)
+    if grad == "dv":
+        terms = p * dof
+    else:
+        dp = dof[i:i + 1] @ vf.T if grad == "dq" else dof @ vf[i:i + 1].T
+        ds = p * (dp - delta_r.float()[:, None]) * (1.0 - (t / cap) ** 2)
+        terms = ds.T * kf * scale if grad == "dq" else ds * qf * scale
+    return (terms.sum(0).norm() / terms.abs().sum(0).norm().clamp_min(1e-38)).item()
+
+
+def diagnose_bwd_rows(torch, mods, a, got, want, lse, delta, block_q, worst=3):
+    """A backward hold past the row rule: save its capture (q, k, v, do,
+    lse, spans, offsets) under build/ and log the worst rows of dq, dk and
+    dv: index, reference RMS, max error, the gradient's largest element,
+    how far the row cancels (`row_cancellation`) and the error that
+    rounding the kernel's bf16 operands alone gives on it
+    (`backward_plain_f32(round_operands=bf16)` against float32)."""
+    import numpy as np
+
+    fa = mods["flash"]
+    q_off, kv_off = int(a["q_offset"] or 0), int(a["kv_offset"] or 0)
+    rounded = (None,) * 3
+    if a["q"].dtype == torch.bfloat16:
+        rounded = fa.backward_plain_f32(a["q"], a["k"], a["v"], a["do"], lse, delta, a["spans"],
+                                        a["softcap"], q_off, kv_off, block_q,
+                                        round_operands=torch.bfloat16)
+    rows = []
+    for name, g, w, r in zip(("dq", "dk", "dv"), got, want, rounded):
+        err = (g.float() - w.float()).abs().amax(-1)
+        rms = w.float().pow(2).mean(-1).sqrt()
+        inf = torch.full_like(err, float("inf"))
+        rel = torch.where(rms > 0, err / rms.clamp_min(1e-38), torch.where(err > 0, inf, 0.0))
+        top = rel.flatten().topk(worst)
+        for val, idx in zip(top.values.tolist(), top.indices.tolist()):
+            ix = tuple(int(x) for x in np.unravel_index(idx, rel.shape))
+            rows.append({
+                "grad": name, "b_h_row": ix, "row_rel_err": val, "err": err[ix].item(),
+                "ref_rms": rms[ix].item(), "grad_max": w.float().abs().max().item(),
+                "cancellation": row_cancellation(torch, mods, a, lse, delta, name, ix),
+                "rounding_rel_err": None if r is None else
+                ((r[ix] - w[ix].float()).abs().max() / rms[ix].clamp_min(1e-38)).item(),
+            })
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    path = os.path.join(HERE, "build", f"bwd_row_failure_{time.time_ns()}.pt")
+    torch.save({k: a[k] for k in ("q", "k", "v", "do", "spans", "softcap", "causal", "q_offset",
+                                  "kv_offset")} | {"lse": lse, "g_lse": a.get("g_lse")}, path)
+    log(json.dumps({"bwd_row_rule_failure": os.path.relpath(path, HERE), "worst_rows": rows}))
+
+
 def check_flash_bwd(torch, mods, a, iters=5, library=False, block_q=None):
     """The backward kernel against its plain version (block_q query rows at
     a time) on the arguments `a` of one flash_attention call plus the
@@ -522,6 +621,8 @@ def check_flash_bwd(torch, mods, a, iters=5, library=False, block_q=None):
     want = fa.flash_attention_backward_plain(*pargs)
     torch.cuda.synchronize()
     err, rel, row = grad_compare(torch, got, want)
+    if row > ROW_REL_TOL[str(q.dtype).split(".")[-1]]:
+        diagnose_bwd_rows(torch, mods, a, got, want, lse, delta, block_q)
     ms = time_ms(lambda: fa.flash_attention_backward(*args), iters)
     plain = time_ms(lambda: fa.flash_attention_backward_plain(*pargs), max(2, iters // 3))
     b, h, nq, d = q.shape
@@ -2821,6 +2922,7 @@ def phase_long_training(torch, Transfusion, Trainer, mods):
         "flash_bwd_streamed": record("flash_bwd_streamed", shape, check_flash_bwd(
             torch, mods, a, iters=3, library=True, block_q=LONG_BLOCK_Q), torch.bfloat16),
     }
+    capture = a  # phase "parallel" shards this call's sequence
     del a, calls
 
     # one step under remat 'dots' from the state the timed steps start at:
@@ -2874,7 +2976,241 @@ def phase_long_training(torch, Transfusion, Trainer, mods):
     require(rel <= 1e-3, f"{name}: remat 'dots' loss {dots_loss} vs 'full' {losses[0]}")
     require(norm_rel <= 1e-2,
             f"{name}: remat 'dots' grad norm {dots_norm} vs 'full' {norms[0]}")
-    return {k: counts[k] for k in BY_ROW}, main
+    return {k: counts[k] for k in BY_ROW}, main, capture
+
+
+# ---------------------------------------------------------------------------
+# phase "parallel": context parallelism and the mesh trainer
+# ---------------------------------------------------------------------------
+
+CP_RANKS = 4
+
+
+def by_row(mods):
+    """The head-major wrappers' launches by TPU kernel-table row."""
+    return {**mods["counters"]["flash_fwd"].launches_by_row,
+            **mods["counters"]["flash_bwd"].launches_by_row}
+
+
+def cp_schedule(torch, mods, a, schedule, P):
+    """Each of P ranks' compute of `schedule` ('ring' or 'allgather') on
+    the call `a`, one rank after another: the same `ring_local` /
+    `allgather_local` the distributed path runs, the chunks a rank would
+    receive sliced from the whole K / V. Forward and backward (the output
+    cotangent a['do'] on the rank's rows); each rank's dk / dv partials sum
+    in float32, as the ring's reverse rotation and the all-gather's
+    reduce-scatter sum them. Returns (out, dq, dk, dv, chunks run,
+    skipped)."""
+    ctx = mods["context"]
+    q, k, v, do = a["q"], a["k"], a["v"], a["do"]
+    nl = q.shape[2] // P
+    ctx.ring_attention.chunks.update(run=0, skipped=0)
+    outs, dqs = [], []
+    dk, dv = torch.zeros(k.shape, device=k.device), torch.zeros(v.shape, device=v.device)
+    for r in range(P):
+        q_r = q[:, :, r * nl:(r + 1) * nl].detach().requires_grad_(True)
+        if schedule == "ring":
+            srcs = [(r - i) % P for i in range(P)]
+            ks = [k[:, :, s * nl:(s + 1) * nl].detach().requires_grad_(True) for s in srcs]
+            vs = [v[:, :, s * nl:(s + 1) * nl].detach().requires_grad_(True) for s in srcs]
+            out = ctx.ring_local(q_r, ks, vs, r, P, a["spans"], a["causal"], a["softcap"])
+            cols = [slice(s * nl, (s + 1) * nl) for s in srcs]
+        else:
+            ks, vs = [k.detach().requires_grad_(True)], [v.detach().requires_grad_(True)]
+            out = ctx.allgather_local(q_r, ks[0], vs[0], r, a["spans"], a["causal"],
+                                      a["softcap"])
+            cols = [slice(None)]
+        grads = torch.autograd.grad(out, [q_r, *ks, *vs], do[:, :, r * nl:(r + 1) * nl],
+                                    allow_unused=True)
+        n = len(ks)
+        for col, gk, gv in zip(cols, grads[1:1 + n], grads[1 + n:]):
+            if gk is not None:
+                dk[:, :, col] += gk.float()
+                dv[:, :, col] += gv.float()
+        outs.append(out.detach())
+        dqs.append(grads[0])
+    chunks = dict(ctx.ring_attention.chunks)
+    return (torch.cat(outs, 2), torch.cat(dqs, 2), dk.to(k.dtype), dv.to(v.dtype),
+            chunks["run"], chunks["skipped"])
+
+
+def parallel_compute(torch, mods, a):
+    """(a) each rank's compute at full width: the ring and all-gather
+    schedules over CP_RANKS ranks on phase 6's captured 573M call. The
+    assembled output is held against the whole-sequence kernel call
+    (within 2e-2, every row within the row rule); dq / dk / dv against the
+    whole-sequence backward kernel at the schedule's own output and the
+    call's lse (1e-2 of the largest element, the row rule), as phase 6
+    holds the kernel against its plain version at the kernel's own output:
+    dq of a row whose terms cancel follows delta = rowsum(do * out), so two
+    forwards that differ by bf16 rounding give such rows different
+    gradients (logged: the gradients of the whole call's own backward).
+    Returns ({kernel: launches by row}, log entries)."""
+    fa = mods["flash"]
+    q, k, v = (a[n].detach().requires_grad_(True) for n in ("q", "k", "v"))
+    kw = dict(spans=a["spans"], causal=a["causal"], softcap=a["softcap"])
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    out.backward(a["do"])
+    whole_grads = (q.grad, k.grad, v.grad)
+    out, lse = out.detach(), lse.detach()
+
+    def whole():
+        qq, kk, vv = (a[n].detach().requires_grad_(True) for n in ("q", "k", "v"))
+        fa.flash_attention(qq, kk, vv, **kw).backward(a["do"])
+
+    whole_ms = time_ms(whole, 3)
+    b, h, n, d = a["q"].shape
+    entries, totals = [], {}
+    for schedule in ("ring", "allgather"):
+        torch.cuda.synchronize()
+        (got_out, *got_grads, run, skipped), _ = counted(
+            mods, lambda: cp_schedule(torch, mods, a, schedule, CP_RANKS))
+        launches = by_row(mods)
+        rows = {f"row {r}": c for r, c in launches.items() if c}
+        err, row_rel = compare(torch, got_out, out)
+        want = fa.flash_attention_backward(a["q"], a["k"], a["v"], got_out, lse, a["do"],
+                                           a["spans"], a["softcap"])
+        g_err, g_rel, g_row = grad_compare(torch, got_grads, want)
+        w_err, w_rel, w_row = grad_compare(torch, got_grads, whole_grads)
+        ms = time_ms(lambda: cp_schedule(torch, mods, a, schedule, CP_RANKS), 3)
+        name = (f"{schedule}, {CP_RANKS} ranks one after another, q {shape_str(a['q'])} "
+                f"spans {shape_str(a['spans'])}: nl {n // CP_RANKS}")
+        entry = {"parallel": name, "fwd_err": err, "fwd_row_rel_err": row_rel,
+                 "bwd_err": g_err, "bwd_rel_err": g_rel, "bwd_row_rel_err": g_row,
+                 "vs_whole_call_grads": {"err": w_err, "rel_err": w_rel, "row_rel_err": w_row},
+                 "launches_by_row": rows, "chunk_calls": run, "chunks_skipped": skipped,
+                 "chunk_pairs": CP_RANKS * CP_RANKS if schedule == "ring" else CP_RANKS,
+                 "ms_fwd_bwd_all_ranks": ms, "ms_fwd_bwd_whole_call": whole_ms}
+        log(json.dumps(entry))
+        entries.append(entry)
+        require(err <= TOL["bfloat16"] and row_rel <= ROW_REL_TOL["bfloat16"],
+                f"{name}: forward err {err}, row rule {row_rel}")
+        if g_row > ROW_REL_TOL["bfloat16"]:
+            diagnose_bwd_rows(torch, mods, a, got_grads, want, lse,
+                              (a["do"].float() * got_out.float()).sum(-1), LONG_BLOCK_Q)
+        require(g_rel <= BWD_REL_TOL["bfloat16"] and g_row <= ROW_REL_TOL["bfloat16"],
+                f"{name}: backward err / max |grad| {g_rel}, row rule {g_row}")
+        rows_want = (2, 8) if schedule == "ring" else (3, 9)
+        require(set(launches) >= set(rows_want) and all(launches[r] > 0 for r in rows_want)
+                and sum(launches.values()) == sum(launches[r] for r in rows_want),
+                f"{name}: launches by row {rows}, want rows {rows_want} only")
+        for r_, c in launches.items():
+            totals[r_] = totals.get(r_, 0) + c
+    # the kernels at the schedules' shapes against their plain versions:
+    # the last rank's ring chunk from rank 0 (every pair visible) and its
+    # all-gather call (flex's compile would double the phase; it is timed
+    # on the whole call in phase 6)
+    nl, r = n // CP_RANKS, CP_RANKS - 1
+    rows = slice(r * nl, (r + 1) * nl)
+    call = dict(a, q=a["q"][:, :, rows], do=a["do"][:, :, rows], q_offset=r * nl, kv_offset=0,
+                return_lse=True)
+    for kernel, bwd, kv, block_q, what in (
+            ("flash_fwd", "flash_bwd", slice(0, nl), None, "ring chunk (rank 3, chunk 0)"),
+            ("flash_fwd_streamed", "flash_bwd_streamed", slice(None), LONG_BLOCK_Q,
+             "all-gather call (rank 3)")):
+        c = dict(call, k=a["k"][:, :, kv], v=a["v"][:, :, kv])
+        shape = (f"main path, {what} of phase 6's call: q {shape_str(c['q'])} k "
+                 f"{shape_str(c['k'])} q_off {r * nl}")
+        record(kernel, shape, check_flash(torch, mods, c, iters=5, block_q=block_q),
+               torch.bfloat16)
+        record(bwd, shape, check_flash_bwd(torch, mods, c, iters=3, block_q=block_q),
+               torch.bfloat16)
+    return totals, entries
+
+
+def mesh_trainer(torch, Transfusion, Trainer, mods):
+    """(b) `Trainer(mesh=make_mesh())` on a one-rank NCCL group: the bench
+    model with attn_impl 'ring' on bench (b)'s batch (n 1024) for
+    TRAIN_STEPS steps; the first step against a mesh-less flash Trainer
+    step from the same weights and draws within 1e-3 relative; the route's
+    forward and backward kernels once per layer per step. Returns the
+    launches."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from transfusion_tpu_torch.parallel import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh()
+        name = "bench model, attn_impl 'ring', Trainer(mesh=make_mesh()) on 1 NCCL rank"
+        ring_cfg = dict(BENCH_CFG, transformer=dict(BENCH_CFG["transformer"], attn_impl="ring",
+                                                    mesh=mesh))
+        model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **ring_cfg)
+        plain = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
+        trainer = Trainer(model, learning_rate=3e-4, mesh=mesh)
+        depth = BENCH_CFG["transformer"]["depth"]
+        rng = np.random.default_rng(0)
+        packed = model.pack([bench_sample(rng, 4) for _ in range(8)], shift_friendly=True)
+        require(packed.text.shape[1] == 1025, f"{name}: packed to {packed.text.shape}")
+        packed = packed.to_torch("cuda")
+        draws = model.make_draws(packed, torch.Generator("cuda").manual_seed(0))
+        ref = Trainer(plain, learning_rate=3e-4).train_step(
+            Trainer(plain).init_state(), packed, draws=draws)[1]
+
+        def steps(state=trainer.init_state()):
+            losses = []
+            for _ in range(TRAIN_STEPS):
+                state, metrics = trainer.train_step(state, packed, draws=draws)
+                losses.append(metrics["loss"])
+            return [float(x) for x in losses]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, counts = counted(mods, steps)
+        dt = time.perf_counter() - t0
+        rows = {f"row {r}": c for r, c in by_row(mods).items() if c}
+        rel = abs(losses[0] - float(ref["loss"])) / abs(float(ref["loss"]))
+        log(json.dumps({"training": name, "steps": TRAIN_STEPS, "seconds": dt,
+                        "ms_per_step": dt / TRAIN_STEPS * 1e3, "loss_first": losses[0],
+                        "loss_last": losses[-1], "meshless_first_loss": float(ref["loss"]),
+                        "loss_rel_diff": rel, "launches": counts, "launches_by_row": rows}))
+        require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+        require(losses[-1] < losses[0], f"{name}: loss did not fall {losses[0]} -> {losses[-1]}")
+        require(rel <= 1e-3, f"{name}: first loss {losses[0]} vs mesh-less {ref['loss']}")
+        want = depth * TRAIN_STEPS
+        require(counts["flash_fwd"] == want and counts["flash_bwd"] == want,
+                f"{name}: launches {counts}, want {want} head-major forwards and backwards")
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed_twin():
+    """The twin of examples/train_distributed.py under torchrun, one rank on
+    the card: its exit code must be 0."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node=1", "-m",
+                        "transfusion_tpu_torch.examples.train_distributed", "--device", "cuda",
+                        "--steps", "3"], cwd=os.path.join(HERE, "build"), capture_output=True,
+                       text=True, timeout=300, env=dict(os.environ, PYTHONPATH=HERE))
+    log(json.dumps({"twin": "train_distributed (torchrun, 1 rank, cuda, 3 steps)",
+                    "exit_code": r.returncode, "seconds": time.perf_counter() - t0,
+                    "stdout_tail": r.stdout[-300:]}))
+    require(r.returncode == 0, f"train_distributed twin failed:\n{r.stdout[-2000:]}"
+            f"\n{r.stderr[-3000:]}")
+
+
+def phase_parallel(torch, Transfusion, Trainer, mods, capture):
+    """(a) each rank's compute of the ring and all-gather schedules at the
+    573M shape, (b) the mesh trainer on one NCCL rank and the torchrun
+    twin. Returns the launches by kernel-line entry."""
+    by_row_totals, _ = parallel_compute(torch, mods, capture)
+    counts = mesh_trainer(torch, Transfusion, Trainer, mods)
+    distributed_twin()
+    totals = {k: counts.get(k, 0) for k in KERNELS}
+    for name, (wrapper, row) in BY_ROW.items():
+        totals[name] += by_row_totals.get(row, 0)
+    totals["flash_fwd"] += sum(c for r, c in by_row_totals.items() if r <= 3)
+    totals["flash_bwd"] += sum(c for r, c in by_row_totals.items() if r >= 7)
+    return totals
 
 
 KERNELS = {
@@ -2937,6 +3273,7 @@ def main() -> int:
             rope,
             spans,
         )
+        from transfusion_tpu_torch.parallel import context
         from transfusion_tpu_torch.training import Trainer
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -2951,7 +3288,7 @@ def main() -> int:
     mods = dict(flash=flash_attn, nhd=flash_attn_nhd, decode=decode_attn, layers=layers,
                 spans=spans, rope=rope, transfusion=transfusion, sample_batch=sample_batch,
                 engine=engine, engine_mm=engine_mm, serving=serving, modality_io=modality_io,
-                counters=counters)
+                context=context, counters=counters)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2984,8 +3321,10 @@ def main() -> int:
     recipe_launches = timed_phase(phase_recipes, torch, Transfusion, Trainer, mods)
     surface_launches = timed_phase(phase_surface, torch, Transfusion, Trainer, mods)
     train_launches, train_path = timed_phase(phase_training, torch, Transfusion, Trainer, mods)
-    long_launches, long_path = timed_phase(phase_long_training, torch, Transfusion, Trainer,
-                                           mods)
+    long_launches, long_path, capture = timed_phase(phase_long_training, torch, Transfusion,
+                                                    Trainer, mods)
+    parallel_launches = timed_phase(phase_parallel, torch, Transfusion, Trainer, mods, capture)
+    del capture
 
     # the kernels line: launches over the serving and training runs (the
     # streamed entries: over the long-context run); times on the tensors
@@ -2998,7 +3337,8 @@ def main() -> int:
         total = (launches.get(name, 0) + sampling_launches.get(name, 0)
                  + engine_launches.get(name, 0) + image_launches.get(name, 0)
                  + recipe_launches.get(name, 0) + surface_launches.get(name, 0)
-                 + train_launches.get(name, 0) + long_launches.get(name, 0))
+                 + train_launches.get(name, 0) + long_launches.get(name, 0)
+                 + parallel_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]
         kernels.append(dict(

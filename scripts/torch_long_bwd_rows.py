@@ -14,9 +14,12 @@ with `chip_smoke.check_flash_bwd` (plain in 1024-row blocks). The dq
 atomics upstream make each capture's cotangent differ in its last bits.
 Prints the card's name and power limit, then one JSON line per capture
 (max abs error, error over the gradient's largest element, max row error
-over the row's RMS) and, for a capture past the row rule (0.08), the three
-worst rows of dq, dk and dv with their RMS and first elements. Needs one
-card (about 2.5 s a capture after a minute of building).
+over the row's RMS, and the same row rule of the kernel's rounding model
+alone: `backward_plain_f32(round_operands=bf16)` against the plain
+version); a capture past the row rule (0.08) also logs
+`chip_smoke.diagnose_bwd_rows`'s worst rows and saves the capture under
+build/. Needs one card (a few seconds a capture after a minute of
+building).
 """
 
 import json
@@ -69,36 +72,30 @@ def main() -> int:
         del trainer, state, calls
         res = cs.check_flash_bwd(torch, mods, a, iters=1, block_q=cs.LONG_BLOCK_Q)
         line = {"capture": i, "err": res["err"], "rel_err": res["rel_err"],
-                "row_rel_err": res["row_rel_err"], "seconds": time.perf_counter() - t0}
-        if res["row_rel_err"] > cs.ROW_REL_TOL["bfloat16"]:
-            line["worst_rows"] = worst_rows(torch, flash_attn, a)
+                "row_rel_err": res["row_rel_err"],
+                "rounding_row_rel_err": rounding_row_rule(torch, flash_attn, a),
+                "seconds": time.perf_counter() - t0}
         print(json.dumps(line), flush=True)
         del a
     return 0
 
 
-def worst_rows(torch, fa, a, per_grad=3):
-    """The rows of dq, dk and dv with the largest error over their RMS."""
-    import numpy as np
+def rounding_row_rule(torch, fa, a):
+    """The row rule of the bf16 kernel's rounding model alone on the
+    capture: `backward_plain_f32(round_operands=bf16)` (p as hi + lo, ds
+    rounded before the dk / dq products) against the plain version, as
+    `check_flash_bwd` holds the kernel."""
+    import chip_smoke as cs
 
     q, k, v, sp, cap, do = a["q"], a["k"], a["v"], a["spans"], a["softcap"], a["do"]
     out, lse = fa.flash_attention(q, k, v, spans=sp, causal=a["causal"], softcap=cap,
                                   return_lse=True)
-    got = fa.flash_attention_backward(q, k, v, out, lse, do, sp, cap)
     delta = (do.float() * out.float()).sum(-1)
-    want = fa.flash_attention_backward_plain(q, k, v, do, lse, delta, sp, cap, 0, 0, 1024)
-    rows = []
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err = (g.float() - w.float()).abs().amax(-1)
-        rms = w.float().pow(2).mean(-1).sqrt()
-        rel = torch.where(rms > 0, err / rms.clamp_min(1e-38), (err > 0).float() * float("inf"))
-        top = rel.flatten().topk(per_grad)
-        for val, idx in zip(top.values.tolist(), top.indices.tolist()):
-            ix = tuple(int(x) for x in np.unravel_index(idx, rel.shape))
-            rows.append({"grad": name, "b_h_row": ix, "rel": val, "err": err[ix].item(),
-                         "ref_rms": rms[ix].item(), "median_rms": rms.median().item(),
-                         "got": g[ix][:6].float().tolist(), "want": w[ix][:6].float().tolist()})
-    return rows
+    args = (q, k, v, do, lse, delta, sp, cap, 0, 0, cs.LONG_BLOCK_Q)
+    want = fa.flash_attention_backward_plain(*args)
+    rounded = [t.to(torch.bfloat16) for t in fa.backward_plain_f32(
+        *args, round_operands=torch.bfloat16)]
+    return cs.grad_compare(torch, rounded, want)[2]
 
 
 if __name__ == "__main__":

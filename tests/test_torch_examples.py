@@ -94,6 +94,30 @@ def test_serve_text_twin_runs_every_demo(monkeypatch, tmp_path, capsys):
     assert "'mod'" in out.split("multimodal sample()")[1]
 
 
+def test_distributed_twin_runs_under_torchrun(tmp_path):
+    """The data x context twin (`train_distributed --context 2`) in 2 gloo
+    processes under torchrun: exit code 0 within 120 s, and both ranks print
+    the same finite first loss."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(JAX_EXAMPLES.parent), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node=2", "-m",
+                        "transfusion_tpu_torch.examples.train_distributed", "--device", "cpu",
+                        "--context", "2", "--steps", "2"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "mesh: data=1 fsdp=1 tensor=1 context=2" in r.stdout
+    firsts = [ln for ln in r.stdout.splitlines() if ln.startswith("1: ")]
+    assert len(firsts) == 2 and firsts[0] == firsts[1] and np.isfinite(float(firsts[0][3:]))
+    with pytest.raises(subprocess.CalledProcessError) as e:
+        subprocess.run([sys.executable, "-m", "transfusion_tpu_torch.examples.train_distributed",
+                        "--device", "cpu", "--pipeline", "2"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120, check=True)
+    assert "Queue 1 item 9, parallelism" in e.value.stderr
+
+
 # ---------------------------------------------------------------------------
 # the twins' modules against the JAX scripts' flax modules
 # ---------------------------------------------------------------------------

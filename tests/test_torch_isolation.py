@@ -7,8 +7,10 @@ velocity-consistency step and samples from an image model (encoder,
 decoder, U-Net halves, pos-emb), takes a LASER + 4-stream step through
 `Trainer(optimizer=muon_adam_atan2(...))`, feeds a training step from a
 `PackingLoader`, loads a transfusion-pytorch state_dict with
-`port_from_reference`, and its entry points default to the card (raising
-when there is none)."""
+`port_from_reference`, loads the gloo worker script of the parallel tests
+and takes a `Trainer(mesh=)` step of a ring-attention model on a one-rank
+gloo group (`transfusion_tpu_torch/parallel/`), and its entry points
+default to the card (raising when there is none)."""
 
 import os
 import subprocess
@@ -128,6 +130,30 @@ SCRIPT = textwrap.dedent(
     port_from_reference(sd, fresh)
     assert all(torch.equal(fresh.core.state_dict()[k], v)
                for k, v in m.core.state_dict().items())
+
+    # the parallel path: the gloo worker script, and Trainer(mesh=) with ring
+    # attention on a one-rank group
+    import importlib.util, os, tempfile
+    import torch.distributed as dist
+    spec = importlib.util.spec_from_file_location(
+        "torch_parallel_worker", os.path.join(os.getcwd(), "tests", "torch_parallel_worker.py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    from transfusion_tpu_torch.parallel import make_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/init", rank=0, world_size=1)
+        try:
+            mesh = make_mesh(device="cpu")
+            rm = Transfusion(device="cpu", **dict(cfg, transformer=dict(
+                cfg["transformer"], attn_impl="ring", mesh=mesh)))
+            rt = Trainer(rm, mesh=mesh)
+            state, metrics = rt.train_step(rt.init_state(), batch,
+                                           generator=torch.Generator().manual_seed(0))
+        finally:
+            dist.destroy_process_group()
+    assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+    assert not any(k in ("jax", "optax") or k.startswith(("jax.", "flax", "optax.", "jaxtyping",
+                                                          "transfusion_tpu."))
+                   for k, v in sys.modules.items() if v is not None), "JAX was imported"
 
     if not torch.cuda.is_available():
         try:

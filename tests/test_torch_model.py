@@ -213,7 +213,10 @@ def test_cache_helpers():
 
 
 def test_unported_paths_raise(jax_ref):
-    """Unported options (context-parallel attention) raise; a dropout model
+    """Context-parallel attention (which raised before the parallelism
+    slice) builds and refuses a call without a mesh, and dropout with it,
+    as JAX does (tests/test_torch_context_parallel.py holds it against
+    JAX); a dropout model
     (which raised before the single-process surface slice) builds, and its
     training loss is refused as in JAX (tests/test_torch_dropout.py); the
     uncached flash `text_forward` (which raised before the training slice)
@@ -224,8 +227,11 @@ def test_unported_paths_raise(jax_ref):
     dm = Transfusion(transformer=dict(tcfg("flash"), dropout=0.1), device="cpu", **CFG)
     with pytest.raises(ValueError, match="dropout"):
         dm.loss([[np.asarray([1, 2, 3], np.int32)]], generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        Transfusion(transformer=tcfg("ring"), device="cpu", **CFG)
+    ring = Transfusion(transformer=tcfg("ring"), device="cpu", **CFG)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        ring.core.text_forward(torch.zeros((1, 8), dtype=torch.int64))
+    with pytest.raises(ValueError, match="dropout"):
+        Transfusion(transformer=dict(tcfg("ring"), dropout=0.1), device="cpu", **CFG)
     toks = np.asarray([[8, 1, 2, 3, 7, 5], [8, 4, 4, 0, 1, 2]], np.int32)
     for opt in (dict(attn_laser=True), dict(num_residual_streams=2)):
         jm = JaxTransfusion(transformer=dict(tcfg("flash"), **opt), **CFG)

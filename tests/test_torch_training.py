@@ -282,17 +282,19 @@ def test_ema_schedule_matches_jax():
 
 
 def test_unported_training_options_raise():
-    """The pipeline and the mesh still raise; so does a dropout model's
-    training step (refused as in JAX; dropout raised at construction before
-    the single-process surface slice). The velocity and
+    """The pipeline still raises (the mesh, which raised before the
+    parallelism slice, takes a `parallel.make_mesh` mesh and refuses
+    anything else: tests/test_torch_distributed.py holds it against JAX);
+    so does a dropout model's training step (refused as in JAX; dropout
+    raised at construction before the single-process surface slice). The velocity and
     reconstruction options (which raised before the modality I/O slice)
     now give the JAX loss: `loss(velocity_consistency_ema_params=)` on a
     model with `reconstruction_loss_weight`, its breakdown within 1e-4, and
     `Trainer(velocity_consistency=True)` builds."""
     tm = Transfusion(transformer=TCFG["head-major"], device="cpu", **CFG)
-    for kw, match in ((dict(pipeline_microbatches=2), "parallelism"),
-                      (dict(mesh=object()), "parallelism")):
-        with pytest.raises(NotImplementedError, match=match):
+    for kw, err, match in ((dict(pipeline_microbatches=2), NotImplementedError, "parallelism"),
+                           (dict(mesh=object()), TypeError, "make_mesh")):
+        with pytest.raises(err, match=match):
             Trainer(tm, **kw)
     dm = Transfusion(transformer=dict(TCFG["head-major"], dropout=0.1), device="cpu", **CFG)
     with pytest.raises(ValueError, match="needs PRNG"):

@@ -15,6 +15,7 @@ dtype.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +27,10 @@ from transfusion_tpu_torch.ops.flash_attn_nhd import flash_attention_nhd, nhd_el
 from transfusion_tpu_torch.ops.norms import l2norm, max_neg_value, safe_log, softclamp
 from transfusion_tpu_torch.ops.rope import apply_rope
 from transfusion_tpu_torch.ops.spans import span_allowed
+from transfusion_tpu_torch.parallel import comm
+from transfusion_tpu_torch.parallel.context import context_parallel_attention, ring_attention
+
+CONTEXT_PARALLEL = ("ring", "cp_allgather")
 
 
 # LASER's clamp of the values before exp (the JAX `laser_softclamp_value`)
@@ -90,7 +95,14 @@ class RMSNorm(nn.Module):
 class FeedForward(nn.Module):
     """GEGLU feedforward, inner width int(dim * expansion * 2 / 3), with
     dropout on the gated hidden layer ([b, n, inner]) when a keep mask is
-    given."""
+    given.
+
+    Tensor-parallel when handed tensor-local weights (`parallel/mesh.py`):
+    proj_in keeps this rank's part of each half [h | gates] (column
+    parallel), proj_out its rows (row parallel, its partial products summed
+    over the axis `tp`, then the bias)."""
+
+    tp = comm.SINGLE
 
     def __init__(self, dim: int, expansion_factor: float = 4.0, dropout: float = 0.0):
         super().__init__()
@@ -100,9 +112,18 @@ class FeedForward(nn.Module):
         self.proj_out = nn.Linear(self.dim_inner, dim)
 
     def forward(self, x, dropout_mask=None):
-        h, gates = self.proj_in(x).chunk(2, dim=-1)
-        h = apply_dropout(F.gelu(gates, approximate="none") * h, dropout_mask, self.dropout)
-        return self.proj_out(h)
+        il = self.proj_out.weight.shape[1]
+        if il == self.dim_inner:
+            h, gates = self.proj_in(x).chunk(2, dim=-1)
+            h = apply_dropout(F.gelu(gates, approximate="none") * h, dropout_mask, self.dropout)
+            return self.proj_out(h)
+        if dropout_mask is not None:
+            raise ValueError("dropout masks are not taken on tensor-local weights")
+        lo, bias = self.tp.rank * il, self.proj_in.bias
+        bias = torch.cat([bias[lo:lo + il], bias[self.dim_inner + lo:self.dim_inner + lo + il]])
+        h, gates = F.linear(comm.copy_to(x, self.tp), self.proj_in.weight, bias).chunk(2, dim=-1)
+        h = F.gelu(gates, approximate="none") * h
+        return comm.reduce_from(F.linear(h, self.proj_out.weight), self.tp) + self.proj_out.bias
 
 
 class Attention(nn.Module):
@@ -134,14 +155,27 @@ class Attention(nn.Module):
       * cached prefill with a flash spec -> `flash_attention` over the chunk
         alone (the cache is only written);
       * cached step with a decode bias -> `decode_attention` over the cache;
+      * uncached with a flash spec and attn_impl 'ring' / 'cp_allgather'
+        -> `parallel/context.py`'s schedule over `mesh`'s 'context' axis
+        (the head-major route, as in JAX; a spec with neither spans nor
+        causal is the modality-only path's full attention);
       * anything else -> the dense path against the cache (or the chunk).
+
+    Tensor-parallel when handed tensor-local weights (`parallel/mesh.py`):
+    to_qk / to_v / to_value_residual_mix keep this rank's heads, to_gates
+    and the mix bias are sliced to them, and to_out's partial products are
+    summed over the axis `tp`.
     """
+
+    tp = comm.SINGLE
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  softcap_value: float = 50.0, gate_values: bool = True,
                  learned_value_residual_mix: bool = False, attn_impl: str = "dense",
-                 laser: bool = False, fuse_projections: bool = False, dropout: float = 0.0):
+                 laser: bool = False, fuse_projections: bool = False, dropout: float = 0.0,
+                 mesh=None):
         super().__init__()
+        self.mesh = mesh
         inner = dim_head * heads
         self.heads, self.dim_head = heads, dim_head
         self.dropout = dropout
@@ -158,28 +192,43 @@ class Attention(nn.Module):
         self.to_out = nn.Linear(inner, dim, bias=False)
 
     def _split_heads(self, t):
-        b, n, _ = t.shape
-        return t.view(b, n, self.heads, self.dim_head).transpose(1, 2)
+        b, n, hd = t.shape
+        return t.view(b, n, hd // self.dim_head, self.dim_head).transpose(1, 2)
 
     def _project(self, x):
-        """(q, k, v, mix logits | None, gate logits | None), each [b, n, *]."""
-        h, inner = self.heads, self.heads * self.dim_head
+        """(q, k, v, mix logits | None, gate logits | None), each [b, n, *],
+        over this rank's heads."""
+        h = self.to_v.weight.shape[0] // self.dim_head
+        inner = h * self.dim_head
         mix, gates = self.to_value_residual_mix, self.to_gates
+        mix_w = None if mix is None else mix.weight
+        mix_b = None if mix is None else mix.bias
+        gates_w = None if gates is None else gates.weight
+        if h != self.heads:  # tensor-local heads: slice the replicated per-head rows
+            x = comm.copy_to(x, self.tp)
+            rows = slice(self.tp.rank * h, (self.tp.rank + 1) * h)
+            mix_b = None if mix is None else mix_b[rows]
+            gates_w = None if gates is None else gates_w[rows]
         if not self.fuse_projections:
             q, k = self.to_qk(x).chunk(2, dim=-1)
-            return (q, k, self.to_v(x), None if mix is None else mix(x),
-                    None if gates is None else gates(x))
-        mods = [m for m in (self.to_qk, self.to_v, mix, gates) if m is not None]
-        y = F.linear(x, torch.cat([m.weight for m in mods]))
+            return (q, k, self.to_v(x), None if mix is None else F.linear(x, mix_w, mix_b),
+                    None if gates is None else F.linear(x, gates_w))
+        ws = [w for w in (self.to_qk.weight, self.to_v.weight, mix_w, gates_w) if w is not None]
+        y = F.linear(x, torch.cat(ws))
         q, k, v = y[..., :inner], y[..., inner:2 * inner], y[..., 2 * inner:3 * inner]
         off = 3 * inner
         mix_pre = gates_pre = None
         if mix is not None:
-            mix_pre = y[..., off:off + h] + mix.bias
+            mix_pre = y[..., off:off + h] + mix_b
             off += h
         if gates is not None:
             gates_pre = y[..., off:off + h]
         return q, k, v, mix_pre, gates_pre
+
+    def _out(self, out):
+        """to_out, its partial products summed over `tp` on tensor-local heads."""
+        y = self.to_out(out)
+        return y if out.shape[-1] == self.heads * self.dim_head else comm.reduce_from(y, self.tp)
 
     def _laser_values(self, v):
         return torch.exp(softclamp(v, LASER_SOFTCLAMP)) if self.laser else v
@@ -202,7 +251,7 @@ class Attention(nn.Module):
             ang = (rope if rope.ndim > 2 else rope[None]).float().expand(b, n, d)
             cos, sin = torch.cos(ang), torch.sin(ang)
         out = flash_attention_nhd(
-            q, k, self._laser_values(v), self.heads, cos=cos, sin=sin,
+            q, k, self._laser_values(v), q.shape[-1] // d, cos=cos, sin=sin,
             spans=flash_spec.get("spans"), causal=flash_spec.get("causal", False),
             softcap=self.softcap_value,
         )
@@ -210,14 +259,18 @@ class Attention(nn.Module):
             out = safe_log(out)
         if gates_pre is not None:
             out = out * torch.sigmoid(gates_pre).repeat_interleave(d, dim=-1)
-        return self.to_out(out), orig_v, None
+        return self._out(out), orig_v, None
 
-    def route(self, n: int, flash_spec, cache, decode_bias, prefill: bool) -> str:
-        """The route of a call on n query tokens: 'nhd', 'decode', 'flash'
-        or 'dense' (see the class docstring)."""
+    def route(self, n: int, flash_spec, cache, decode_bias, prefill: bool,
+              heads: Optional[int] = None) -> str:
+        """The route of a call on n query tokens over `heads` (default all)
+        heads: 'nhd', 'decode', 'flash', 'cp' or 'dense' (see the class
+        docstring)."""
+        if flash_spec is not None and cache is None and self.attn_impl in CONTEXT_PARALLEL:
+            return "cp"
         flash = flash_spec is not None and self.attn_impl == "flash"
         if flash and cache is None and decode_bias is None and nhd_eligible(
-                self.heads, n, self.dim_head):
+                heads or self.heads, n, self.dim_head):
             return "nhd"
         if cache is not None and decode_bias is not None and not prefill:
             return "decode"
@@ -230,7 +283,8 @@ class Attention(nn.Module):
                 dropout_mask=None):
         b, n, _ = x.shape
         q, k, v, mix_pre, gates_pre = self._project(x)
-        route = self.route(n, flash_spec, cache, decode_bias, prefill)
+        route = self.route(n, flash_spec, cache, decode_bias, prefill,
+                           q.shape[-1] // self.dim_head)
         if route == "nhd":
             return self._forward_nhd(x, q, k, v, mix_pre, gates_pre, rope, value_residual,
                                      flash_spec)
@@ -277,6 +331,11 @@ class Attention(nn.Module):
                 q, k_full, self._laser_values(v_full), spans=flash_spec.get("spans"),
                 causal=flash_spec.get("causal", False), softcap=self.softcap_value,
             )
+        elif route == "cp":
+            cp_fn = ring_attention if self.attn_impl == "ring" else context_parallel_attention
+            out = cp_fn(q, k_full, self._laser_values(v_full), spans=flash_spec.get("spans"),
+                        causal=flash_spec.get("causal", False), softcap=self.softcap_value,
+                        mesh=self.mesh)
         else:
             if flash_spec is not None:
                 # `transfusion_flash_attention`'s dense path for shapes the
@@ -301,7 +360,7 @@ class Attention(nn.Module):
         if gates_pre is not None:
             out = out * torch.sigmoid(gates_pre).transpose(1, 2)[..., None]
         out = out.transpose(1, 2).reshape(b, n, -1)
-        return self.to_out(out), orig_v, new_cache
+        return self._out(out), orig_v, new_cache
 
 
 def _write_cache(cache, k, v):

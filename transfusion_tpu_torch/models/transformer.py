@@ -16,6 +16,18 @@ Routing of a cached call (the same decisions as the JAX `Transformer`):
     additive bias built from the cache mask and per-row bounds lens = idx + n;
   * anything else: the dense cached path with an explicit boolean mask.
 
+With attn_impl 'ring' or 'cp_allgather' and `mesh=` (a `parallel.make_mesh`
+mesh) an uncached call shards attention over the mesh's 'context' axis
+(`parallel/context.py`): one with spans or causal goes to the chosen
+schedule with that mask, and one with neither (the modality-only forward)
+with full attention; n must be divisible by the context size, and
+dropout is refused, as in JAX (`transformer.py:405-430`). Cached calls of
+such a model take the dense cached path, as in JAX.
+
+With tensor-local weights (`Trainer(mesh=)` with a 'tensor' axis) to_time_cond and
+skip_proj run column-parallel and all-gather their output columns over the
+axis `tp`.
+
 With `remat` an uncached call (training) recomputes each block's forward in
 the backward instead of keeping its activations, as `nn.remat` does in the
 JAX `Transformer` (`transformer.py:541-550`).
@@ -42,6 +54,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from transfusion_tpu_torch.models.layers import (
+    CONTEXT_PARALLEL,
     AdaptiveWrapper,
     Attention,
     FeedForward,
@@ -62,6 +75,7 @@ from transfusion_tpu_torch.ops.spans import (
     spans_to_instance_mask,
     spans_to_is_any_modality,
 )
+from transfusion_tpu_torch.parallel import comm
 
 _logger = logging.getLogger(__name__)
 
@@ -116,16 +130,18 @@ class TransformerBlock(nn.Module):
     layer indices 2 * ind (attention) and 2 * ind + 1 (feedforward), as in
     the JAX block."""
 
+    tp = comm.SINGLE
+
     def __init__(self, dim, dim_head, heads, ff_expansion_factor, attn_softcap,
                  attn_gate_values, attn_impl, attn_laser, fuse_projections, streams, fracs,
-                 ind, is_first, has_skip, dropout=0.0):
+                 ind, is_first, has_skip, dropout=0.0, mesh=None):
         super().__init__()
         self.skip_proj = nn.Linear(dim * 2, dim, bias=False) if has_skip else None
         self.attn = Attention(
             dim=dim, dim_head=dim_head, heads=heads, softcap_value=attn_softcap,
             gate_values=attn_gate_values, learned_value_residual_mix=not is_first,
             attn_impl=attn_impl, laser=attn_laser, fuse_projections=fuse_projections,
-            dropout=dropout,
+            dropout=dropout, mesh=mesh,
         )
         self.ff = FeedForward(dim, ff_expansion_factor, dropout)
         self.attn_ada = AdaptiveWrapper(dim, dim * 4)
@@ -140,8 +156,8 @@ class TransformerBlock(nn.Module):
             # the projection runs in its weight's dtype (flax's Dense(dtype=)
             # casts its input); the float32 streams of a multi-stream bf16
             # model keep their dtype through the residual
-            cat = torch.cat([s, skip], dim=-1)
-            s = self.skip_proj(cat.to(self.skip_proj.weight.dtype)) + s
+            cat = torch.cat([s, skip], dim=-1).to(self.skip_proj.weight.dtype)
+            s = _column_parallel(self.skip_proj, cat, s.shape[-1], self.tp) + s
         ada = dict(cond=cond, cond_index=cond_index, is_any_modality=is_any_modality)
         dropout_masks = dropout_masks or {}
 
@@ -167,27 +183,45 @@ _DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 REMAT_POLICIES = ("full", "dots")
 
 
+def _column_parallel(linear, x, out_features: int, tp):
+    """linear(x) when its weight holds all `out_features` rows; else this
+    rank's output columns, all-gathered over `tp` (its bias sliced to
+    them)."""
+    rows = linear.weight.shape[0]
+    if rows == out_features:
+        return linear(x)
+    bias = linear.bias
+    if bias is not None:
+        bias = bias[tp.rank * rows:(tp.rank + 1) * rows]
+    return comm.gather_seq(F.linear(comm.copy_to(x, tp), linear.weight, bias), tp, dim=-1)
+
+
 def _call_block(block, params, *args):
     return torch.func.functional_call(block, params, args)
 
 
 class Transformer(nn.Module):
+    tp = comm.SINGLE
+
     def __init__(self, dim: int, depth: int, dim_head: int = 64, heads: int = 8,
                  ff_expansion_factor: float = 4.0, unet_skips: bool = True,
                  num_residual_streams: int = 1, attn_impl: str = "dense",
                  attn_softcap: float = 50.0, attn_gate_values: bool = True,
                  rope_theta: float = 10000.0, attn_laser: bool = False,
                  num_residual_fracs: int = 4, fuse_projections: bool = False,
-                 dropout: float = 0.0, remat: bool = False, remat_policy: str = "full"):
+                 dropout: float = 0.0, remat: bool = False, remat_policy: str = "full",
+                 mesh=None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={remat_policy!r} (one of {REMAT_POLICIES})")
-        if attn_impl not in ("dense", "flash"):
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: context-parallel attention is "
-                "queued in ROADMAP.md (Queue 1 item 9, parallelism); the port "
-                "has 'dense' and 'flash'"
-            )
+        if attn_impl not in ("dense", "flash", *CONTEXT_PARALLEL):
+            raise ValueError(f"attn_impl={attn_impl!r} (dense, flash, ring or cp_allgather)")
+        if attn_impl in CONTEXT_PARALLEL and dropout > 0:
+            raise ValueError(
+                f"attn_impl='{attn_impl}' does not implement attention dropout (the ring / "
+                "all-gather schedules have no dropout hook): set dropout=0 or use the dense "
+                "or flash path")
+        self.mesh = mesh
         self.dim, self.depth = dim, depth
         self.dim_head, self.heads = dim_head, heads
         self.unet_skips = unet_skips
@@ -207,6 +241,7 @@ class Transformer(nn.Module):
                 attn_gate_values, attn_impl, attn_laser, fuse_projections,
                 num_residual_streams, num_residual_fracs, ind,
                 is_first=ind == 0, has_skip=unet_skips and ind >= depth / 2, dropout=dropout,
+                mesh=mesh,
             )
             for ind in range(depth)
         )
@@ -250,9 +285,12 @@ class Transformer(nn.Module):
 
     def _flash_spec(self, spans, causal, cache, prefill):
         """The flash kernel's mask spec for a call, or None when the call
-        does not go to the flash kernel."""
-        flash = self.attn_impl == "flash" and (cache is None or prefill)
-        if flash and (spans is not None or causal):
+        does not go to the flash kernel. A context-parallel model's
+        uncached calls all take one: with neither spans nor causal it is
+        the modality-only path's full attention (JAX's `fused_nomask`)."""
+        cp = self.attn_impl in CONTEXT_PARALLEL and cache is None
+        flash = (self.attn_impl == "flash" and (cache is None or prefill)) or cp
+        if flash and (spans is not None or causal or cp):
             return {"spans": spans, "causal": causal}
         return None
 
@@ -328,6 +366,18 @@ class Transformer(nn.Module):
         block, or a torch.Generator to draw them from. Returns (out,
         new_cache)."""
         b, n, _ = x.shape
+        if self.attn_impl in CONTEXT_PARALLEL and cache is None:
+            if self.mesh is None:
+                raise ValueError(f"attn_impl='{self.attn_impl}' needs a mesh with a 'context' "
+                                 "axis: pass mesh= in the transformer config "
+                                 "(parallel.make_mesh(context=...))")
+            from transfusion_tpu_torch.parallel.mesh import axis_size
+
+            csize = axis_size(self.mesh, "context")
+            if n % csize:
+                raise ValueError(f"attn_impl='{self.attn_impl}': sequence length {n} must be "
+                                 f"divisible by the context axis size {csize}: pick a "
+                                 "pad_multiple divisible by it")
 
         cond = cond_index = None
         if times_inst is not None:
@@ -336,7 +386,8 @@ class Transformer(nn.Module):
             m = times_inst.shape[1]
             inst_times = torch.cat([times_inst.new_zeros((b, 1)), times_inst], dim=1)
             rfe = random_fourier_embed(inst_times, self.dim, self.fourier_weights)
-            cond = F.silu(self.to_time_cond(rfe.to(x.dtype)))
+            cond = F.silu(_column_parallel(self.to_time_cond, rfe.to(x.dtype), self.dim * 4,
+                                           self.tp))
             inst_mask = spans_to_instance_mask(n, spans)  # [b, m, n]
             ids = torch.arange(1, m + 1, device=x.device)
             cond_index = (inst_mask.long() * ids[None, :, None]).sum(dim=1)
@@ -344,7 +395,8 @@ class Transformer(nn.Module):
             if times.ndim == 0:
                 times = times.expand(b)
             rfe = random_fourier_embed(times, self.dim, self.fourier_weights)
-            cond = F.silu(self.to_time_cond(rfe.to(x.dtype)))
+            cond = F.silu(_column_parallel(self.to_time_cond, rfe.to(x.dtype), self.dim * 4,
+                                           self.tp))
 
         flash_spec = self._flash_spec(spans, causal, cache, prefill)
         decode_bias = decode_lens = mask = None

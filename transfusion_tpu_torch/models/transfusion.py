@@ -79,6 +79,7 @@ from transfusion_tpu_torch.ops.spans import (
     spans_to_modality_mask,
     spans_to_rotary_positions,
 )
+from transfusion_tpu_torch.parallel import comm
 from transfusion_tpu_torch.utils.helpers import (
     cast_tuple,
     concat_contiguous_text,
@@ -161,7 +162,15 @@ class TransfusionCore(nn.Module):
     MLPs. `pre_post[i]`, when given, is modality i's (pre, post) module
     pair; it replaces `LatentToModel` / `ModelToLatent` and trains with the
     core. `pos_emb_mlps` holds an MLP under str(i) for each modality with
-    add_pos_emb."""
+    add_pos_emb.
+
+    With tensor-local weights (`Trainer(mesh=)` with a 'tensor' axis) the
+    vocab is split over the axis `tp`: `embed_text` looks up the rank's
+    rows and sums over the axis, `text_logits` all-gathers the rank's logit
+    columns (the whole [.., vocab] logits are then on every rank, so the
+    loss's log-softmax and the chunked CE need no further collective)."""
+
+    tp = comm.SINGLE
 
     def __init__(self, vocab_size: int, dim: int, transformer_cfg: dict, modalities: tuple,
                  pre_post: tuple = (), model_output_clean: bool = True, eps: float = 1e-2):
@@ -200,10 +209,24 @@ class TransfusionCore(nn.Module):
     def text_logits(self, embed):
         """The logits head, in the compute dtype (a multi-stream bf16
         model's transformer output is float32, as in flax)."""
-        return self.to_text_logits(embed.to(self.dtype))
+        return self.logits_with(embed, self.to_text_logits.weight)
+
+    def logits_with(self, embed, weight):
+        """embed's logits under `weight` (the head's, or an explicit copy of
+        it), in weight's dtype; vocab-parallel on a tensor-local weight."""
+        x = embed.to(weight.dtype)
+        if weight.shape[0] == self.text_embed.num_embeddings:
+            return F.linear(x, weight)
+        return comm.gather_seq(F.linear(comm.copy_to(x, self.tp), weight), self.tp, dim=-1)
 
     def embed_text(self, text):
-        return self.text_embed(text.clamp_min(0)).to(self.dtype)
+        ids, w = text.clamp_min(0), self.text_embed.weight
+        if w.shape[0] == self.text_embed.num_embeddings:
+            return F.embedding(ids, w).to(self.dtype)
+        local = ids - self.tp.rank * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        rows = F.embedding(local.clamp(0, w.shape[0] - 1), w) * inside[..., None].to(w.dtype)
+        return comm.reduce_from(rows, self.tp).to(self.dtype)
 
     def latent_to_seq(self, latents, modality_type: int):
         """[k, *latent_shape, d_latent] -> rows [k, L, dim] (+ seq shape),
@@ -344,11 +367,11 @@ class TransfusionCore(nn.Module):
         return self.seq_to_latent(embed, modality_type, seq_shape)
 
 
-def _ce_chunk_sum(embed, weight, labels, valid):
+def _ce_chunk_sum(core, embed, weight, labels, valid):
     """-sum log p(label) over the valid positions of one sequence chunk
     (one step of the JAX `_chunked_ce` scan): the chunk's logits live only
     inside this call."""
-    logits = F.linear(embed.to(weight.dtype), weight).float()
+    logits = core.logits_with(embed, weight).float()
     label_logit = logits.gather(-1, labels[..., None])[..., 0]
     return (-(label_logit - torch.logsumexp(logits, dim=-1)) * valid).sum()
 
@@ -750,7 +773,7 @@ class Transfusion:
             labels, valid = F.pad(labels, (0, pad)), F.pad(valid, (0, pad))
         ce_sum = torch.zeros((), device=embed.device)
         for i in range(0, embed.shape[1], C):
-            ce_sum = ce_sum + checkpoint(_ce_chunk_sum, embed[:, i:i + C], weight,
+            ce_sum = ce_sum + checkpoint(_ce_chunk_sum, self.core, embed[:, i:i + C], weight,
                                          labels[:, i:i + C], valid[:, i:i + C],
                                          use_reentrant=False)
         return ce_sum

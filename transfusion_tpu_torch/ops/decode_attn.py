@@ -13,7 +13,8 @@ The port stores the cache as [b, h, cap, d] (the TPU's transposed
 launches the kernel for CUDA tensors: the split kernel and, when the cache
 is split in more than one chunk, the merge (`split_plan`). Nothing else is
 launched: q and the output stay in q's dtype. `decode_attention.launches`
-counts calls that launched the kernel.
+counts calls that launched the kernel, `decode_attention.kernels` the
+kernels they enqueued (1 or 2 a call).
 """
 
 from __future__ import annotations
@@ -160,6 +161,7 @@ def _launch(q, k, v, bias, k_scale, v_scale, softcap, lens):
     )
     _build.check(err, "decode_attn")
     decode_attention.launches += 1
+    decode_attention.kernels += 1 + (splits > 1)  # the split kernel, then the merge
     return out
 
 
@@ -176,3 +178,4 @@ def decode_attention(q, k, v, bias, k_scale=None, v_scale=None, softcap=50.0, le
 
 
 decode_attention.launches = 0
+decode_attention.kernels = 0

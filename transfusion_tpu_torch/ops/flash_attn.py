@@ -262,13 +262,14 @@ def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=
 
 
 def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, heads=None,
-               cos=None, sin=None):
+               cos=None, sin=None, dq_float32=False):
     """Launch csrc/flash_bwd.cu in either layout (see `launch_fwd`): the
     kernel that writes each q row's visible end into a scratch, then for
     bf16 the tensor-core dK/dV kernel, which adds dq into a zeroed float32
     scratch, and the kernel that stores dq from it; for float32 the dK/dV
-    and dQ kernels. Returns (dq, dk, dv) like q, k, v. Callers count the
-    launch."""
+    and dQ kernels. Returns (dq, dk, dv) like q, k, v; with dq_float32
+    (head-major only) dq is the float32 scratch times the scale, before the
+    store rounds it. Callers count the launch."""
     nhd = heads is not None
     if nhd:
         b, nq, hd = q.shape
@@ -302,6 +303,10 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_bwd")
+    if dq_float32:
+        if nhd:
+            raise ValueError("dq_float32 is taken on the head-major layout only")
+        dq = dq.float() if dq_acc is None else dq_acc * float(d**-0.5)
     return dq, dk, dv
 
 
@@ -327,17 +332,20 @@ def _forward(q, k, v, spans, softcap, q_off, kv_off, want_lse):
 
 
 def flash_attention_backward(q, k, v, o, lse, do, spans=None, softcap=50.0, q_offset=0,
-                             kv_offset=0, g_lse=None):
+                             kv_offset=0, g_lse=None, dq_float32=False):
     """Gradients (dq, dk, dv) of `flash_attention` at output o and its lse,
     for the output cotangent do and, with return_lse, the lse cotangent
-    g_lse [b,h,nq] (folded into delta = rowsum(do * o) - g_lse)."""
+    g_lse [b,h,nq] (folded into delta = rowsum(do * o) - g_lse). With
+    dq_float32, dq comes in float32, not rounded to q's dtype (a caller that
+    sums dq over several calls, as ring attention's chunks, sums it so)."""
     delta = (do.float() * o.float()).sum(-1)
     if g_lse is not None:
         delta = delta - g_lse.float()
     args = (q, k, v, do, lse, delta, spans, softcap, int(q_offset), int(kv_offset))
     if _device_kind("flash_attention backward", q) == "cpu":
-        return flash_attention_backward_plain(*args)
-    out = launch_bwd(*args)
+        dq, dk, dv = backward_plain_f32(*args)
+        return (dq if dq_float32 else dq.to(q.dtype)), dk.to(k.dtype), dv.to(v.dtype)
+    out = launch_bwd(*args, dq_float32=dq_float32)
     flash_attention_backward.launches += 1
     b, h, nq, d = q.shape
     flash_attention_backward.launches_by_row[tpu_row(h, nq, k.shape[2], d, bwd=True)] += 1

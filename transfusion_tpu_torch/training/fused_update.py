@@ -28,11 +28,12 @@ def fused_clip_adam_ema(grads: dict, params: dict, adam: dict, ema_params: dict,
                         ema_step: int, *, learning_rate: float, grad_clip_norm,
                         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                         ema_beta: float = 0.99, ema_update_every: int = 10,
-                        ema_update_after_step: int = 100):
+                        ema_update_after_step: int = 100, norm_fn=None):
     """`adam` is the state of `training.optim.adam` ({"count", "mu",
     "nu"}). Returns (new_params, new adam state, new_ema_params,
     grad_norm); every dict has params' keys, and grads must hold one tensor
-    per key."""
+    per key. `norm_fn` (default `global_norm`) computes the clip's norm: on
+    a mesh's shards, one that sums over every shard."""
     keys = list(params)
     g = [grads[k] for k in keys]
     p = [params[k] for k in keys]
@@ -40,7 +41,7 @@ def fused_clip_adam_ema(grads: dict, params: dict, adam: dict, ema_params: dict,
     nu = [adam["nu"][k] for k in keys]
     e = [ema_params[k] for k in keys]
 
-    g_norm = global_norm(grads)
+    g_norm = (norm_fn or global_norm)(grads)
     if grad_clip_norm is not None:
         # select(norm < c, g, (g / norm) * c): dividing by 1 and multiplying
         # by 1 below the threshold leaves g exact

@@ -78,11 +78,14 @@ def chain(*transforms) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
-    """g / norm * max_norm when the global norm reaches max_norm."""
+def clip_by_global_norm(max_norm: float, norm_fn: Callable = None) -> GradientTransformation:
+    """g / norm * max_norm when the global norm reaches max_norm. `norm_fn`
+    (default `global_norm`) computes the norm: a mesh's trainer passes one
+    that sums over every shard."""
+    norm_fn = norm_fn or global_norm
 
     def update(updates, state, params=None):
-        g_norm = global_norm(updates)
+        g_norm = norm_fn(updates)
         trigger = g_norm < max_norm
         return {k: torch.where(trigger, g, g / g_norm.to(g.dtype) * max_norm)
                 for k, g in updates.items()}, state

@@ -36,8 +36,29 @@ steps [profile_start_step, profile_start_step + profile_num_steps)
 (`ProfilerHook`).
 
 Randomness: `train_step` takes the loss's draws (`LossDraws`, or a list of
-M of them) or makes them from a `torch.Generator`. Not ported yet
-(ROADMAP.md): meshes, pipeline parallelism.
+M of them) or makes them from a `torch.Generator`.
+
+With `mesh=` (a `parallel.make_mesh` mesh; every rank of the group
+constructs the same Trainer and calls it with the same batch and draws)
+the state holds this rank's shards (`parallel.mesh.shard_params`: 'fsdp'
+and 'tensor' splits of the masters, and of the optimizer state and EMA
+alike). A step gathers the shards over 'fsdp' into the tensor-local
+weights, takes its 'data' rows of the batch and draws
+(`parallel.mesh.batch_sharding`) with the whole batch's loss denominators,
+runs the loss (tensor-parallel on a 'tensor' axis; a model built with
+attn_impl 'ring' / 'cp_allgather' and the same mesh shards attention over
+'context'), sums the gradients of replicated parameters that compute on
+tensor-local slices over 'tensor', sums everything over 'data' and
+reduce-scatters over 'fsdp' (a mean: the fsdp ranks of a data row compute
+the same loss, as JAX's `batch_sharding` replicates the batch over it).
+The loss and its parts are summed over 'data', so every rank reports the
+whole batch's. The clip's global norm sums the squared norms of every
+shard over 'fsdp' and 'tensor' (`_mesh_norm`). On a mesh that shards
+parameters ('fsdp' or 'tensor' > 1) the optimizer is the default Adam
+(fused or not): a custom chain's norms and Muon's Newton-Schulz would see
+only a shard. Checkpoints gather the whole state to rank 0 in the usual
+format; `restore` reads it on every rank and shards it again. Not ported
+yet (ROADMAP.md): pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -49,8 +70,21 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from transfusion_tpu_torch.data.packing import PackedBatch
+from transfusion_tpu_torch.parallel import comm
+from transfusion_tpu_torch.parallel.mesh import (
+    AXES,
+    axis_of,
+    batch_sharding,
+    gather_fsdp,
+    set_tensor_axis,
+    shard_params,
+    shard_tensor,
+    tensor_partial,
+    unshard_tensor,
+)
 from transfusion_tpu_torch.training import optim
 from transfusion_tpu_torch.training.ema import EmaState, ema_update, init_ema
 from transfusion_tpu_torch.training.fused_update import fused_clip_adam_ema
@@ -77,6 +111,18 @@ def _structure(packed: PackedBatch) -> tuple:
         for g in packed.groups))
 
 
+def _map_param_dicts(tree, keys: frozenset, fn):
+    """tree with fn(name, tensor) applied to every dict whose keys are the
+    parameters' (the params, Adam's moments, the EMA copy, ...)."""
+    if isinstance(tree, dict):
+        if frozenset(tree) == keys:
+            return {k: fn(k, v) for k, v in tree.items()}
+        return {k: _map_param_dicts(v, keys, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_param_dicts(v, keys, fn) for v in tree)
+    return tree
+
+
 class Trainer:
     def __init__(self, model, optimizer: Optional[optim.GradientTransformation] = None,
                  learning_rate=3e-4, grad_clip_norm: Optional[float] = 0.5,
@@ -90,8 +136,6 @@ class Trainer:
                  pipeline_microbatches: Optional[int] = None,
                  grad_accumulation: Optional[int] = None,
                  fused_update: Optional[bool] = None):
-        if mesh is not None:
-            _queued("mesh sharding", "Queue 1 item 9, parallelism")
         if pipeline_microbatches is not None:
             _queued("pipeline parallelism", "Queue 1 item 9, parallelism")
         if grad_accumulation is not None and grad_accumulation < 2:
@@ -101,13 +145,17 @@ class Trainer:
         if fused_update and optimizer is not None:
             raise ValueError("fused_update runs clip + Adam only; it takes no optimizer")
         self.model = model
+        self.mesh = mesh
+        self._axes = self._specs = self._norm_fn = None
+        if mesh is not None:
+            self._setup_mesh(mesh, optimizer)
         self.velocity_consistency = velocity_consistency
         self.velocity_delta = velocity_consistency_delta_time
         self.learning_rate = learning_rate
         self.grad_clip_norm = grad_clip_norm
         tx = optimizer or optim.adam(learning_rate)
         if grad_clip_norm is not None:
-            tx = optim.chain(optim.clip_by_global_norm(grad_clip_norm), tx)
+            tx = optim.chain(optim.clip_by_global_norm(grad_clip_norm, self._norm_fn), tx)
         self.tx = tx
         self.fused_update = fused_update
         self.ema_cfg = dict(beta=ema_beta, update_every=ema_update_every,
@@ -118,14 +166,54 @@ class Trainer:
         self.profiler = (ProfilerHook(profile_logdir, profile_start_step, profile_num_steps)
                          if profile_logdir else None)
 
+    def _setup_mesh(self, mesh, optimizer):
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh= takes a parallel.make_mesh mesh, not {type(mesh).__name__}")
+        axes = {a: axis_of(mesh, a) for a in AXES}
+        if axes["pipe"].size > 1:
+            _queued("pipeline parallelism", "Queue 1 item 9, parallelism")
+        params = dict(self.model.core.named_parameters())
+        self._specs = shard_params(params, mesh, heads=self.model.transformer_cfg.get("heads", 8))
+        self._partial = [k for k in params if tensor_partial(k, self._specs)]
+        if axes["fsdp"].size > 1 or axes["tensor"].size > 1:
+            if optimizer is not None:
+                raise ValueError(
+                    "optimizer= on a mesh that shards parameters (fsdp or tensor > 1): a "
+                    "custom chain's norms and Muon's Newton-Schulz would see only a shard; "
+                    "the default Adam (fused or not) runs on the shards")
+            self._norm_fn = self._mesh_norm
+        set_tensor_axis(self.model.core, axes["tensor"])
+        self._axes = axes
+
+    def _mesh_norm(self, grads: dict):
+        """The global L2 norm of sharded gradients: each shard's squared
+        norm over the number of ranks that hold the same shard, summed over
+        'tensor' and 'fsdp'."""
+        sq = torch.zeros((), dtype=torch.float32, device=self.model.device)
+        for k, g in grads.items():
+            rep = 1
+            for a in ("fsdp", "tensor"):
+                if a not in self._specs[k]:
+                    rep *= self._axes[a].size
+            sq = sq + g.float().pow(2).sum() / rep
+        for a in ("tensor", "fsdp"):
+            sq = comm.all_reduce_sum(sq, self._axes[a])
+        return sq.sqrt()
+
     def init_state(self, params: Optional[dict] = None) -> TrainState:
         """Masters from `params` (a state dict, e.g. `weights.from_flax`'s;
         only the core's parameters are taken) or from the model's current
-        weights, as float32 on the model's device."""
+        weights, as float32 on the model's device (on a mesh: this rank's
+        shards of them)."""
         names = [k for k, _ in self.model.core.named_parameters()]
         src = params if params is not None else dict(self.model.core.named_parameters())
         masters = {k: src[k].detach().to(device=self.model.device, dtype=torch.float32).clone()
                    for k in names}
+        if self._axes is not None:
+            masters = {k: shard_tensor(k, v, self._specs[k], self._axes)
+                       for k, v in masters.items()}
         return TrainState(params=masters, opt_state=self.tx.init(masters),
                           ema=init_ema(masters), step=0)
 
@@ -160,18 +248,48 @@ class Trainer:
                 for idx in np.array_split(np.arange(len(batch)), M)]
 
     def _grads(self, state: TrainState, packed, draws, loss_scales=None):
-        """Loss, breakdown and float32 gradients (a dict like the params) of
-        one (micro)batch at the state's master weights."""
+        """Loss, its parts (`_loss_parts`) and float32 gradients (a dict
+        like the params) of one (micro)batch at the state's master weights;
+        on a mesh, this rank's share reduced as the module docstring says."""
         model = self.model
-        leaves = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
+        params = state.params
+        ema = state.ema.params if self.velocity_consistency else None
+        if self._axes is not None:
+            if loss_scales is None:
+                loss_scales = model.loss_denominators(packed, draws)
+            packed, draws = batch_sharding(self.mesh, packed, draws)
+            params = {k: gather_fsdp(v, self._specs[k], self._axes) for k, v in params.items()}
+            if ema is not None:
+                ema = {k: gather_fsdp(v, self._specs[k], self._axes) for k, v in ema.items()}
+        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
         loss, breakdown = model._loss_impl(
             leaves, packed, draws, model.prob_uncond, train=True, loss_scales=loss_scales,
-            ema_params=state.ema.params if self.velocity_consistency else None,
-            velocity_delta=self.velocity_delta)
+            ema_params=ema, velocity_delta=self.velocity_delta)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(state.params.items(), grads)}
-        return loss.detach(), breakdown, grads
+                 for (k, p), g in zip(leaves.items(), grads)}
+        loss, parts = loss.detach(), self._loss_parts(breakdown)
+        if self._axes is not None:
+            loss, parts, grads = self._reduce(loss, parts, grads)
+        return loss, parts, grads
+
+    def _reduce(self, loss, parts: dict, grads: dict):
+        """A rank's loss share and tensor-local gradients -> the whole
+        batch's loss and parts, and this rank's gradient shards."""
+        ax = self._axes
+        for k in self._partial:
+            grads[k] = comm.all_reduce_sum(grads[k], ax["tensor"])
+        keys = list(grads)
+        flat = comm.all_reduce_sum(torch.cat([grads[k].reshape(-1) for k in keys]), ax["data"])
+        grads = dict(zip(keys, (t.view_as(grads[k]) for t, k in zip(
+            flat.split([grads[k].numel() for k in keys]), keys))))
+        for k, g in grads.items():
+            spec = self._specs[k]
+            if "fsdp" in spec:
+                grads[k] = comm.reduce_scatter_sum(g, spec.index("fsdp"), ax["fsdp"]) / \
+                    ax["fsdp"].size
+        sums = comm.all_reduce_sum(torch.stack([loss, *parts.values()]).float(), ax["data"])
+        return sums[0], dict(zip(parts, sums[1:])), grads
 
     @staticmethod
     def _loss_parts(breakdown) -> dict:
@@ -193,12 +311,12 @@ class Trainer:
             params, adam, ema_params, grad_norm = fused_clip_adam_ema(
                 grads, state.params, adam, state.ema.params, state.ema.step,
                 learning_rate=self.learning_rate, grad_clip_norm=self.grad_clip_norm,
-                **{f"ema_{k}": v for k, v in self.ema_cfg.items()},
+                **{f"ema_{k}": v for k, v in self.ema_cfg.items()}, norm_fn=self._norm_fn,
             )
             opt_state = (state.opt_state[0], adam) if clipped else adam
             ema = EmaState(params=ema_params, step=state.ema.step + 1)
         else:
-            grad_norm = optim.global_norm(grads)
+            grad_norm = (self._norm_fn or optim.global_norm)(grads)
             updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
             params = optim.apply_updates(state.params, updates)
             ema = ema_update(state.ema, params, **self.ema_cfg)
@@ -222,9 +340,8 @@ class Trainer:
         packed = self._packed(batch)
         if draws is None:
             draws = self.model.make_draws(packed, generator, velocity=self.velocity_consistency)
-        loss, breakdown, grads = self._grads(state, packed, draws)
-        return self._apply(state, grads, loss, self._loss_parts(breakdown),
-                           int(packed.total_tokens))
+        loss, parts, grads = self._grads(state, packed, draws)
+        return self._apply(state, grads, loss, parts, int(packed.total_tokens))
 
     def _train_step_accum(self, state: TrainState, batch, draws, generator):
         """Exact gradient accumulation (the JAX `_train_step_accum`,
@@ -244,8 +361,7 @@ class Trainer:
             [model.loss_denominators(p, d) for p, d in zip(packs, draws)])
         loss = parts = grads = None
         for packed, d in zip(packs, draws):
-            loss_m, bd, grads_m = self._grads(state, packed, d, scales)
-            parts_m = self._loss_parts(bd)
+            loss_m, parts_m, grads_m = self._grads(state, packed, d, scales)
             if grads is None:
                 loss, parts, grads = loss_m, parts_m, grads_m
                 continue
@@ -285,10 +401,25 @@ class Trainer:
 
     def sync_model(self, state: TrainState):
         """Copy the state's master weights into the model's modules, in the
-        model's dtype, for sampling with them."""
+        model's dtype, for sampling with them (on a mesh: gathered whole,
+        on every rank)."""
+        params = self._unshard(state).params if self._axes is not None else state.params
         with torch.no_grad():
             for k, p in self.model.core.named_parameters():
-                p.copy_(state.params[k])
+                p.copy_(params[k])
+
+    def _unshard(self, state: TrainState) -> TrainState:
+        """The whole state from every rank's shards (a collective)."""
+        keys = frozenset(state.params)
+
+        def whole(k, v):
+            return unshard_tensor(k, v, self._specs[k], self._axes)
+
+        return dataclasses.replace(
+            state, params=_map_param_dicts(state.params, keys, whole),
+            opt_state=_map_param_dicts(state.opt_state, keys, whole),
+            ema=EmaState(params=_map_param_dicts(state.ema.params, keys, whole),
+                         step=state.ema.step))
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -300,13 +431,22 @@ class Trainer:
         return self.checkpoint_dir
 
     def save(self, state: TrainState) -> str:
-        """Write `state` to checkpoint_dir/step_<step>.pt; returns the path."""
-        os.makedirs(self._dir(), exist_ok=True)
+        """Write `state` to checkpoint_dir/step_<step>.pt; returns the path.
+        On a mesh every rank calls it: the shards are gathered whole and
+        rank 0 writes them."""
         path = os.path.join(self._dir(), f"step_{state.step}.pt")
+        if self._axes is not None:
+            state = self._unshard(state)
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return path
+        os.makedirs(self._dir(), exist_ok=True)
         torch.save({
             "params": state.params, "opt_state": state.opt_state, "ema": state.ema.params,
             "ema_step": state.ema.step, "step": state.step,
         }, path)
+        if self._axes is not None:
+            dist.barrier()
         return path
 
     def restore(self, step: Optional[int] = None) -> Optional[TrainState]:
@@ -319,5 +459,16 @@ class Trainer:
         step = max(found) if step is None else step
         path = os.path.join(self._dir(), f"step_{step}.pt")
         ck = torch.load(path, map_location=self.model.device, weights_only=True)
-        return TrainState(params=ck["params"], opt_state=ck["opt_state"],
-                          ema=EmaState(params=ck["ema"], step=ck["ema_step"]), step=ck["step"])
+        state = TrainState(params=ck["params"], opt_state=ck["opt_state"],
+                           ema=EmaState(params=ck["ema"], step=ck["ema_step"]), step=ck["step"])
+        if self._axes is None:
+            return state
+        keys = frozenset(state.params)
+
+        def shard(k, v):
+            return shard_tensor(k, v, self._specs[k], self._axes)
+
+        return TrainState(params=_map_param_dicts(state.params, keys, shard),
+                          opt_state=_map_param_dicts(state.opt_state, keys, shard),
+                          ema=EmaState(params=_map_param_dicts(state.ema.params, keys, shard),
+                                       step=state.ema.step), step=state.step)
