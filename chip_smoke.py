@@ -168,6 +168,30 @@ Phases (any failure exits non-zero and prints no result line):
      `examples/train_distributed.py` under torchrun with one rank (its exit
      code checked). Communication between ranks is held on the CPU only
      (tests/test_torch_distributed.py, gloo);
+  pipeline. pipeline parallelism with the P stages in this one process
+     (`parallel.pipeline.LocalStages`, the engines' own schedule code with
+     the carries handed over in memory), through `Transfusion.loss(
+     pipeline=(LocalStages(P), M, schedule))` and the Trainer's own fused
+     clip + Adam + EMA update: (a) the bench model with unet_skips=False on
+     bench (a)'s batch (32 x n 256, token-major), P 4 stages of 2 layers, M
+     8 microbatches of 4 rows, GPipe and 1F1B, PIPE_STEPS steps each from
+     the same weights and draws: the first step's loss within 1e-3
+     relative of the unpipelined step's, every gradient within
+     PIPE_GRAD_REL_TOL (relative Frobenius) of its gradients, the loss
+     falling, the token-major rows 5 / 6 launched depth x M times a step
+     each (1F1B: row 5 twice that, its backward recomputing each stage from
+     its saved input), and one captured stage call of each schedule
+     (q 4 x 256 x 512) held against the plain versions of rows 5 and 6; (b) the 573M config with unet_skips=False at 4 x
+     n 16384, P 4 stages of 3 layers, M 4, 1F1B, one step: its loss within
+     1e-3 of the unpipelined `Trainer(grad_accumulation=4)` step on the same
+     rows and draws, rows 3 / 9 launched 3 x depth x M / depth x M times
+     (remat runs each recomputed stage's forward twice), the process's peak
+     memory (all 4 stages' together, not one rank's), and one captured
+     stage call of rows 3 and 9 held against the plain versions in 1024-row
+     blocks as in phase 6. One card cannot check NCCL point-to-point
+     between ranks, the bubble's time, or one rank's peak memory
+     (tests/test_torch_pipeline_distributed.py runs 4 gloo ranks on the
+     CPU);
   7. the `kernels` line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -3213,6 +3237,224 @@ def phase_parallel(torch, Transfusion, Trainer, mods, capture):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase "pipeline": pipeline parallelism, the P stages in this one process
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_STEPS = 4, 8, 10
+# every parameter's gradient against the unpipelined step's, as ||g - ref||
+# / ||ref||: the pipelined step rounds each microbatch's weight gradient (a
+# bf16 product over 4 rows, 2^-8 relative) before summing them in float32,
+# the unpipelined step one product over 32 rows once; worst measured
+# 0.011-0.012 (NVIDIA H100 80GB HBM3, 700.00 W), on the adaLN-zero
+# gates' small gradients
+PIPE_GRAD_REL_TOL = 5e-2
+
+
+def pipeline_step(torch, trainer, model, state, packed, draws, pipeline):
+    """One pipelined training step: `loss(pipeline=)` on the state's float32
+    masters, its backward, then the Trainer's own update (fused clip + Adam
+    + EMA). Returns (new state, metrics, the gradients)."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
+    loss, bd = model.loss(packed=packed, draws=draws, params=leaves, pipeline=pipeline,
+                          return_breakdown=True)
+    loss.backward()
+    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in leaves.items()}
+    state, metrics = trainer._apply(state, grads, loss.detach(), trainer._loss_parts(bd),
+                                    int(packed.total_tokens))
+    return state, metrics, grads
+
+
+def grad_rel_errs(torch, got, want):
+    """{name: ||got - want|| / ||want||} over the parameters whose reference
+    gradient is not zero; a zero reference must be matched exactly."""
+    out = {}
+    for k, w in want.items():
+        wn = w.float().norm().item()
+        d = (got[k].float() - w.float()).norm().item()
+        out[k] = d / wn if wn > 0 else (0.0 if d == 0 else float("inf"))
+    return out
+
+
+def pipeline_bench(torch, Transfusion, Trainer, mods, LocalStages):
+    """(a): the bench model, both schedules. Returns the launches."""
+    import numpy as np
+
+    cfg = dict(BENCH_CFG, transformer=dict(BENCH_CFG["transformer"], unet_skips=False))
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **cfg)
+    trainer = Trainer(model, learning_rate=3e-4)
+    depth, P, M = cfg["transformer"]["depth"], PIPE_STAGES, PIPE_MICROBATCHES
+    rng = np.random.default_rng(0)
+    packed = model.pack([bench_sample(rng, 1) for _ in range(32)], shift_friendly=True)
+    require(packed.text.shape[1] == 257, f"pipeline bench: packed to {packed.text.shape}")
+    packed = packed.to_torch("cuda")
+    draws = model.make_draws(packed, torch.Generator("cuda").manual_seed(0))
+    state0 = trainer.init_state()
+    (ref_loss, _, ref_grads), ref_counts = counted(
+        mods, lambda: trainer._grads(state0, packed, draws))
+    ref_loss = float(ref_loss)
+    require(ref_counts["flash_fwd_nhd"] == depth and ref_counts["flash_bwd_nhd"] == depth,
+            f"pipeline bench: the unpipelined step launched {ref_counts}")
+    totals = dict.fromkeys(KERNELS, 0)
+    for schedule, fwd_per_layer in (("gpipe", 1), ("1f1b", 2)):
+        name = (f"bench model, unet_skips=False, 32 x n 256, {P} stages of {depth // P} layers "
+                f"in one process, M {M} of {32 // M} rows, {schedule}")
+        pipeline = (LocalStages(P), M, schedule)
+
+        def steps(pipeline=pipeline):
+            """The steps; the first also keeps a copy of one stage's
+            token-major call that takes part in the backward."""
+            state, losses, first, seconds = state0, [], None, []
+            for i in range(PIPE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (capturing(torch, mods, {"flash_fwd_nhd": lambda a: torch.is_grad_enabled()})
+                      if i == 0 else contextlib.nullcontext()) as seen:
+                    state, metrics, grads = pipeline_step(torch, trainer, model, state, packed,
+                                                          draws, pipeline)
+                if i == 0:
+                    calls.update(seen)
+                losses.append(metrics["loss"])
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                if first is None:
+                    first = grads
+            return [float(x) for x in losses], first, seconds
+
+        calls = {}
+        (losses, first, seconds), counts = counted(mods, steps)
+        errs = grad_rel_errs(torch, first, ref_grads)
+        worst = max(errs, key=errs.get)
+        rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+        per_step = {k: c / PIPE_STEPS for k, c in counts.items() if c}
+        log(json.dumps({
+            "pipeline": name, "steps": PIPE_STEPS, "seconds": sum(seconds),
+            "first_step_ms": seconds[0] * 1e3,
+            "ms_per_step_after_first": float(np.median(seconds[1:])) * 1e3,
+            "loss_first": losses[0],
+            "loss_last": losses[-1], "unpipelined_first_loss": ref_loss, "loss_rel_diff": rel,
+            "grad_rel_err_max": errs[worst], "grad_rel_err_worst_param": worst,
+            "grad_rel_err_median": float(np.median(list(errs.values()))),
+            "launches_per_step_by_row": {"row 5": per_step.get("flash_fwd_nhd", 0),
+                                         "row 6": per_step.get("flash_bwd_nhd", 0)},
+            "launches": counts}))
+        require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+        require(rel <= 1e-3, f"{name}: first loss {losses[0]} vs unpipelined {ref_loss}")
+        require(errs[worst] <= PIPE_GRAD_REL_TOL,
+                f"{name}: gradient of {worst} {errs[worst]} from the unpipelined one")
+        require(losses[-1] < losses[0], f"{name}: loss did not fall {losses[0]} -> {losses[-1]}")
+        want_f, want_b = fwd_per_layer * depth * M * PIPE_STEPS, depth * M * PIPE_STEPS
+        require(counts["flash_fwd_nhd"] == want_f and counts["flash_bwd_nhd"] == want_b
+                and sum(counts.values()) == want_f + want_b,
+                f"{name}: launches {counts}, want {want_f} of row 5 and {want_b} of row 6")
+        require("do" in calls.get("flash_fwd_nhd", {}), f"{name}: no stage's call captured")
+        a = calls.pop("flash_fwd_nhd")
+        shape = (f"main path, pipeline, {name}: a stage's call q {shape_str(a['q'])} "
+                 f"rope spans {shape_str(a['spans'])}")
+        f_res, b_res = check_nhd(torch, mods, a)
+        record("flash_fwd_nhd", shape, f_res, torch.bfloat16)
+        record("flash_bwd_nhd", shape, b_res, torch.bfloat16)
+        del a
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
+def row_draws(whole, draws, pack, b: int):
+    """The draws of row b of `whole` for `pack`, the same sample packed
+    alone: its times and CFG uniform, and its instances' noise in the
+    order of pack's groups."""
+    import dataclasses
+
+    noises = []
+    for gp in pack.groups:
+        gi = next(i for i, g in enumerate(whole.groups) if g.modality_type == gp.modality_type
+                  and tuple(g.seq_shape) == tuple(gp.seq_shape))
+        g = whole.groups[gi]
+        idx = [int(((g.batch_idx == b) & (g.span_rows == s)).nonzero()[0, 0])
+               for s in gp.span_rows.tolist()]
+        noises.append(draws.noises[gi][idx])
+    return dataclasses.replace(draws, times=draws.times[b:b + 1],
+                               cfg_uniform=draws.cfg_uniform[b:b + 1], noises=tuple(noises))
+
+
+def pipeline_long(torch, Transfusion, Trainer, mods, LocalStages):
+    """(b): the 573M config at 4 x n 16384, 1F1B. Returns the launches."""
+    import numpy as np
+
+    P, M = PIPE_STAGES, 4
+    cfg = dict(LONG_CFG, transformer=dict(LONG_CFG["transformer"], unet_skips=False))
+    depth = cfg["transformer"]["depth"]
+    name = (f"573M, unet_skips=False, 4 x n 16384, {P} stages of {depth // P} layers in one "
+            f"process, M {M}, 1f1b, remat full, ce_chunk 256")
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **cfg)
+    rng = np.random.default_rng(0)
+    samples = [long_sample(rng) for _ in range(M)]
+    whole = model.pack(samples, shift_friendly=True)
+    require(whole.text.shape == (M, LONG_N), f"{name}: packed to {whole.text.shape}")
+    whole = whole.to_torch("cuda")
+    packs = [model.pack([s], shift_friendly=True).to_torch("cuda") for s in samples]
+    draws = model.make_draws(whole, torch.Generator("cuda").manual_seed(0))
+    accum = Trainer(model, learning_rate=3e-4, grad_accumulation=M)
+    state = accum.init_state()
+    t0 = time.perf_counter()
+    ref = accum.train_step(state, packs, draws=[row_draws(whole, draws, p, b)
+                                                for b, p in enumerate(packs)])[1]
+    ref_loss, ref_s = float(ref["loss"]), time.perf_counter() - t0  # the model's first step
+    del accum, ref
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(model, learning_rate=3e-4)
+    pipeline = (LocalStages(P), M, "1f1b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with capturing(torch, mods, {"flash_fwd": lambda a: torch.is_grad_enabled()}) as calls:
+        (_, metrics, _), counts = counted(mods, lambda: pipeline_step(
+            torch, trainer, model, state, whole, draws, pipeline))
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(metrics["loss"])
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    log(json.dumps({
+        "pipeline": name, "seconds_step": dt, "loss": loss,
+        "grad_accumulation_4_loss": ref_loss, "grad_accumulation_4_first_step_seconds": ref_s,
+        "loss_rel_diff": rel, "peak_memory_gb_all_stages_one_process": peak / 1e9,
+        "launches_by_row": {"row 3": counts["flash_fwd_streamed"],
+                            "row 9": counts["flash_bwd_streamed"]}, "launches": counts}))
+    require(np.isfinite(loss), f"{name}: non-finite loss {loss}")
+    require(rel <= 1e-3, f"{name}: loss {loss} vs Trainer(grad_accumulation=4) {ref_loss}")
+    want_f, want_b = 3 * depth * M, depth * M
+    require(counts["flash_fwd_streamed"] == counts["flash_fwd"] == want_f
+            and counts["flash_bwd_streamed"] == counts["flash_bwd"] == want_b
+            and sum(counts.values()) == 2 * (want_f + want_b),
+            f"{name}: launches {counts}, want {want_f} streamed forwards and {want_b} "
+            "streamed backwards and no other")
+    require("flash_fwd" in calls and "do" in calls["flash_fwd"],
+            f"{name}: no stage's attention call captured")
+    a = calls.pop("flash_fwd")
+    shape = (f"main path, {name}: a stage's call q {shape_str(a['q'])} spans "
+             f"{shape_str(a['spans'])}, plain in blocks of {LONG_BLOCK_Q} rows")
+    record("flash_fwd_streamed", shape, check_flash(torch, mods, a, iters=3,
+                                                    block_q=LONG_BLOCK_Q), torch.bfloat16)
+    record("flash_bwd_streamed", shape, check_flash_bwd(torch, mods, a, iters=3,
+                                                        block_q=LONG_BLOCK_Q), torch.bfloat16)
+    return {k: counts[k] for k in KERNELS}
+
+
+def phase_pipeline(torch, Transfusion, Trainer, mods):
+    """(a) the bench model on both schedules, (b) the 573M config on 1F1B,
+    P stages in this process. Returns the launches by kernel-line entry."""
+    from transfusion_tpu_torch.parallel import LocalStages
+
+    totals = pipeline_bench(torch, Transfusion, Trainer, mods, LocalStages)
+    torch.cuda.empty_cache()
+    for k, c in pipeline_long(torch, Transfusion, Trainer, mods, LocalStages).items():
+        totals[k] += c
+    torch.cuda.empty_cache()
+    return totals
+
+
 KERNELS = {
     "flash_fwd": dict(
         source="transfusion_tpu_torch/csrc/flash_fwd.cu",
@@ -3325,6 +3567,7 @@ def main() -> int:
                                                     Trainer, mods)
     parallel_launches = timed_phase(phase_parallel, torch, Transfusion, Trainer, mods, capture)
     del capture
+    pipeline_launches = timed_phase(phase_pipeline, torch, Transfusion, Trainer, mods)
 
     # the kernels line: launches over the serving and training runs (the
     # streamed entries: over the long-context run); times on the tensors
@@ -3338,7 +3581,7 @@ def main() -> int:
                  + engine_launches.get(name, 0) + image_launches.get(name, 0)
                  + recipe_launches.get(name, 0) + surface_launches.get(name, 0)
                  + train_launches.get(name, 0) + long_launches.get(name, 0)
-                 + parallel_launches.get(name, 0))
+                 + parallel_launches.get(name, 0) + pipeline_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]
         kernels.append(dict(

@@ -97,7 +97,8 @@ def test_serve_text_twin_runs_every_demo(monkeypatch, tmp_path, capsys):
 def test_distributed_twin_runs_under_torchrun(tmp_path):
     """The data x context twin (`train_distributed --context 2`) in 2 gloo
     processes under torchrun: exit code 0 within 120 s, and both ranks print
-    the same finite first loss."""
+    the same finite first loss; and its pipeline (`--pipeline 2`), which
+    raised before the pipeline slice, exits 0."""
     import os
     import subprocess
 
@@ -111,11 +112,14 @@ def test_distributed_twin_runs_under_torchrun(tmp_path):
     assert "mesh: data=1 fsdp=1 tensor=1 context=2" in r.stdout
     firsts = [ln for ln in r.stdout.splitlines() if ln.startswith("1: ")]
     assert len(firsts) == 2 and firsts[0] == firsts[1] and np.isfinite(float(firsts[0][3:]))
-    with pytest.raises(subprocess.CalledProcessError) as e:
-        subprocess.run([sys.executable, "-m", "transfusion_tpu_torch.examples.train_distributed",
-                        "--device", "cpu", "--pipeline", "2"], cwd=tmp_path, env=env,
-                       capture_output=True, text=True, timeout=120, check=True)
-    assert "Queue 1 item 9, parallelism" in e.value.stderr
+    # --pipeline 2 (2 GPipe stages; test_torch_pipeline_distributed.py runs 4)
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node=2", "-m",
+                        "transfusion_tpu_torch.examples.train_distributed", "--device", "cpu",
+                        "--pipeline", "2", "--steps", "1"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "mesh: data=1 pipe=2 microbatches=4 batch=8" in r.stdout
 
 
 # ---------------------------------------------------------------------------

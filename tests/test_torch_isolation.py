@@ -9,8 +9,10 @@ decoder, U-Net halves, pos-emb), takes a LASER + 4-stream step through
 `PackingLoader`, loads a transfusion-pytorch state_dict with
 `port_from_reference`, loads the gloo worker script of the parallel tests
 and takes a `Trainer(mesh=)` step of a ring-attention model on a one-rank
-gloo group (`transfusion_tpu_torch/parallel/`), and its entry points
-default to the card (raising when there is none)."""
+gloo group (`transfusion_tpu_torch/parallel/`), runs the pipelined loss
+on both schedules over 2 stages in one process (`LocalStages`, which
+`Trainer(mesh=)` refuses), and its entry points default to the card
+(raising when there is none)."""
 
 import os
 import subprocess
@@ -151,6 +153,29 @@ SCRIPT = textwrap.dedent(
         finally:
             dist.destroy_process_group()
     assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+
+    # the pipeline: both schedules on 2 stages in this process, and the
+    # Trainer refusing the one-process driver for a mesh
+    assert {"transfusion_tpu_torch.parallel.pipeline", "transfusion_tpu_torch.parallel."
+            "pipeline_1f1b", "transfusion_tpu_torch.models.pipeline_loss"} <= set(names)
+    from transfusion_tpu_torch.parallel.pipeline import LocalStages
+    pm = Transfusion(device="cpu", **dict(cfg, transformer=dict(cfg["transformer"],
+                                                                unet_skips=False)))
+    packed = pm.pack(batch * 2, shift_friendly=True).to_torch("cpu")
+    for schedule in ("gpipe", "1f1b"):
+        params = {k: p.detach().clone().requires_grad_(True)
+                  for k, p in pm.core.named_parameters()}
+        loss = pm.loss(packed=packed, params=params, pipeline=(LocalStages(2), 2, schedule),
+                       generator=torch.Generator().manual_seed(0))
+        loss.backward()
+        assert np.isfinite(float(loss)) and params["to_text_logits.weight"].grad is not None
+    for kw in (dict(), dict(pipeline_microbatches=2)):
+        try:
+            Trainer(pm, mesh=LocalStages(2), **kw)
+        except (TypeError, ValueError) as e:
+            assert "make_mesh" in str(e)
+        else:
+            raise AssertionError("Trainer(mesh=LocalStages(2)) must raise")
     assert not any(k in ("jax", "optax") or k.startswith(("jax.", "flax", "optax.", "jaxtyping",
                                                           "transfusion_tpu."))
                    for k, v in sys.modules.items() if v is not None), "JAX was imported"

@@ -282,9 +282,10 @@ def test_ema_schedule_matches_jax():
 
 
 def test_unported_training_options_raise():
-    """The pipeline still raises (the mesh, which raised before the
-    parallelism slice, takes a `parallel.make_mesh` mesh and refuses
-    anything else: tests/test_torch_distributed.py holds it against JAX);
+    """The pipeline (ported since; tests/test_torch_pipeline*.py) needs a
+    mesh with a 'pipe' axis, as in JAX, and the mesh, which raised before
+    the parallelism slice, takes a `parallel.make_mesh` mesh and refuses
+    anything else (tests/test_torch_distributed.py holds it against JAX);
     so does a dropout model's training step (refused as in JAX; dropout
     raised at construction before the single-process surface slice). The velocity and
     reconstruction options (which raised before the modality I/O slice)
@@ -292,7 +293,8 @@ def test_unported_training_options_raise():
     model with `reconstruction_loss_weight`, its breakdown within 1e-4, and
     `Trainer(velocity_consistency=True)` builds."""
     tm = Transfusion(transformer=TCFG["head-major"], device="cpu", **CFG)
-    for kw, err, match in ((dict(pipeline_microbatches=2), NotImplementedError, "parallelism"),
+    for kw, err, match in ((dict(pipeline_microbatches=2), ValueError,
+                            "needs a mesh with a 'pipe' axis"),
                            (dict(mesh=object()), TypeError, "make_mesh")):
         with pytest.raises(err, match=match):
             Trainer(tm, **kw)

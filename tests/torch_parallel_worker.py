@@ -22,7 +22,13 @@ Scenarios:
     from given weights (a flax tree of numpy arrays, `load_flax`); returns
     each step's metrics and the stored shards' shapes, and with
     'resume_after' the metrics of a run
-    saved after that step, restored by a new Trainer and continued.
+    saved after that step, restored by a new Trainer and continued;
+  * 'pipeline': the same with `Trainer(pipeline_microbatches=,
+    pipeline_schedule=)` on a mesh with a 'pipe' axis, an optimizer by name
+    ('muon_adam_atan2'), and this rank's stage computations per step (the
+    engines' `stage_calls`);
+  * 'pipeline_refuse': the message of each refused pipelined Trainer
+    configuration.
 """
 
 import os
@@ -123,7 +129,9 @@ def run_compare(job):
 
 def run_trainer(job, path):
     from transfusion_tpu_torch import Transfusion
-    from transfusion_tpu_torch.training import Trainer
+    from transfusion_tpu_torch.parallel.pipeline import pipeline_blocks
+    from transfusion_tpu_torch.parallel.pipeline_1f1b import pipeline_1f1b_grads
+    from transfusion_tpu_torch.training import Trainer, muon_adam_atan2
 
     mesh = make_mesh(**job["mesh"], device="cpu")
     cfg = dict(job["cfg"])
@@ -131,18 +139,26 @@ def run_trainer(job, path):
     model = Transfusion(device="cpu", **cfg)
     model.load_flax(job["flax"])
     kw = dict(job["trainer"], mesh=mesh)
+    if job.get("optimizer") == "muon_adam_atan2":
+        kw["optimizer"] = muon_adam_atan2(1e-3, 3e-4)
     packed = job["packed"].to_torch("cpu")
+    stage_calls = []
 
     def run(trainer, state, draws):
         out = []
         for d in draws:
+            pipeline_blocks.stage_calls.update(forward=0, backward=0)
+            pipeline_1f1b_grads.stage_calls.update(forward=0, backward=0, head=0)
             state, met = trainer.train_step(state, packed, draws=d)
             out.append({k: float(v) for k, v in met.items()})
+            stage_calls.append({"gpipe": dict(pipeline_blocks.stage_calls),
+                                "1f1b": dict(pipeline_1f1b_grads.stage_calls)})
         return state, out
 
     trainer = Trainer(model, **kw)
     state, metrics = run(trainer, trainer.init_state(), job["draws"])
-    res = {"metrics": metrics, "shapes": {k: tuple(v.shape) for k, v in state.params.items()}}
+    res = {"metrics": metrics, "shapes": {k: tuple(v.shape) for k, v in state.params.items()},
+           "stage_calls": stage_calls}
     after = job.get("resume_after")
     if after is not None:
         ck = os.path.join(path, job["name"])
@@ -156,6 +172,23 @@ def run_trainer(job, path):
             torch.equal(restored.ema.params[k], state.ema.params[k]) for k in state.params)
         _, res["resumed"] = run(second, restored, job["draws"][after:])
     return res
+
+
+def run_pipeline_refuse(job):
+    """{case: the message of the ValueError that Trainer(...) raised}."""
+    from transfusion_tpu_torch import Transfusion
+    from transfusion_tpu_torch.training import Trainer
+
+    out = {}
+    for name, case in job["cases"].items():
+        mesh = None if case["mesh"] is None else make_mesh(**case["mesh"], device="cpu")
+        model = Transfusion(device="cpu", **dict(job["cfg"], transformer=case["transformer"]))
+        try:
+            Trainer(model, mesh=mesh, **case["trainer"])
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
 
 
 def main():
@@ -173,7 +206,9 @@ def main():
                 results[job["name"]] = run_refuse(job)
             elif job["kind"] == "compare":
                 results[job["name"]] = run_compare(job)
-            else:
+            elif job["kind"] == "pipeline_refuse":
+                results[job["name"]] = run_pipeline_refuse(job)
+            else:  # 'trainer' and 'pipeline'
                 results[job["name"]] = run_trainer(job, out_dir)
     finally:
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))

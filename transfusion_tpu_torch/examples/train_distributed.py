@@ -1,6 +1,7 @@
-"""Distributed training: data x fsdp x tensor (x context) over a device mesh
-(twin of `examples/train_distributed.py`). One process per rank, started
-by torchrun; every rank builds the same model, batches and draws.
+"""Distributed training: data x fsdp x tensor (x context, or x pipe) over a
+device mesh (twin of `examples/train_distributed.py`). One process per
+rank, started by torchrun; every rank builds the same model, batches and
+draws.
 
 On the CPU (gloo), 4 processes, the sequence sharded over 2 with ring
 attention:
@@ -14,8 +15,14 @@ On GPUs (NCCL), one process per card:
       transfusion_tpu_torch.examples.train_distributed --steps 10
 
 The ranks left after --context are factored into data x fsdp x tensor as
-the JAX script does (`factor_devices`). `--pipeline` > 1 is not in the
-port yet.
+the JAX script does (`factor_devices`).
+
+Pipeline parallelism: the whole joint loss with the transformer split into
+--pipeline stages over a 'pipe' axis and the other ranks on 'data' (GPipe,
+`Trainer(pipeline_microbatches=)`, `parallel/pipeline.py`):
+
+  torchrun --standalone --nproc_per_node=4 -m \\
+      transfusion_tpu_torch.examples.train_distributed --device cpu --pipeline 4
 """
 
 import pathlib
@@ -43,14 +50,52 @@ def factor_devices(n):
     return dims
 
 
+def dataset(seed: int):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, 16).astype(np.int32),
+             rng.standard_normal((8, 8, 32)).astype(np.float32)) for _ in range(256)]
+
+
+def train_pipeline(args, rank: int, n_dev: int):
+    """GPipe training of the whole Transfusion model through the Trainer
+    (the JAX `train_pipeline`): the transformer as stages over 'pipe', the
+    ranks left over on 'data'."""
+    pipe = args.pipeline
+    if n_dev % pipe:
+        raise ValueError(f"{n_dev} devices not divisible by pipe={pipe}")
+    data = n_dev // pipe
+    mesh = make_mesh(data=data, pipe=pipe, device=args.device)
+    # the largest M <= 2 * pipe with the batch divisible by M and each
+    # microbatch's rows by the data axis (bubble fraction (pipe-1)/(M+pipe-1))
+    bs = max(args.batch_size, 2 * pipe * data)
+    microbatches = pipe
+    for m in range(min(2 * pipe, bs), pipe - 1, -1):
+        if bs % m == 0 and (bs // m) % data == 0:
+            microbatches = m
+            break
+    if rank == 0:
+        print(f"devices={n_dev} mesh: data={data} pipe={pipe} microbatches={microbatches} "
+              f"batch={bs}")
+    model = Transfusion(num_text_tokens=256, dim_latent=32, modality_default_shape=(8, 8),
+                        transformer=dict(dim=256, depth=4 * max(pipe // 4, 1), dim_head=64,
+                                         heads=8, unet_skips=False, num_residual_streams=1),
+                        pad_multiple=64, device=args.device, seed=args.seed)
+    if rank == 0:
+        pathlib.Path("results").mkdir(exist_ok=True)
+    trainer = Trainer(model, learning_rate=3e-4, mesh=mesh, pipeline_microbatches=microbatches,
+                      metrics_path="results/distributed_metrics.jsonl" if rank == 0 else None)
+    iter_dl = cycle(create_dataloader(dataset(args.seed), batch_size=bs, shuffle=True))
+    train_loop(trainer, trainer.init_state(), iter_dl, args.steps, generator(model.device, 1),
+               log_every=10 if rank == 0 else args.steps + 1)
+
+
 def main():
     args = parse_args(default_steps=20, default_sample_every=10**9, batch_size=8, context=1,
                       pipeline=1)
-    if args.pipeline > 1:
-        raise NotImplementedError("pipeline parallelism is not in the PyTorch port yet "
-                                  "(ROADMAP.md: Queue 1 item 9, parallelism)")
     rank, n_dev = initialize_distributed(device=args.device)
     try:
+        if args.pipeline > 1:
+            return train_pipeline(args, rank, n_dev)
         context = max(1, args.context)
         if n_dev % context:
             raise ValueError(f"{n_dev} ranks do not divide by --context {context}")
@@ -73,12 +118,9 @@ def main():
             "results/distributed_metrics.jsonl" if rank == 0 else None))
         state = trainer.init_state()
 
-        rng = np.random.default_rng(args.seed)
-        dataset = [(rng.integers(0, 256, 16).astype(np.int32),
-                    rng.standard_normal((8, 8, 32)).astype(np.float32)) for _ in range(256)]
         # the batch size must be divisible by the data axis
         bs = max(args.batch_size, data) // data * data
-        iter_dl = cycle(create_dataloader(dataset, batch_size=bs, shuffle=True))
+        iter_dl = cycle(create_dataloader(dataset(args.seed), batch_size=bs, shuffle=True))
         train_loop(trainer, state, iter_dl, args.steps, generator(model.device, 1),
                    log_every=10 if rank == 0 else args.steps + 1)
     finally:

@@ -268,20 +268,22 @@ class Transformer(nn.Module):
             return excluded(f"multi-token causal chunk (n={n})")
         return decode_supported(self.dim_head, n)
 
-    def _remat_block(self, block, *args):
+    def _remat_block(self, block, *args, params: Optional[dict] = None):
         """block(*args) under activation checkpointing. The block runs on the
-        parameter tensors it holds now, passed in explicitly: under the
-        trainer's `functional_call` those are the compute-dtype casts of the
-        float32 masters, which the module no longer holds when the backward
-        recomputes the forward. The attention kernels' autograd Functions
-        are recomputed under either policy (their launches are not aten
-        products), as the Pallas calls are under `nn.remat`."""
+        parameter tensors it holds now (or on `params`), passed in
+        explicitly: under the trainer's `functional_call` those are the
+        compute-dtype casts of the float32 masters, which the module no
+        longer holds when the backward recomputes the forward. The attention
+        kernels' autograd Functions are recomputed under either policy
+        (their launches are not aten products), as the Pallas calls are
+        under `nn.remat`."""
         kw = {}
         if self.remat_policy == "dots":
             kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  _DOTS_SAVED)
-        return checkpoint(_call_block, block, dict(block.named_parameters()), *args,
-                          use_reentrant=False, **kw)
+        if params is None:
+            params = dict(block.named_parameters())
+        return checkpoint(_call_block, block, params, *args, use_reentrant=False, **kw)
 
     def _flash_spec(self, spans, causal, cache, prefill):
         """The flash kernel's mask spec for a call, or None when the call
@@ -352,6 +354,75 @@ class Transformer(nn.Module):
             out = out & m.to(out.device)
         return out
 
+    def _time_cond(self, x, times, times_inst, spans):
+        """(cond, cond_index): the time conditioning of a call on x [b, n,
+        dim], per span instance (times_inst Float[b, m], cond [b, m + 1, 4
+        dim] and the instance of each token, 0 for text) or per token or
+        sample (times), or (None, None) without times."""
+        b, n, _ = x.shape
+        if times_inst is not None:
+            if spans is None or times is not None:
+                raise ValueError("times_inst needs spans and no per-token times")
+            m = times_inst.shape[1]
+            inst_times = torch.cat([times_inst.new_zeros((b, 1)), times_inst], dim=1)
+            rfe = random_fourier_embed(inst_times, self.dim, self.fourier_weights)
+            cond = F.silu(_column_parallel(self.to_time_cond, rfe.to(x.dtype), self.dim * 4,
+                                           self.tp))
+            inst_mask = spans_to_instance_mask(n, spans)  # [b, m, n]
+            ids = torch.arange(1, m + 1, device=x.device)
+            return cond, (inst_mask.long() * ids[None, :, None]).sum(dim=1)
+        if times is not None:
+            if times.ndim == 0:
+                times = times.expand(b)
+            rfe = random_fourier_embed(times, self.dim, self.fourier_weights)
+            return F.silu(_column_parallel(self.to_time_cond, rfe.to(x.dtype), self.dim * 4,
+                                           self.tp)), None
+        return None, None
+
+    def trunk_inputs(self, x, times=None, times_inst=None, spans=None, causal: bool = False,
+                     is_any_modality=None, rotary_pos=None) -> dict:
+        """What the blocks of an uncached call take besides the stream, as
+        `forward` builds it (the JAX `prepare_trunk_inputs`,
+        `parallel/pipeline.py:365-461`): cond / cond_index, the dense mask
+        or the flash spec, rope angles and the modality flags (Bool[b, n],
+        or one bool for every token). `forward` builds its uncached calls'
+        inputs here; the pipeline engines compute them once, replicated, and
+        index them per microbatch."""
+        n = x.shape[1]
+        cond, cond_index = self._time_cond(x, times, times_inst, spans)
+        flash_spec = self._flash_spec(spans, causal, None, False)
+        mask = None if flash_spec is not None else self._build_mask(n, None, causal, spans,
+                                                                      x.device)
+        if is_any_modality is None and spans is not None:
+            is_any_modality = spans_to_is_any_modality(n, spans)
+        rope = None if rotary_pos is None else rope_angles(rotary_pos, self.dim_head,
+                                                           self.rope_theta)
+        return dict(cond=cond, cond_index=cond_index, mask=mask, rope=rope,
+                    is_any_modality=is_any_modality, flash_spec=flash_spec)
+
+    def run_stage(self, x, values, layers, params: list, inputs: dict):
+        """Blocks `layers` (a contiguous range) of a single-stream stack on
+        x [b, n, dim]: one pipeline stage (`parallel/pipeline.py`). values:
+        the first layer's attention values, or None when `layers` starts
+        at layer 0, which makes them. params[i]: block i's parameters (a
+        dict by the block's own names). inputs: `trunk_inputs` for these
+        rows. Each block is rematerialized under `remat` when grad is on.
+        Returns (x, values)."""
+        remat = self.remat and torch.is_grad_enabled()
+        for ind in layers:
+            block = self.blocks[ind]
+            args = (x[None], None, inputs["cond"], inputs["cond_index"], inputs["mask"],
+                    inputs["rope"], inputs["is_any_modality"], values, None,
+                    inputs["flash_spec"], None, None, False, None)
+            if remat:
+                s, attn_values, _ = self._remat_block(block, *args, params=params[ind])
+            else:
+                s, attn_values, _ = _call_block(block, params[ind], *args)
+            x = s[0]
+            if values is None:
+                values = attn_values
+        return x, values
+
     def forward(self, x, times=None, times_inst=None, spans=None, is_any_modality=None,
                 rotary_pos=None, cache: Optional[dict] = None, causal: bool = False,
                 prefill: bool = False, dropout=None):
@@ -379,49 +450,38 @@ class Transformer(nn.Module):
                                  f"divisible by the context axis size {csize}: pick a "
                                  "pad_multiple divisible by it")
 
-        cond = cond_index = None
-        if times_inst is not None:
-            if spans is None or times is not None:
-                raise ValueError("times_inst needs spans and no per-token times")
-            m = times_inst.shape[1]
-            inst_times = torch.cat([times_inst.new_zeros((b, 1)), times_inst], dim=1)
-            rfe = random_fourier_embed(inst_times, self.dim, self.fourier_weights)
-            cond = F.silu(_column_parallel(self.to_time_cond, rfe.to(x.dtype), self.dim * 4,
-                                           self.tp))
-            inst_mask = spans_to_instance_mask(n, spans)  # [b, m, n]
-            ids = torch.arange(1, m + 1, device=x.device)
-            cond_index = (inst_mask.long() * ids[None, :, None]).sum(dim=1)
-        elif times is not None:
-            if times.ndim == 0:
-                times = times.expand(b)
-            rfe = random_fourier_embed(times, self.dim, self.fourier_weights)
-            cond = F.silu(_column_parallel(self.to_time_cond, rfe.to(x.dtype), self.dim * 4,
-                                           self.tp))
-
-        flash_spec = self._flash_spec(spans, causal, cache, prefill)
-        decode_bias = decode_lens = mask = None
-        if flash_spec is None and self._use_decode_kernel(cache, prefill, spans, causal, n):
-            cap = cache_capacity(cache)
-            idx = cache["idx"]
-            if "mask" in cache:
-                valid = cache["mask"]
-            else:
-                valid = torch.arange(cap, device=x.device)[None, :] < idx.reshape(-1, 1) + n
-            decode_bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32).expand(b, cap)
-            decode_bias = decode_bias.contiguous()
-            # per-row streaming bound idx + n covers the highest slot this
-            # chunk writes; NOT sum(valid): after a padded prefill the valid
-            # slots are not a prefix
-            decode_lens = (idx + n).to(torch.int32).reshape(-1).expand(b).contiguous()
-        elif flash_spec is None:
-            mask = self._build_mask(n, cache, causal, spans, x.device)
-
-        if is_any_modality is None and spans is not None:
-            is_any_modality = spans_to_is_any_modality(n, spans)
-
-        rope = None
-        if rotary_pos is not None:
-            rope = rope_angles(rotary_pos, self.dim_head, self.rope_theta)
+        decode_bias = decode_lens = None
+        if cache is None:
+            inputs = self.trunk_inputs(x, times, times_inst, spans, causal, is_any_modality,
+                                       rotary_pos)
+            cond, cond_index, mask, rope, is_any_modality, flash_spec = (
+                inputs[k] for k in ("cond", "cond_index", "mask", "rope", "is_any_modality",
+                                    "flash_spec"))
+        else:
+            cond, cond_index = self._time_cond(x, times, times_inst, spans)
+            flash_spec = self._flash_spec(spans, causal, cache, prefill)
+            mask = None
+            if flash_spec is None and self._use_decode_kernel(cache, prefill, spans, causal, n):
+                cap = cache_capacity(cache)
+                idx = cache["idx"]
+                if "mask" in cache:
+                    valid = cache["mask"]
+                else:
+                    valid = (torch.arange(cap, device=x.device)[None, :]
+                             < idx.reshape(-1, 1) + n)
+                decode_bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32).expand(b, cap)
+                decode_bias = decode_bias.contiguous()
+                # per-row streaming bound idx + n covers the highest slot this
+                # chunk writes; NOT sum(valid): after a padded prefill the valid
+                # slots are not a prefix
+                decode_lens = (idx + n).to(torch.int32).reshape(-1).expand(b).contiguous()
+            elif flash_spec is None:
+                mask = self._build_mask(n, cache, causal, spans, x.device)
+            if is_any_modality is None and spans is not None:
+                is_any_modality = spans_to_is_any_modality(n, spans)
+            rope = None
+            if rotary_pos is not None:
+                rope = rope_angles(rotary_pos, self.dim_head, self.rope_theta)
 
         dropout_masks = [None] * self.depth
         if dropout is not None and self.dropout > 0.0:

@@ -80,6 +80,7 @@ from transfusion_tpu_torch.ops.spans import (
     spans_to_rotary_positions,
 )
 from transfusion_tpu_torch.parallel import comm
+from transfusion_tpu_torch.parallel.pipeline import pipeline_transformer_forward
 from transfusion_tpu_torch.utils.helpers import (
     cast_tuple,
     concat_contiguous_text,
@@ -288,19 +289,32 @@ class TransfusionCore(nn.Module):
             pred_flows.append(self.seq_to_latent(out_rows, g.modality_type, g.seq_shape))
         return logits, pred_flows
 
+    def trunk_inputs(self, x, **kwargs) -> dict:
+        """The transformer's `trunk_inputs` (an entry point, so that
+        `functional_call` runs it on an explicit parameter dict)."""
+        return self.transformer.trunk_inputs(x, **kwargs)
+
     def joint(self, packed, times, cache: Optional[dict] = None, return_logits: bool = True,
-              dropout=None):
+              dropout=None, pipeline=None):
         """Forward a packed (torch) batch; times Float[b, m]. With a cache
         this is the cached prefill: attention runs over the chunk alone
         through the flash kernel and the cache is written. `dropout`: the
         transformer's keep masks or a generator for them (`Transformer.
-        forward`); None is deterministic. Returns (logits | None, embed,
-        pred_flows, group_rows, new_cache)."""
+        forward`); None is deterministic. `pipeline`: (a mesh with a 'pipe'
+        axis or `parallel.pipeline.LocalStages`, microbatches) runs the
+        transformer on the GPipe schedule (`parallel/pipeline.py`);
+        embed-in and the out-projections stay whole. Returns (logits |
+        None, embed, pred_flows, group_rows, new_cache)."""
         x, rotary_pos, group_rows = self.joint_embed_in(packed)
-        embed, new_cache = self.transformer(
-            x, times_inst=times, spans=packed.spans, rotary_pos=rotary_pos,
-            cache=cache, prefill=cache is not None, dropout=dropout,
-        )
+        if pipeline is not None:
+            embed = pipeline_transformer_forward(self.transformer, *pipeline, x, times_inst=times,
+                                                 spans=packed.spans, rotary_pos=rotary_pos)
+            new_cache = None
+        else:
+            embed, new_cache = self.transformer(
+                x, times_inst=times, spans=packed.spans, rotary_pos=rotary_pos,
+                cache=cache, prefill=cache is not None, dropout=dropout,
+            )
         logits, pred_flows = self.joint_out(embed, packed, times, group_rows, return_logits)
         return logits, embed, pred_flows, group_rows, new_cache
 
@@ -374,10 +388,6 @@ def _ce_chunk_sum(core, embed, weight, labels, valid):
     logits = core.logits_with(embed, weight).float()
     label_logit = logits.gather(-1, labels[..., None])[..., 0]
     return (-(label_logit - torch.logsumexp(logits, dim=-1)) * valid).sum()
-
-
-def _not_in_port(what: str, item: str):
-    raise NotImplementedError(f"{what} is not in the PyTorch port yet (ROADMAP.md: {item})")
 
 
 def _frozen(module: nn.Module, state_dict, device):
@@ -739,11 +749,13 @@ class Transfusion:
         projections and pos-emb MLPs."""
         return {k: p.to(self._param_dtypes[k]) for k, p in params.items()}
 
-    def _joint_core(self, params, packed, times, noises, return_logits: bool = True):
+    def _joint_core(self, params, packed, times, noises, return_logits: bool = True,
+                    pipeline=None):
         """Noise each latent group (x_t = t x + (1 - t) noise, flow target
         x - noise) and run the core's joint forward, on `params` when given
-        (else the module's own weights). Returns (logits | None, embed,
-        pred_flows, flows, noised latents per group)."""
+        (else the module's own weights); `pipeline` (where, microbatches)
+        runs its transformer on the GPipe schedule. Returns (logits | None,
+        embed, pred_flows, flows, noised latents per group)."""
         noised_groups, flows = [], []
         for g, noise in zip(packed.groups, noises):
             t_inst = times[g.batch_idx, g.span_rows]
@@ -751,11 +763,12 @@ class Transfusion:
             noised_groups.append(g.replace(latents=noised))
             flows.append(flow)
         packed_n = packed.replace(groups=tuple(noised_groups))
+        kw = {"return_logits": return_logits, "pipeline": pipeline}
         if params is None:
-            out = self.core(packed_n, times, return_logits=return_logits)
+            out = self.core(packed_n, times, **kw)
         else:  # cast inside the autograd graph: the grads arrive in params' dtype
             out = torch.func.functional_call(self.core, self._compute_params(params),
-                                             (packed_n, times), {"return_logits": return_logits})
+                                             (packed_n, times), kw)
         logits, embed, pred_flows, _, _ = out
         return logits, embed, pred_flows, flows, [g.latents for g in noised_groups]
 
@@ -827,19 +840,26 @@ class Transfusion:
 
     def _loss_impl(self, params, packed, draws: LossDraws, prob_uncond: float,
                    train: bool = True, loss_scales: Optional[dict] = None,
-                   ema_params: Optional[dict] = None, velocity_delta: float = 1e-3):
-        """The joint loss of the JAX `_loss_impl` (`transfusion.py:858-1065`)
-        without the pipeline branch: CFG dropout of whole samples' text,
-        the next-token shift, text CE over valid labels (not ignore_index,
-        not null, not inside a modality; chunked with `ce_chunk_size`),
-        per-type flow MSE, weighted by the text and per-type token
+                   ema_params: Optional[dict] = None, velocity_delta: float = 1e-3,
+                   pipeline=None):
+        """The joint loss of the JAX `_loss_impl` (`transfusion.py:858-1065`):
+        CFG dropout of whole samples' text, the next-token shift, text CE
+        over valid labels (not ignore_index, not null, not inside a
+        modality; chunked with `ce_chunk_size`), per-type flow MSE,
+        weighted by the text and per-type token
         fractions; with `ema_params` (a parameter dict, e.g. the Trainer's
         EMA masters) the velocity-consistency MSE against an EMA forward,
         and with `reconstruction_loss_weight` the reconstruction MSE. packed
         holds torch tensors. Every mean divides by `loss_scales` (the
         summed `loss_denominators` of all microbatches of a step, so that
         the microbatches' losses and gradients sum to the whole batch's),
-        or by this batch's own. Returns (total, LossBreakdown)."""
+        or by this batch's own. `pipeline`: (where, microbatches[,
+        schedule]), where is a mesh with a 'pipe' axis or
+        `parallel.pipeline.LocalStages`: 'gpipe' (the default) runs the
+        transformer on the GPipe schedule, '1f1b' the whole loss through
+        `models/pipeline_loss.py` (JAX's dispatch, `transfusion.py:905-940`);
+        the batch is the whole batch on every rank. Returns (total,
+        LossBreakdown)."""
         T = self.num_modalities
         dropout = self.transformer_cfg.get("dropout", 0.0)
         if train and dropout > 0:
@@ -849,6 +869,15 @@ class Transfusion:
                 "(InvalidRngError: Dropout_0 needs PRNG for \"dropout\"); the port refuses "
                 "the same call. Use train=False (dropout is then a no-op), or apply the "
                 "core's joint / text_forward / modality_forward with explicit dropout masks")
+        if pipeline is not None:
+            if loss_scales is not None:
+                raise ValueError("loss_scales (gradient accumulation) cannot combine with "
+                                 "pipeline parallelism — pick one batch-splitting axis")
+            where, microbatches, *schedule = pipeline
+            schedule = schedule[0] if schedule else "gpipe"
+            if schedule not in ("gpipe", "1f1b"):
+                raise ValueError(f"unknown pipeline schedule {schedule}")
+            pipeline = (where, microbatches)
         scales = loss_scales
         if scales is None:
             scales = self.loss_denominators(packed, draws, train, prob_uncond)
@@ -860,17 +889,24 @@ class Transfusion:
         times = draws.times * (1.0 - velocity_delta) if has_velocity else draws.times
         text = self._cfg_dropped_text(packed, draws, prob_uncond, train)
         text_in, labels = text[:, :-1], text[:, 1:]
+        if pipeline is not None and schedule == "1f1b":
+            from transfusion_tpu_torch.models.pipeline_loss import joint_loss_1f1b
+
+            return joint_loss_1f1b(self, params, packed, packed.replace(text=text_in), labels,
+                                   times, draws.times, draws, scales, ema_params,
+                                   velocity_delta, *pipeline)
         chunked = self.ce_chunk_size is not None
         logits, embed, pred_flows, flows, noised = self._joint_core(
             params, packed.replace(text=text_in), times, draws.noises,
-            return_logits=not chunked)
+            return_logits=not chunked, pipeline=pipeline)
         if has_velocity:
             # the EMA target sees the text before the CFG dropout (the JAX
             # `_loss_impl`, `transfusion.py:978-994`); no graph is kept
             with torch.no_grad():
                 ema_flows = self._joint_core(
                     ema_params, packed.replace(text=packed.text[:, :-1]),
-                    draws.times + velocity_delta, draws.ema_noises, return_logits=False)[2]
+                    draws.times + velocity_delta, draws.ema_noises, return_logits=False,
+                    pipeline=pipeline)[2]
 
         valid = self._valid_labels(labels, packed.spans)
         safe_labels = torch.where(valid, labels, 0)
@@ -940,9 +976,13 @@ class Transfusion:
         override the drawn times. `params`: an explicit parameter dict to
         differentiate (default: the module's weights).
         `velocity_consistency_ema_params`: the EMA parameter dict of the
-        velocity-consistency term (its forward runs at t + delta)."""
-        if pipeline is not None:
-            _not_in_port("pipeline parallelism", "Queue 1 item 9, parallelism")
+        velocity-consistency term (its forward runs at t + delta).
+        `pipeline`: (mesh, microbatches) | (mesh, microbatches, 'gpipe' |
+        '1f1b') runs the loss pipeline-parallel over the mesh's 'pipe' axis
+        (`_loss_impl`; `parallel.pipeline.LocalStages(P)` in place of the
+        mesh runs the P stages in this process). It needs unet_skips=False,
+        num_residual_streams=1 and dropout=0; `Trainer(pipeline_microbatches=,
+        pipeline_schedule=)` is the managed entry point."""
         velocity = velocity_consistency_ema_params is not None
         if packed is None:
             batch = self.encode_modalities(batch)
@@ -962,7 +1002,7 @@ class Transfusion:
         total, breakdown = self._loss_impl(
             params, packed, draws, float(default(prob_uncond, self.prob_uncond)), train,
             ema_params=velocity_consistency_ema_params,
-            velocity_delta=float(velocity_consistency_delta_time))
+            velocity_delta=float(velocity_consistency_delta_time), pipeline=pipeline)
         return (total, breakdown) if return_breakdown else total
 
     # ------------------------------------------------------------------

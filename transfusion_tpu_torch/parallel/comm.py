@@ -25,6 +25,9 @@ for:
     an all-reduce backward, and an all-reduce forward with an identity
     backward.
 
+`exchange` is the pipeline's point-to-point step (`parallel/pipeline.py`):
+one tick's sends and receives, posted together.
+
 Tensors that go through one collective together go through one autograd
 node, so that every rank runs its backward collectives in the same order.
 """
@@ -63,6 +66,16 @@ def all_reduce_sum(x, axis: Axis):
     out = x.clone().contiguous()
     dist.all_reduce(out, group=axis.group)
     return out
+
+
+def all_reduce_dict(xs: dict, axis: Axis) -> dict:
+    """Each tensor of xs summed over the axis, in one all-reduce of their
+    concatenation (they share a dtype)."""
+    if axis.size == 1 or not xs:
+        return xs
+    keys = list(xs)
+    flat = all_reduce_sum(torch.cat([xs[k].reshape(-1) for k in keys]), axis)
+    return {k: t.view_as(xs[k]) for k, t in zip(keys, flat.split([xs[k].numel() for k in keys]))}
 
 
 def narrow_own(x, dim: int, axis: Axis):
@@ -115,18 +128,34 @@ class _GatherSum(torch.autograd.Function):
                               for g in gs))
 
 
+def exchange(sends: dict, recvs: dict, axis: Axis) -> dict:
+    """One step of point-to-point traffic on the axis: sends {index along
+    the axis: [tensors]} and recvs {index: [(shape, dtype, device)]}, all
+    posted together in one `dist.batch_isend_irecv` and waited for. Posting
+    a ring's sends and receives apart can deadlock it on NCCL, and on gloo
+    past its eager size; posted together they cannot. Tensors between one
+    pair of ranks arrive in the order they were sent. Returns {index:
+    [received tensors]}."""
+    ops, out = [], {}
+    for dst, xs in sends.items():
+        peer = dist.get_global_rank(axis.group, dst)
+        ops += [dist.P2POp(dist.isend, x.contiguous(), peer, axis.group) for x in xs]
+    for src, specs in recvs.items():
+        peer = dist.get_global_rank(axis.group, src)
+        out[src] = [torch.empty(shape, dtype=dtype, device=device)
+                    for shape, dtype, device in specs]
+        ops += [dist.P2POp(dist.irecv, o, peer, axis.group) for o in out[src]]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
 def _shift(xs, axis: Axis, step: int):
     """Send each of xs to the rank `step` ahead on the axis and receive the
-    same from the rank `step` behind (`dist.batch_isend_irecv`)."""
-    to = dist.get_global_rank(axis.group, (axis.rank + step) % axis.size)
-    frm = dist.get_global_rank(axis.group, (axis.rank - step) % axis.size)
-    xs = [x.contiguous() for x in xs]
-    outs = [torch.empty_like(x) for x in xs]
-    ops = [dist.P2POp(dist.isend, x, to, axis.group) for x in xs]
-    ops += [dist.P2POp(dist.irecv, o, frm, axis.group) for o in outs]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return outs
+    same from the rank `step` behind."""
+    to, frm = (axis.rank + step) % axis.size, (axis.rank - step) % axis.size
+    return exchange({to: xs}, {frm: [(x.shape, x.dtype, x.device) for x in xs]}, axis)[frm]
 
 
 class _RingPass(torch.autograd.Function):

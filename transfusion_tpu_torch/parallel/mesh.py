@@ -12,7 +12,7 @@
                   row-parallel ones all-reduce their partial products, the
                   vocab is split for `text_embed` and `to_text_logits`
         'context' the sequence inside attention (`parallel/context.py`)
-        'pipe'    pipeline stages (not in the port yet)
+        'pipe'    pipeline stages (`parallel/pipeline.py`, `parallel/pipeline_1f1b.py`)
 
 JAX annotates shardings and lets GSPMD insert the collectives; here the
 port inserts them: `models/layers.py` and `models/transformer.py` compute

@@ -57,8 +57,20 @@ shard over 'fsdp' and 'tensor' (`_mesh_norm`). On a mesh that shards
 parameters ('fsdp' or 'tensor' > 1) the optimizer is the default Adam
 (fused or not): a custom chain's norms and Muon's Newton-Schulz would see
 only a shard. Checkpoints gather the whole state to rank 0 in the usual
-format; `restore` reads it on every rank and shards it again. Not ported
-yet (ROADMAP.md): pipeline parallelism.
+format; `restore` reads it on every rank and shards it again.
+
+With `pipeline_microbatches=M` (a mesh with 'pipe' > 1) the loss runs
+pipeline-parallel over the 'pipe' axis (`Transfusion._loss_impl(pipeline=)`):
+`pipeline_schedule='gpipe'` (the GPipe trunk, `parallel/pipeline.py`;
+data, fsdp and tensor axes alongside) or '1f1b' (the in-schedule loss,
+`models/pipeline_loss.py`; 'pipe' and 'data' only). Every rank then takes
+the whole batch and whole weights (the shards gathered over 'fsdp' and
+'tensor'); the engines split the rows over 'data' and hand back the whole
+loss and gradients on every rank, of which each keeps its shards. The
+optimizer runs alike on every rank, so `optimizer=` works on a data x pipe
+mesh. A pipelined rank thus holds the whole model, its float32 gradients
+and its optimizer state (JAX's pipe-replicated layout): only the
+activations are split by stage.
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ from transfusion_tpu_torch.parallel import comm
 from transfusion_tpu_torch.parallel.mesh import (
     AXES,
     axis_of,
+    axis_size,
     batch_sharding,
     gather_fsdp,
     set_tensor_axis,
@@ -97,10 +110,6 @@ class TrainState:
     opt_state: Any  # the optimizer chain's state (`training/optim.py`)
     ema: EmaState
     step: int
-
-
-def _queued(what: str, item: str):
-    raise NotImplementedError(f"{what} is not in the PyTorch port yet (ROADMAP.md: {item})")
 
 
 def _structure(packed: PackedBatch) -> tuple:
@@ -134,18 +143,24 @@ class Trainer:
                  profile_logdir: Optional[str] = None, profile_start_step: int = 10,
                  profile_num_steps: int = 3,
                  pipeline_microbatches: Optional[int] = None,
+                 pipeline_schedule: str = "gpipe",
                  grad_accumulation: Optional[int] = None,
                  fused_update: Optional[bool] = None):
+        self.model = model
+        self.mesh = mesh
+        self.pipeline_microbatches = pipeline_microbatches
+        self.pipeline_schedule = pipeline_schedule
         if pipeline_microbatches is not None:
-            _queued("pipeline parallelism", "Queue 1 item 9, parallelism")
+            self._validate_pipeline_config()
         if grad_accumulation is not None and grad_accumulation < 2:
             raise ValueError("grad_accumulation must be >= 2 (None disables it)")
+        if grad_accumulation is not None and pipeline_microbatches is not None:
+            raise ValueError("grad_accumulation and pipeline_microbatches both split the "
+                             "batch — pick one")
         if fused_update is None:
             fused_update = optimizer is None and isinstance(learning_rate, (int, float))
         if fused_update and optimizer is not None:
             raise ValueError("fused_update runs clip + Adam only; it takes no optimizer")
-        self.model = model
-        self.mesh = mesh
         self._axes = self._specs = self._norm_fn = None
         if mesh is not None:
             self._setup_mesh(mesh, optimizer)
@@ -166,14 +181,47 @@ class Trainer:
         self.profiler = (ProfilerHook(profile_logdir, profile_start_step, profile_num_steps)
                          if profile_logdir else None)
 
+    def _validate_pipeline_config(self):
+        """The JAX `_validate_pipeline_config` (`trainer.py:130-171`): its
+        refusals, with its messages."""
+        mesh = self.mesh
+        if mesh is None or "pipe" not in getattr(mesh, "mesh_dim_names", ()):
+            raise ValueError("pipeline_microbatches needs a mesh with a 'pipe' axis — "
+                             "make_mesh(pipe=N)")
+        sizes = {a: axis_size(mesh, a) for a in mesh.mesh_dim_names}
+        pipe = sizes["pipe"]
+        if pipe <= 1:
+            raise ValueError("pipeline_microbatches set but mesh pipe axis is 1")
+        cfg = self.model.transformer_cfg
+        if cfg.get("unet_skips", True) is not False:
+            raise ValueError("pipeline parallelism requires transformer unet_skips=False "
+                             "(cross-stage U-Net skips cannot be pipelined)")
+        if cfg.get("num_residual_streams", 1) != 1:
+            raise ValueError("pipeline parallelism requires num_residual_streams=1")
+        if cfg.get("dropout", 0.0) != 0.0:
+            raise ValueError("pipeline parallelism requires dropout=0")
+        depth = cfg["depth"]
+        if depth % pipe:
+            raise ValueError(f"transformer depth {depth} must divide over pipe={pipe} stages")
+        if self.pipeline_microbatches < pipe:
+            raise ValueError(f"pick microbatches >= pipe ({pipe}); >= 2*pipe recommended "
+                             "(bubble fraction (pipe-1)/(microbatches+pipe-1))")
+        if self.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"unknown pipeline_schedule {self.pipeline_schedule!r}")
+        if self.pipeline_schedule == "1f1b":
+            bad = [f"{a}={n}" for a, n in sizes.items() if a not in ("pipe", "data") and n > 1]
+            if bad:
+                raise ValueError(
+                    "the 1F1B schedule supports 'pipe' (+ optional 'data') mesh axes only "
+                    f"(got {', '.join(bad)}); use pipeline_schedule='gpipe' for fsdp/tensor x "
+                    "pipe meshes")
+
     def _setup_mesh(self, mesh, optimizer):
         from torch.distributed.device_mesh import DeviceMesh
 
         if not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh= takes a parallel.make_mesh mesh, not {type(mesh).__name__}")
         axes = {a: axis_of(mesh, a) for a in AXES}
-        if axes["pipe"].size > 1:
-            _queued("pipeline parallelism", "Queue 1 item 9, parallelism")
         params = dict(self.model.core.named_parameters())
         self._specs = shard_params(params, mesh, heads=self.model.transformer_cfg.get("heads", 8))
         self._partial = [k for k in params if tensor_partial(k, self._specs)]
@@ -184,7 +232,8 @@ class Trainer:
                     "custom chain's norms and Muon's Newton-Schulz would see only a shard; "
                     "the default Adam (fused or not) runs on the shards")
             self._norm_fn = self._mesh_norm
-        set_tensor_axis(self.model.core, axes["tensor"])
+        if self.pipeline_microbatches is None:  # a pipeline's stages take whole weights
+            set_tensor_axis(self.model.core, axes["tensor"])
         self._axes = axes
 
     def _mesh_norm(self, grads: dict):
@@ -250,26 +299,36 @@ class Trainer:
     def _grads(self, state: TrainState, packed, draws, loss_scales=None):
         """Loss, its parts (`_loss_parts`) and float32 gradients (a dict
         like the params) of one (micro)batch at the state's master weights;
-        on a mesh, this rank's share reduced as the module docstring says."""
-        model = self.model
+        on a mesh, this rank's share reduced as the module docstring says
+        (pipelined: the whole batch and whole weights on every rank, whose
+        whole gradients the engines hand back; the rank keeps its shards)."""
+        model, specs, axes = self.model, self._specs, self._axes
         params = state.params
         ema = state.ema.params if self.velocity_consistency else None
-        if self._axes is not None:
+        pipeline = None
+        if self.pipeline_microbatches is not None:
+            pipeline = (self.mesh, self.pipeline_microbatches, self.pipeline_schedule)
+            params = {k: unshard_tensor(k, v, specs[k], axes) for k, v in params.items()}
+            if ema is not None:
+                ema = {k: unshard_tensor(k, v, specs[k], axes) for k, v in ema.items()}
+        elif axes is not None:
             if loss_scales is None:
                 loss_scales = model.loss_denominators(packed, draws)
             packed, draws = batch_sharding(self.mesh, packed, draws)
-            params = {k: gather_fsdp(v, self._specs[k], self._axes) for k, v in params.items()}
+            params = {k: gather_fsdp(v, specs[k], axes) for k, v in params.items()}
             if ema is not None:
-                ema = {k: gather_fsdp(v, self._specs[k], self._axes) for k, v in ema.items()}
+                ema = {k: gather_fsdp(v, specs[k], axes) for k, v in ema.items()}
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
         loss, breakdown = model._loss_impl(
             leaves, packed, draws, model.prob_uncond, train=True, loss_scales=loss_scales,
-            ema_params=ema, velocity_delta=self.velocity_delta)
+            ema_params=ema, velocity_delta=self.velocity_delta, pipeline=pipeline)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(leaves.items(), grads)}
         loss, parts = loss.detach(), self._loss_parts(breakdown)
-        if self._axes is not None:
+        if pipeline is not None:
+            grads = {k: shard_tensor(k, g, specs[k], axes) for k, g in grads.items()}
+        elif axes is not None:
             loss, parts, grads = self._reduce(loss, parts, grads)
         return loss, parts, grads
 
@@ -279,10 +338,7 @@ class Trainer:
         ax = self._axes
         for k in self._partial:
             grads[k] = comm.all_reduce_sum(grads[k], ax["tensor"])
-        keys = list(grads)
-        flat = comm.all_reduce_sum(torch.cat([grads[k].reshape(-1) for k in keys]), ax["data"])
-        grads = dict(zip(keys, (t.view_as(grads[k]) for t, k in zip(
-            flat.split([grads[k].numel() for k in keys]), keys))))
+        grads = comm.all_reduce_dict(grads, ax["data"])
         for k, g in grads.items():
             spec = self._specs[k]
             if "fsdp" in spec:
