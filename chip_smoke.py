@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
   2. kernels vs plain: each kernel against its plain PyTorch version on the
      same inputs, at synthetic shapes around the main paths' and at head
      dims 32 to 256, whole rows masked, row 1's envelope, 200 spans a row,
-     b * h past 65535, logits near the softcap, LASER's exp-space values
+     b * h past 65535, logits near the softcap, a row that sees one key
+     and whose dO . v cancels (its ds is rounding noise, which must agree
+     with the plain version's), LASER's exp-space values
      (exp(softclamp(6 N(0, 1), 15)), up to e^15; forward outputs held by
      the row rule and after safe_log, the backward under do = g / out), the
      decode kernel's every path with whole chunks past lens and rows with
@@ -112,10 +114,13 @@ Phases (any failure exits non-zero and prints no result line):
      the row rule and the outputs after safe_log within the forward
      tolerance; the backward as in phase 2;
   4f. the single-process user surface: (a) `PackingLoader` over 64
-     bench-shaped samples (batch 32, prefetch 2) feeding the bench model:
+     bench-shaped samples (batch 32, prefetch 2; every batch from the
+     native packer) feeding the bench model:
      `Trainer.train_steps(state, [b0, b1], 20)` over two of its batches (rows
      5 and 6 once per layer a step; the captured call held), then 10
-     `train_step(next(loader))` calls, the waits in `next()` timed; (b)
+     `train_step(next(loader))` calls, the waits in `next()` timed; one
+     bench-shaped `pack_samples` call (32 samples) with use_native True and
+     False: equal arrays, each one's host ms logged; (b)
      dropout: a small float32 dropout-0.1 model's joint forward and every
      gradient with the same keep masks, card against CPU within 1e-4, on the
      dense route (attention and feedforward masks) and the flash route; the
@@ -192,7 +197,26 @@ Phases (any failure exits non-zero and prints no result line):
      between ranks, the bubble's time, or one rank's peak memory
      (tests/test_torch_pipeline_distributed.py runs 4 gloo ranks on the
      CPU);
-  7. the `kernels` line, then the last line
+  sharded optimizer. a custom optimizer chain on a mesh that shards
+     parameters: 4 processes (`torch.multiprocessing`, spawned) join a gloo
+     group, every one on the one card (NCCL takes one rank per device),
+     and run the bench model under `Trainer(mesh=make_mesh(fsdp=2,
+     tensor=2, device="cuda"), optimizer=chain(clip_by_global_norm(0.5),
+     muon_adam_atan2(3e-4, 3e-4)), grad_clip_norm=None)` for 5 steps on
+     bench (a)'s batch (4 heads a rank): every rank the same losses, which
+     fall; the first loss and grad_norm within 1e-3 relative of a
+     mesh-less Trainer's with the same chain, weights and draws on the
+     card; after step 1 every rank's shards beside that Trainer's new
+     masters (Muon matrices within MUON_REL_TOL of its step, the rest
+     within 1e-3 with at most SHARD_FLIP_SHARE of the entries past 1e-5);
+     the route's rows launched once per layer, step and rank (logged:
+     5 / 6 token-major or 1-2 / 8 head-major); one captured call on the 4
+     heads held against its plain versions; a save on every rank and a
+     restore by a new Trainer give back every shard of the params, EMA
+     and optimizer state exactly. Logs ms a step and the update's ms of
+     each rank (4 ranks share the card: no per-card rate);
+  7. the card's name and power limit again, the `kernels` line, then the
+     last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `library_ms` in the kernels line is `torch.compile`d `flex_attention` with a
@@ -735,13 +759,22 @@ def flash_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, l
 
 
 def bwd_case(torch, mods, b, h, n, d, dtype, spans, q_offset=0, kv_offset=0, g_lse=False,
-             iters=5, library=False, near_cap=False):
+             iters=5, library=False, near_cap=False, cancel_row0=False):
     """near_cap: q row i is +-45 d^-1/2 (k_i + k_{i-1}) (rows alternate)
     with keys of norm d^1/2, so its logits q.k d^-1/2 on keys i and i - 1
     are equal and near +-45 (cap 50): the softmax of a + row splits between
-    them (not one-hot, whose dp - delta cancels to rounding noise)."""
+    them (not one-hot, whose dp - delta cancels to rounding noise).
+    cancel_row0: row 0 sees key 0 alone, so its ds is the rounding noise of
+    dp - delta; its dO is small but for two entries whose products with
+    v_0's (+-96 x 128) cancel exactly, so that dO . v_0 cancels too and its
+    noise, 2^-10 of the partial sums, exceeds 2^-10 of delta: the kernel
+    must still take dp in the plain version's order."""
     g = torch.Generator(device="cuda").manual_seed(n + d + 1)
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=g) for _ in range(4))
+    if cancel_row0:
+        do[:, :, 0] *= 2.0**-6
+        v[:, :, 0, 40], v[:, :, 0, 41] = 128.0, 96.0
+        do[:, :, 0, 40], do[:, :, 0, 41] = 96.0, -128.0
     if near_cap:
         k = k / k.norm(dim=-1, keepdim=True) * d**0.5
         pair = k + torch.cat([torch.zeros_like(k[:, :, :1]), k[:, :, :-1]], 2)
@@ -892,6 +925,9 @@ def phase_kernels(torch, mods):
         record("flash_bwd", f"b2 h2 n300 d64 {kind} spans1 logits ~+-45 (cap 50)",
                bwd_case(torch, mods, 2, 2, 300, 64, dtype, spans_of(2, [(33, 196)]), iters=3,
                         near_cap=True), dtype)
+        record("flash_bwd", f"b8 h8 n256 d64 {kind} spans1 row 0's dO . v_0 cancelling",
+               bwd_case(torch, mods, 8, 8, 256, 64, dtype, spans_of(8, [(33, 196)]), iters=3,
+                        cancel_row0=True), dtype)
 
     # training: the token-major route at the bench shape (the bench
     # packing's span at 40, length 196, and an empty one) and in float32
@@ -2527,12 +2563,58 @@ def row_of(mods, a):
     return mods["flash"].tpu_row(h, nq, a["k"].shape[2], d, bwd=False)
 
 
-def surface_training(torch, Transfusion, Trainer, mods, totals):
-    """(a) `PackingLoader` over 64 bench-shaped samples feeding the bench
-    model: `train_steps` over two of its batches, then `train_step` on its
-    next 10, timing the waits in `next()`."""
+def surface_packer(spec, samples):
+    """One bench-shaped `pack_samples` call (32 samples) with use_native
+    True and False: equal arrays; the median ms of each over 20 calls, and
+    of the native path's parts (flattening the descriptors in Python, the
+    native pass) beside the numpy assembly, on the host."""
     import numpy as np
 
+    from transfusion_tpu_torch.data import packing
+
+    def ms(fn, reps=20):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        return float(np.median(times)) * 1e3
+
+    native, kw = packing._assemble_native, dict(shift_friendly=True)
+    seen = []
+
+    def keep(*args):
+        seen.append(args)
+        return native(*args)
+
+    packing._assemble_native = keep
+    try:
+        got = packing.pack_samples(samples, spec, use_native=True, **kw)
+    finally:
+        packing._assemble_native = native
+    want = packing.pack_samples(samples, spec, use_native=False, **kw)
+    for f in ("text", "cfg_mask", "spans", "lengths"):
+        g, w = getattr(got, f), getattr(want, f)
+        require(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
+                f"native packer: {f} differs from the numpy path's")
+    desc, n, m = seen[0]
+    log(json.dumps({
+        "surface": f"pack_samples, {len(samples)} bench samples to n {n} (host)",
+        "native_ms": ms(lambda: packing.pack_samples(samples, spec, use_native=True, **kw)),
+        "numpy_ms": ms(lambda: packing.pack_samples(samples, spec, use_native=False, **kw)),
+        "assemble_numpy_ms": ms(lambda: packing._assemble(desc, n, m)),
+        "assemble_native_ms (flatten + native pass)": ms(lambda: native(desc, n, m)),
+        "flatten_ms": ms(lambda: packing._flatten(desc))}))
+
+
+def surface_training(torch, Transfusion, Trainer, mods, totals):
+    """(a) `PackingLoader` over 64 bench-shaped samples feeding the bench
+    model (its batches assembled by the native packer): `train_steps` over
+    two of its batches, then `train_step` on its next 10, timing the waits
+    in `next()`; then `surface_packer` on 32 of the samples."""
+    import numpy as np
+
+    from transfusion_tpu_torch.data import packing
     from transfusion_tpu_torch.data.dataloader import PackingLoader
 
     depth = BENCH_CFG["transformer"]["depth"]
@@ -2542,6 +2624,13 @@ def surface_training(torch, Transfusion, Trainer, mods, totals):
     dataset = [bench_sample(rng, 1) for _ in range(SURFACE_SAMPLES)]
     gen = torch.Generator("cuda").manual_seed(0)
     name = f"PackingLoader {SURFACE_SAMPLES} x bench sample, batch {SURFACE_BATCH}"
+    native, native_calls = packing._assemble_native, [0]
+
+    def counted_native(*args):
+        native_calls[0] += 1
+        return native(*args)
+
+    packing._assemble_native = counted_native
     t0 = time.perf_counter()
     loader = PackingLoader(model, dataset, batch_size=SURFACE_BATCH, prefetch=2, seed=0)
     try:
@@ -2591,6 +2680,8 @@ def surface_training(torch, Transfusion, Trainer, mods, totals):
         dt2 = time.perf_counter() - t1
     finally:
         loader.close()
+        packing._assemble_native = native
+    require(native_calls[0] >= 12, f"{name}: {native_calls[0]} batches from the native packer")
     require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
     require(counts2["flash_fwd_nhd"] == depth * 10 and counts2["flash_bwd_nhd"] == depth * 10,
             f"{name}: loader steps launches {counts2}")
@@ -2605,7 +2696,9 @@ def surface_training(torch, Transfusion, Trainer, mods, totals):
         "loss_first": losses[0], "loss_after_train_steps": float(metrics["loss"]),
         "loss_last": losses[-1], "first_batch_s": first_batch_s,
         "loader_steps_ms_per_step": dt2 / 10 * 1e3, "mean_next_wait_ms": 1e3 * sum(waits) / 10,
-        "max_next_wait_ms": 1e3 * max(waits), "launches": counts}))
+        "max_next_wait_ms": 1e3 * max(waits), "native_packer_batches": native_calls[0],
+        "launches": counts}))
+    surface_packer(model.pack_spec, dataset[:SURFACE_BATCH])
 
 
 def surface_dropout(torch, Transfusion, mods):
@@ -3455,6 +3548,281 @@ def phase_pipeline(torch, Transfusion, Trainer, mods):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase "sharded optimizer": a custom chain on fsdp 2 x tensor 2, 4 ranks on one card
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS, SHARD_MESH, SHARD_STEPS = 4, dict(fsdp=2, tensor=2), 5
+SHARD_TIMEOUT_S = 300  # a rank that waits this long in a collective fails the phase
+# the new parameters' non-Muon entries (Adam-atan2) against the mesh-less
+# step: each within 1e-3; at the first step atan2(g, |g|) is the gradient's
+# sign, so an entry whose ~0 gradient takes its sign from rounding steps 2
+# lr the other way: at most this share of the entries may differ past 1e-5
+# (a wrong gradient would flip about half of them)
+SHARD_FLIP_SHARE = 0.05
+
+
+def sharded_chain():
+    """`examples/train_image_only.py`'s chain: the clip inside it."""
+    from transfusion_tpu_torch.training import optim
+
+    return optim.chain(optim.clip_by_global_norm(0.5), optim.muon_adam_atan2(3e-4, 3e-4))
+
+
+def sharded_inputs(torch, model):
+    """Bench (a)'s batch (32 x n 256) and draws."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    packed = model.pack([bench_sample(rng, 1) for _ in range(32)], shift_friendly=True)
+    require(packed.text.shape[1] == 257, f"sharded optimizer: packed to {packed.text.shape}")
+    packed = packed.to_torch("cuda")
+    return packed, model.make_draws(packed, torch.Generator("cuda").manual_seed(0))
+
+
+def sharded_reference(torch, Transfusion, Trainer, path):
+    """One step of a mesh-less Trainer with the same chain, weights and
+    draws, written to `path` for the ranks: the loss, grad_norm, the
+    masters before and after, and the names of the Muon matrices."""
+    from transfusion_tpu_torch.training import optim
+
+    model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
+    trainer = Trainer(model, optimizer=sharded_chain(), grad_clip_norm=None)
+    packed, draws = sharded_inputs(torch, model)
+    state = trainer.init_state()
+    new, metrics = trainer.train_step(state, packed, draws=draws)
+    torch.save({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                "before": state.params, "after": new.params,
+                "muon": sorted(k for k, m in optim.muon_param_mask(state.params).items() if m)},
+               path)
+
+
+def trees_equal(torch, a, b) -> bool:
+    """Two states (dicts, tuples, tensors, ints) equal exactly."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            trees_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            trees_equal(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def sharded_rank(rank, port, out_dir):
+    """One of SHARD_RANKS processes of a gloo group, every one on device 0:
+    `Trainer(mesh=make_mesh(fsdp=2, tensor=2), optimizer=sharded_chain(),
+    grad_clip_norm=None)` for SHARD_STEPS steps on bench (a), its launches
+    counted; step 1 held against the mesh-less reference; a save on every
+    rank and a restore by a new Trainer. Writes its results to
+    out_dir/rank<rank>.pt and, on rank 0, the first captured attention
+    call to out_dir/call.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    Transfusion, Trainer, mods = port_modules()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=SHARD_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        from transfusion_tpu_torch.parallel import make_mesh
+        from transfusion_tpu_torch.parallel.mesh import shard_tensor
+
+        mesh = make_mesh(**SHARD_MESH, device="cuda")
+        model = Transfusion(device="cuda", dtype=torch.bfloat16, seed=0, **BENCH_CFG)
+        ck = os.path.join(out_dir, "checkpoint")
+        trainer = Trainer(model, optimizer=sharded_chain(), grad_clip_norm=None, mesh=mesh,
+                          checkpoint_dir=ck)
+        packed, draws = sharded_inputs(torch, model)
+        ref = torch.load(os.path.join(out_dir, "reference.pt"), map_location="cuda",
+                         weights_only=True)
+        update_s, apply = [], trainer._apply
+
+        def timed_apply(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = apply(*a, **k)
+            torch.cuda.synchronize()
+            update_s.append(time.perf_counter() - t)
+            return out
+
+        trainer._apply = timed_apply
+        state0 = trainer.init_state()
+
+        def steps():
+            state, losses, norms, seconds, first, calls = state0, [], [], [], None, {}
+            for i in range(SHARD_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with (capturing(torch, mods, {"flash_fwd_nhd": lambda a: True,
+                                              "flash_fwd": lambda a: True})
+                      if i == 0 and rank == 0 else contextlib.nullcontext()) as seen:
+                    state, metrics = trainer.train_step(state, packed, draws=draws)
+                    losses.append(float(metrics["loss"]))
+                    norms.append(float(metrics["grad_norm"]))
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t)
+                if i == 0:
+                    first, calls = state, dict(seen or {})
+            return state, losses, norms, seconds, first, calls
+
+        (state, losses, norms, seconds, first, calls), counts = counted(mods, steps)
+        if rank == 0:
+            require(calls, "sharded optimizer: no attention call captured")
+            torch.save(calls, os.path.join(out_dir, "call.pt"))
+        del calls
+
+        # step 1 against the mesh-less Trainer, shard by shard
+        def shard(k, v):
+            return shard_tensor(k, v, trainer._specs[k], trainer._axes)
+
+        require(all(torch.equal(state0.params[k], shard(k, v)) for k, v in ref["before"].items()),
+                "sharded optimizer: the initial shards are not the mesh-less masters'")
+        muon_share, adam_abs, flips, total = 0.0, 0.0, 0, 0
+        for k, w in ref["after"].items():
+            diff = first.params[k] - shard(k, w)
+            if k in ref["muon"]:
+                step = (shard(k, w) - shard(k, ref["before"][k])).norm().item()
+                muon_share = max(muon_share, diff.norm().item() / max(step, 1e-30))
+            else:
+                adam_abs = max(adam_abs, diff.abs().max().item())
+                flips += int((diff.abs() > 1e-5).sum())
+                total += diff.numel()
+
+        trainer.save(state)
+        restored = Trainer(model, optimizer=sharded_chain(), grad_clip_norm=None, mesh=mesh,
+                           checkpoint_dir=ck).restore()
+        restored_equal = {
+            "params": trees_equal(torch, restored.params, state.params),
+            "ema": trees_equal(torch, restored.ema.params, state.ema.params)
+            and restored.ema.step == state.ema.step,
+            "opt_state": trees_equal(torch, restored.opt_state, state.opt_state),
+            "step": restored.step == state.step}
+        dist.barrier()
+        torch.save({
+            "losses": losses, "grad_norms": norms, "seconds": seconds,
+            "update_ms": [s * 1e3 for s in update_s], "counts": counts,
+            "loss_rel": abs(losses[0] - ref["loss"]) / abs(ref["loss"]),
+            "grad_norm_rel": abs(norms[0] - ref["grad_norm"]) / abs(ref["grad_norm"]),
+            "muon_share": muon_share, "adam_max_abs": adam_abs, "adam_flips": flips,
+            "adam_entries": total, "restored_equal": restored_equal,
+            "shard_shapes": {k: tuple(v.shape) for k, v in state.params.items()},
+        }, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_optimizer(torch, Transfusion, Trainer, mods):
+    """A custom optimizer chain on a mesh that shards parameters, 4 gloo
+    ranks on the one card (NCCL takes one rank per device): the bench model
+    at full width (8 heads of 64: 4 a rank) under `Trainer(mesh=make_mesh(
+    fsdp=2, tensor=2), optimizer=chain(clip_by_global_norm(0.5),
+    muon_adam_atan2(3e-4, 3e-4)), grad_clip_norm=None)` for SHARD_STEPS
+    steps on bench (a): every rank reports the same losses, which fall; the
+    first loss and grad_norm within 1e-3 relative of a mesh-less Trainer's
+    with the same chain, weights and draws; after step 1 every rank's
+    shards beside that Trainer's new masters (Muon matrices within
+    MUON_REL_TOL of its step's Frobenius norm; the rest within 1e-3, at most
+    SHARD_FLIP_SHARE of them past 1e-5); the route's forward and backward
+    rows launched once per layer, step and rank; one captured call on the 4
+    heads held against the plain versions; a save on every rank and a
+    restore by a new Trainer give back every shard of the params, the EMA
+    and the optimizer state exactly. Returns the launches."""
+    import socket
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(HERE, "build", "sharded_optimizer")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    sharded_reference(torch, Transfusion, Trainer, os.path.join(out_dir, "reference.pt"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(sharded_rank, args=(port, out_dir),
+                           nprocs=SHARD_RANKS, join=True, start_method="spawn")
+    except mp.ProcessRaisedException as e:
+        raise SmokeFailure(f"sharded optimizer: a rank failed:\n{e}") from None
+    except mp.ProcessExitedException as e:
+        raise SmokeFailure(f"sharded optimizer: a rank exited: {e}") from None
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(SHARD_RANKS)]
+    depth = BENCH_CFG["transformer"]["depth"]
+    name = (f"bench model, fsdp 2 x tensor 2, {SHARD_RANKS} gloo ranks on one card, "
+            "chain(clip 0.5, muon_adam_atan2(3e-4, 3e-4))")
+    route = "flash_fwd_nhd" if ranks[0]["counts"]["flash_fwd_nhd"] else "flash_fwd"
+    bwd = {"flash_fwd_nhd": "flash_bwd_nhd", "flash_fwd": "flash_bwd"}[route]
+    log(json.dumps({
+        "sharded_optimizer": name, "steps": SHARD_STEPS, "reference_seconds": ref_s,
+        "ranks_seconds": ranks_s,
+        "route": "token-major, rows 5 / 6" if route == "flash_fwd_nhd" else "head-major",
+        "loss": ranks[0]["losses"], "grad_norm": ranks[0]["grad_norms"],
+        "loss_rel_vs_meshless": ranks[0]["loss_rel"],
+        "grad_norm_rel_vs_meshless": ranks[0]["grad_norm_rel"],
+        "note": f"{SHARD_RANKS} ranks share one card: ms a step is no per-card rate",
+        "ms_per_step_after_first_by_rank": [
+            float(np.median(r["seconds"][1:])) * 1e3 for r in ranks],
+        "update_ms_after_first_by_rank": [float(np.median(r["update_ms"][1:])) for r in ranks],
+        "muon_share_max": max(r["muon_share"] for r in ranks),
+        "adam_max_abs": max(r["adam_max_abs"] for r in ranks),
+        "adam_flip_share": sum(r["adam_flips"] for r in ranks)
+        / sum(r["adam_entries"] for r in ranks),
+        "launches_by_rank": [{k: c for k, c in r["counts"].items() if c} for r in ranks],
+        "restored_equal": ranks[0]["restored_equal"],
+        "shard_shapes_rank0": {k: v for k, v in ranks[0]["shard_shapes"].items()
+                               if k.startswith(("transformer.blocks.0.", "text_embed"))}}))
+    for r, res in enumerate(ranks):
+        what = f"{name}, rank {r}"
+        require(res["losses"] == ranks[0]["losses"], f"{what}: losses {res['losses']} differ "
+                f"from rank 0's {ranks[0]['losses']}")
+        require(all(np.isfinite(res["losses"])), f"{what}: non-finite loss {res['losses']}")
+        require(res["losses"][-1] < res["losses"][0], f"{what}: loss did not fall")
+        require(res["loss_rel"] <= 1e-3 and res["grad_norm_rel"] <= 1e-3,
+                f"{what}: first loss / grad_norm {res['loss_rel']} / {res['grad_norm_rel']} "
+                "relative from the mesh-less step")
+        require(res["muon_share"] <= MUON_REL_TOL,
+                f"{what}: a Muon matrix {res['muon_share']} of its step from the mesh-less one")
+        require(res["adam_max_abs"] <= 1e-3
+                and res["adam_flips"] <= SHARD_FLIP_SHARE * res["adam_entries"],
+                f"{what}: Adam-atan2 entries {res['adam_max_abs']} max, {res['adam_flips']} of "
+                f"{res['adam_entries']} past 1e-5")
+        require(all(res["restored_equal"].values()), f"{what}: restored {res['restored_equal']}")
+        want = depth * SHARD_STEPS
+        counts = res["counts"]
+        require(counts[route] == want and counts[bwd] == want
+                and sum(counts.values()) == 2 * want,
+                f"{what}: launches {counts}, want {want} of {route} and of {bwd} only")
+    a = torch.load(os.path.join(out_dir, "call.pt"), map_location="cuda", weights_only=False)
+    a = a[route]
+    require("do" in a, f"{name}: the captured call has no cotangent")
+    shape = (f"main path, sharded optimizer, {name}: rank 0's call q {shape_str(a['q'])} "
+             f"spans {shape_str(a['spans'])}")
+    if route == "flash_fwd_nhd":
+        f_res, b_res = check_nhd(torch, mods, a)
+    else:
+        f_res, b_res = check_flash(torch, mods, a, iters=5), check_flash_bwd(torch, mods, a)
+    record(route, shape, f_res, torch.bfloat16)
+    record(bwd, shape, b_res, torch.bfloat16)
+    totals = dict.fromkeys(KERNELS, 0)
+    for res in ranks:
+        for k in totals:
+            totals[k] += res["counts"][k]
+    return totals
+
+
 KERNELS = {
     "flash_fwd": dict(
         source="transfusion_tpu_torch/csrc/flash_fwd.cu",
@@ -3489,37 +3857,26 @@ KERNELS = {
 }
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+def port_modules():
+    """(Transfusion, Trainer, mods): the port's entry points and the
+    modules the phases reach into, `mods['counters']` the kernel wrappers
+    whose launch counters the phases read. Raises ImportError outside a
+    checkout of the repository."""
     sys.path.insert(0, HERE)
-    try:
-        from transfusion_tpu_torch import Transfusion
-        from transfusion_tpu_torch.models import (
-            engine,
-            engine_mm,
-            layers,
-            modality_io,
-            sample_batch,
-            serving,
-            transfusion,
-        )
-        from transfusion_tpu_torch.ops import (
-            _build,
-            decode_attn,
-            flash_attn,
-            flash_attn_nhd,
-            rope,
-            spans,
-        )
-        from transfusion_tpu_torch.parallel import context
-        from transfusion_tpu_torch.training import Trainer
-    except ImportError as e:
-        print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
-        return 2
+    from transfusion_tpu_torch import Transfusion
+    from transfusion_tpu_torch.models import (
+        engine,
+        engine_mm,
+        layers,
+        modality_io,
+        sample_batch,
+        serving,
+        transfusion,
+    )
+    from transfusion_tpu_torch.ops import decode_attn, flash_attn, flash_attn_nhd, rope, spans
+    from transfusion_tpu_torch.parallel import context
+    from transfusion_tpu_torch.training import Trainer
+
     counters = {
         "flash_fwd": flash_attn.flash_attention,
         "flash_bwd": flash_attn.flash_attention_backward,
@@ -3531,6 +3888,21 @@ def main() -> int:
                 spans=spans, rope=rope, transfusion=transfusion, sample_batch=sample_batch,
                 engine=engine, engine_mm=engine_mm, serving=serving, modality_io=modality_io,
                 context=context, counters=counters)
+    return Transfusion, Trainer, mods
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        Transfusion, Trainer, mods = port_modules()
+        from transfusion_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3568,6 +3940,7 @@ def main() -> int:
     parallel_launches = timed_phase(phase_parallel, torch, Transfusion, Trainer, mods, capture)
     del capture
     pipeline_launches = timed_phase(phase_pipeline, torch, Transfusion, Trainer, mods)
+    sharded_launches = timed_phase(phase_sharded_optimizer, torch, Transfusion, Trainer, mods)
 
     # the kernels line: launches over the serving and training runs (the
     # streamed entries: over the long-context run); times on the tensors
@@ -3581,7 +3954,8 @@ def main() -> int:
                  + engine_launches.get(name, 0) + image_launches.get(name, 0)
                  + recipe_launches.get(name, 0) + surface_launches.get(name, 0)
                  + train_launches.get(name, 0) + long_launches.get(name, 0)
-                 + parallel_launches.get(name, 0) + pipeline_launches.get(name, 0))
+                 + parallel_launches.get(name, 0) + pipeline_launches.get(name, 0)
+                 + sharded_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")
         m = timed[name]
         kernels.append(dict(
@@ -3590,6 +3964,7 @@ def main() -> int:
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m.get("library_ms"),
         ))
+    log(smi)  # again, so that the card stands beside the numbers in the output's tail
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,9 @@ Prints the card's name and power limit, then one JSON line per capture
 over the row's RMS, and the same row rule of the kernel's rounding model
 alone: `backward_plain_f32(round_operands=bf16)` against the plain
 version); a capture past the row rule (0.08) also logs
-`chip_smoke.diagnose_bwd_rows`'s worst rows and saves the capture under
-build/. Needs one card (a few seconds a capture after a minute of
-building).
+`chip_smoke.diagnose_bwd_rows`'s worst rows, saves the capture under
+build/, and prints the anatomy of its worst dq rows (`row_anatomy`). Needs
+one card (a few seconds a capture after a minute of building).
 """
 
 import json
@@ -76,8 +76,67 @@ def main() -> int:
                 "rounding_row_rel_err": rounding_row_rule(torch, flash_attn, a),
                 "seconds": time.perf_counter() - t0}
         print(json.dumps(line), flush=True)
+        if res["row_rel_err"] > 0.08:
+            row_anatomy(torch, flash_attn, spans, a)
         del a
     return 0
+
+
+def row_anatomy(torch, fa, spans, a, worst=3):
+    """For the worst dq rows of the capture `a` under the row rule: how many
+    of the row's visible keys have distinct v, how far dO . v cancels
+    (dp over |dO| |v|, summed |terms|), whether the plain version's float32
+    dp (its 1024-row block's matmul) equals sequential float32 FMAs on every
+    visible key, dp - delta beside delta, the row rule of the plain
+    arithmetic with the sequential dp, and the ratio of the kernel's row to
+    the plain version's. One JSON line per row."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    q, k, v, do, sp, cap = a["q"], a["k"], a["v"], a["do"], a["spans"], a["softcap"]
+    out, lse = fa.flash_attention(q, k, v, spans=sp, causal=True, softcap=cap, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, sp, cap)[0].float()
+    want = fa.flash_attention_backward_plain(q, k, v, do, lse, delta, sp, cap, 0, 0,
+                                             cs.LONG_BLOCK_Q)[0].float()
+    rms = want.pow(2).mean(-1).sqrt()
+    err = (got - want).abs().amax(-1)
+    rel = torch.where(rms > 0, err / rms.clamp_min(1e-38),
+                      torch.where(err > 0, torch.full_like(err, float("inf")), 0.0))
+    scale = q.shape[-1] ** -0.5
+    for val, idx in zip(*(t.tolist() for t in rel.flatten().topk(worst))):
+        bi, hd, r = (int(x) for x in np.unravel_index(idx, rel.shape))
+        block = slice(r // cs.LONG_BLOCK_Q * cs.LONG_BLOCK_Q, (r // cs.LONG_BLOCK_Q + 1) *
+                      cs.LONG_BLOCK_Q)
+        dp_plain = torch.matmul(do[:, :, block].float(), v.float().transpose(-1, -2))
+        dp_plain = dp_plain[bi, hd, r % cs.LONG_BLOCK_Q]
+        allowed = spans.span_allowed(torch.tensor([r], device=q.device),
+                                     torch.arange(k.shape[2], device=q.device),
+                                     sp[bi:bi + 1])[0, 0]
+        dor, vv, kk = do[bi, hd, r].float(), v[bi, hd].float(), k[bi, hd].float()
+        dp_seq = torch.zeros_like(dp_plain)
+        for e in range(q.shape[-1]):
+            dp_seq = dp_seq + dor[e] * vv[:, e]
+        s = (q[bi, hd, r].float() * scale) @ kk.T
+        x = torch.tanh(s / cap) * cap
+        p = torch.where(allowed, torch.exp(x - lse[bi, hd, r]), 0.0)
+        dl = delta[bi, hd, r]
+        dq_seq = ((p * (dp_seq - dl) * (1 - (x / cap) ** 2))[:, None] * kk).sum(0) * scale
+        j = int(p.argmax())
+        norms = dor.norm() * vv.norm(dim=-1)
+        print(json.dumps({
+            "row": [bi, hd, r], "row_rel_err": val, "visible": int(allowed.sum()),
+            "distinct_v": int(torch.unique(v[bi, hd][allowed], dim=0).shape[0]),
+            "plain_dp_is_sequential": bool((dp_plain == dp_seq)[allowed].all()),
+            "top_key": j, "p": p[j].item(), "dp": dp_plain[j].item(), "delta": dl.item(),
+            "dp_minus_delta": (dp_plain[j] - dl).item(),
+            "dO_v_terms": (dor.abs() * vv[j].abs()).sum().item(),
+            "dO_norm_v_norm": norms[j].item(),
+            "row_rule_sequential_dp":
+                ((dq_seq - want[bi, hd, r]).abs().max() / rms[bi, hd, r]).item(),
+            "kernel_over_plain": ((got[bi, hd, r] @ want[bi, hd, r]) /
+                                  want[bi, hd, r].pow(2).sum()).item()}), flush=True)
 
 
 def rounding_row_rule(torch, fa, a):

@@ -1,6 +1,7 @@
 """One rank of a gloo process group running the PyTorch port's parallel
 paths for the tests (`test_torch_context_parallel.py`,
-`test_torch_distributed.py`).
+`test_torch_distributed.py`, `test_torch_pipeline_distributed.py`,
+`test_torch_sharded_optim.py`).
 
     python tests/torch_parallel_worker.py <rank> <world> <init file> <job.pt> <out dir>
 
@@ -19,16 +20,26 @@ Scenarios:
     flash model of the same weights), draws from seeded generators: each
     step's metrics of both, and `forward_modality`'s loss on both models;
   * 'trainer': `Trainer(mesh=)` steps on a packed batch with given draws
-    from given weights (a flax tree of numpy arrays, `load_flax`); returns
-    each step's metrics and the stored shards' shapes, and with
-    'resume_after' the metrics of a run
-    saved after that step, restored by a new Trainer and continued;
+    from given weights (a flax tree of numpy arrays, `load_flax`) and an
+    optimizer by name (`OPTIMIZERS`); returns each step's metrics and the
+    stored shards' shapes, and with 'resume_after' the metrics of a run
+    saved after that step, restored by a new Trainer and continued, and
+    whether the restored params, EMA and optimizer state equal the saved;
   * 'pipeline': the same with `Trainer(pipeline_microbatches=,
-    pipeline_schedule=)` on a mesh with a 'pipe' axis, an optimizer by name
-    ('muon_adam_atan2'), and this rank's stage computations per step (the
-    engines' `stage_calls`);
+    pipeline_schedule=)` on a mesh with a 'pipe' axis, and this rank's
+    stage computations per step (the engines' `stage_calls`);
   * 'pipeline_refuse': the message of each refused pipelined Trainer
-    configuration.
+    configuration;
+  * 'orth': Muon's update of given whole matrices, on this rank's shards
+    inside `optim.sharded` and whole outside it, and `global_norm` of the
+    shards inside it against the whole tensors' outside it;
+  * 'state_roundtrip': a `muon_adam_atan2` Trainer state after one step
+    through `Trainer._unshard` (the whole shapes of every optimizer
+    moment) and `Trainer._shard`, which must give it back exactly;
+  * 'replicas': two `muon_adam_atan2` steps whose gradients differ by rank
+    in their last bits before the reduction (as the card's atomics make
+    them); returns each shard's bytes and spec, so that the test can hold
+    the ranks that hold a replica of a shard to equal bytes.
 """
 
 import os
@@ -89,9 +100,45 @@ def run_refuse(job):
     return messages
 
 
+def make_optimizer(name):
+    """A new optimizer by name (None and 'adam': the Trainer's default
+    Adam)."""
+    from transfusion_tpu_torch.training import optim
+
+    return {
+        None: lambda: None,
+        "adam": lambda: None,
+        "adam_atan2": lambda: optim.adam_atan2(1e-3),
+        "muon_adam_atan2": lambda: optim.muon_adam_atan2(1e-3, 3e-4),
+        # examples/train_image_only.py: the clip inside the caller's chain
+        "image_recipe": lambda: optim.chain(optim.clip_by_global_norm(0.5),
+                                            optim.muon_adam_atan2(3e-4, 3e-4)),
+        # examples/train_text_only.py (the Trainer's clip 0.5 before it)
+        "multisteps_adam": lambda: optim.MultiSteps(optim.adam(1e-3), every_k_schedule=2),
+    }[name]()
+
+
+def trees_equal(a, b) -> bool:
+    """Two states (dicts, tuples, lists, tensors, ints) equal exactly."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(trees_equal, a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def states_equal(a, b) -> bool:
+    """Two `TrainState`s equal exactly."""
+    return trees_equal((a.params, a.opt_state, a.ema.params, a.ema.step, a.step),
+                       (b.params, b.opt_state, b.ema.params, b.ema.step, b.step))
+
+
 def run_compare(job):
     from transfusion_tpu_torch import Transfusion
-    from transfusion_tpu_torch.training import Trainer, adam_atan2
+    from transfusion_tpu_torch.training import Trainer
 
     mesh = make_mesh(**job["mesh"], device="cpu")
     tcfg = job["cfg"]["transformer"]
@@ -105,9 +152,8 @@ def run_compare(job):
     res = {}
     for name, model in models.items():
         model.load_flax(job["flax"])
-        kw = dict(job["trainer"], mesh=mesh if name == "mesh" else None)
-        if job.get("optimizer") == "adam_atan2":
-            kw["optimizer"] = adam_atan2(1e-3)
+        kw = dict(job["trainer"], mesh=mesh if name == "mesh" else None,
+                  optimizer=make_optimizer(job.get("optimizer")))
         trainer = Trainer(model, **kw)
         state, metrics = trainer.init_state(), []
         gen = torch.Generator().manual_seed(0)
@@ -131,7 +177,7 @@ def run_trainer(job, path):
     from transfusion_tpu_torch import Transfusion
     from transfusion_tpu_torch.parallel.pipeline import pipeline_blocks
     from transfusion_tpu_torch.parallel.pipeline_1f1b import pipeline_1f1b_grads
-    from transfusion_tpu_torch.training import Trainer, muon_adam_atan2
+    from transfusion_tpu_torch.training import Trainer
 
     mesh = make_mesh(**job["mesh"], device="cpu")
     cfg = dict(job["cfg"])
@@ -139,8 +185,6 @@ def run_trainer(job, path):
     model = Transfusion(device="cpu", **cfg)
     model.load_flax(job["flax"])
     kw = dict(job["trainer"], mesh=mesh)
-    if job.get("optimizer") == "muon_adam_atan2":
-        kw["optimizer"] = muon_adam_atan2(1e-3, 3e-4)
     packed = job["packed"].to_torch("cpu")
     stage_calls = []
 
@@ -155,23 +199,107 @@ def run_trainer(job, path):
                                 "1f1b": dict(pipeline_1f1b_grads.stage_calls)})
         return state, out
 
-    trainer = Trainer(model, **kw)
+    trainer = Trainer(model, optimizer=make_optimizer(job.get("optimizer")), **kw)
     state, metrics = run(trainer, trainer.init_state(), job["draws"])
     res = {"metrics": metrics, "shapes": {k: tuple(v.shape) for k, v in state.params.items()},
            "stage_calls": stage_calls}
     after = job.get("resume_after")
     if after is not None:
         ck = os.path.join(path, job["name"])
-        first = Trainer(model, checkpoint_dir=ck, **kw)
+        first = Trainer(model, checkpoint_dir=ck, optimizer=make_optimizer(job.get("optimizer")),
+                        **kw)
         state, _ = run(first, first.init_state(), job["draws"][:after])
         first.save(state)
-        second = Trainer(model, checkpoint_dir=ck, **kw)
+        second = Trainer(model, checkpoint_dir=ck, optimizer=make_optimizer(job.get("optimizer")),
+                         **kw)
         restored = second.restore()
         res["restored_equal"] = all(
             torch.equal(restored.params[k], state.params[k]) for k in state.params) and all(
             torch.equal(restored.ema.params[k], state.ema.params[k]) for k in state.params)
+        res["restored_opt_equal"] = trees_equal(restored.opt_state, state.opt_state)
         _, res["resumed"] = run(second, restored, job["draws"][after:])
     return res
+
+
+def run_orth(job):
+    """{name: (sharded update == the whole update's shard, unsharded
+    whole == whole update, this rank's shard shape)} and the global norms
+    (sharded, whole)."""
+    from transfusion_tpu_torch import Transfusion
+    from transfusion_tpu_torch.parallel.mesh import (
+        AXES,
+        axis_of,
+        shard_params,
+        shard_tensor,
+        unshard_tensor,
+    )
+    from transfusion_tpu_torch.training import optim
+
+    mesh = make_mesh(**job["mesh"], device="cpu")
+    model = Transfusion(device="cpu", **job["cfg"])
+    params = dict(model.core.named_parameters())
+    specs = shard_params(params, mesh, heads=job["cfg"]["transformer"]["heads"])
+    axes = {a: axis_of(mesh, a) for a in AXES}
+    whole = {k: torch.tensor(u) for k, u in job["updates"].items()}
+    tx = optim.muon(1e-3)
+    want, _ = tx.update(whole, tx.init(whole))
+    shards = {k: shard_tensor(k, u, specs[k], axes) for k, u in whole.items()}
+    with optim.sharded(specs, axes):
+        got, _ = tx.update(shards, tx.init(shards))
+        norm = float(optim.global_norm(shards))
+    out = {"specs": {k: specs[k] for k in whole}, "norm": (norm, float(optim.global_norm(whole)))}
+    for k in whole:
+        out[k] = (torch.equal(got[k], shard_tensor(k, want[k], specs[k], axes)),
+                  torch.equal(unshard_tensor(k, got[k], specs[k], axes), want[k]),
+                  tuple(got[k].shape))
+    return out
+
+
+def run_state_roundtrip(job):
+    """A muon_adam_atan2 state after one step: whether `_unshard` made every
+    tensor of it whole, and whether `_shard` gave it back exactly."""
+    from transfusion_tpu_torch import Transfusion
+    from transfusion_tpu_torch.training import Trainer
+
+    mesh = make_mesh(**job["mesh"], device="cpu")
+    model = Transfusion(device="cpu", **job["cfg"])
+    model.load_flax(job["flax"])
+    shapes = {k: tuple(p.shape) for k, p in model.core.named_parameters()}
+    trainer = Trainer(model, mesh=mesh, optimizer=make_optimizer("muon_adam_atan2"))
+    state, _ = trainer.train_step(trainer.init_state(), job["packed"].to_torch("cpu"),
+                                  draws=job["draws"])
+    whole = trainer._unshard(state)
+    # the state is the clip's and multi_transform's: {label: its state}
+    labels = (("muon", "mu"), ("adam", "mu"), ("adam", "nu"))
+    moments = [whole.opt_state[1][lb][m] for lb, m in labels]
+    sharded = [state.opt_state[1][lb][m] for lb, m in labels]
+    return {"whole_shapes": all(tuple(t.shape) == shapes[k] for d in moments
+                                for k, t in d.items()),
+            "some_sharded": any(tuple(t.shape) != shapes[k] for d in sharded
+                                for k, t in d.items()),
+            "names": sorted(k for d in moments for k in d),
+            "roundtrip_equal": states_equal(trainer._shard(whole), state)}
+
+
+def run_replicas(job):
+    from transfusion_tpu_torch import Transfusion
+    from transfusion_tpu_torch.training import Trainer
+
+    mesh = make_mesh(**job["mesh"], device="cpu")
+    model = Transfusion(device="cpu", **job["cfg"])
+    model.load_flax(job["flax"])
+    trainer = Trainer(model, mesh=mesh, optimizer=make_optimizer("muon_adam_atan2"))
+    reduce, rank = trainer._reduce, dist.get_rank()
+
+    def perturbed(loss, parts, grads):
+        return reduce(loss, parts, {k: g * (1 + rank * 2.0 ** -22) for k, g in grads.items()})
+
+    trainer._reduce = perturbed
+    state = trainer.init_state()
+    for d in job["draws"][:2]:
+        state, _ = trainer.train_step(state, job["packed"].to_torch("cpu"), draws=d)
+    return {"specs": trainer._specs,
+            "bytes": {k: v.numpy().tobytes() for k, v in state.params.items()}}
 
 
 def run_pipeline_refuse(job):
@@ -208,6 +336,12 @@ def main():
                 results[job["name"]] = run_compare(job)
             elif job["kind"] == "pipeline_refuse":
                 results[job["name"]] = run_pipeline_refuse(job)
+            elif job["kind"] == "orth":
+                results[job["name"]] = run_orth(job)
+            elif job["kind"] == "state_roundtrip":
+                results[job["name"]] = run_state_roundtrip(job)
+            elif job["kind"] == "replicas":
+                results[job["name"]] = run_replicas(job)
             else:  # 'trainer' and 'pipeline'
                 results[job["name"]] = run_trainer(job, out_dir)
     finally:

@@ -69,10 +69,13 @@
 //     device memory, any span count; a q tile's 64 come in by cp.async
 //     beside its lse and delta), and none on a tile whose first q row sees
 //     the whole kv tile. Where dp - delta
-//     cancels to within 2^-10 (a row that sees one key, or keys of equal
-//     v), ds is float32 rounding noise; that dp is then taken from
-//     sequential float32 FMAs, as the plain version's product takes it,
-//     so that the noise agrees with the plain version's.
+//     cancels to within its row's bound (`cancel_bounds`: 2^-10 of delta,
+//     or 2^-20 of |dO_i| max_j |v_j|; a row that sees one key, keys of
+//     equal v, a dO . v that cancels), ds is mostly float32 rounding,
+//     which the tensor cores' sum order (some ulps of |dO_i| |v_j| off)
+//     would move past the row rule; that dp is then taken from sequential
+//     float32 FMAs, as the plain version's product takes it, so that the
+//     rounding agrees with the plain version's.
 //   * A warp owns 16 kv rows (4 warps; from d 128 one warp per 64 columns
 //     and 16 rows, each holding its columns of dK, dV and dQ: 8 warps at
 //     d 128, so that no register spills, 16 at d 256). The grid is
@@ -122,6 +125,7 @@ __host__ __device__ constexpr int rpt() {
 struct Params {
   const void *q, *k, *v, *dout;
   const float *lse, *delta, *cos, *sin;
+  float2* cancel;  // [b, h, nq] (delta, its bound) (bf16 only): `cancel_bounds`
   const int* spans;
   int* ends;  // int32 [b, nq]: each q row's visible end, written by `row_ends`
   void *dq, *dk, *dv;
@@ -523,16 +527,23 @@ struct Lay {
   static constexpr int DW = D / DS;
   static constexpr int TT = 32 * 4 * DS;  // threads of a block
   // K, V, 2 x Q and 2 x dO [64][D] tiles, the ds^T tile, 2 x 64 lse,
-  // 2 x 64 delta and 2 x 64 visible ends
+  // 2 x 64 (delta, its bound) and 2 x 64 visible ends
   static constexpr size_t kBytes =
-      (6 * size_t(TILE) + size_t(TB) * SLD) * sizeof(bf16) + 4 * TB * sizeof(float) +
+      (6 * size_t(TILE) + size_t(TB) * SLD) * sizeof(bf16) + 6 * TB * sizeof(float) +
       2 * TB * sizeof(int);
 };
 
-// lse, delta and visible end of q rows [q0, q0 + 64); 0 past nq
+// 8 bytes, zero-filled when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+// lse, (delta, its bound) and visible end of q rows [q0, q0 + 64); 0 past
+// nq
 template <int NTH>
-__device__ __forceinline__ void async_row_stats(float* ls, float* dls, int* es, const float* lse,
-                                                const float* delta, const int* ends, int q0,
+__device__ __forceinline__ void async_row_stats(float* ls, float2* dls, int* es, const float* lse,
+                                                const float2* delta, const int* ends, int q0,
                                                 int nq) {
   for (int e = threadIdx.x; e < 3 * TB; e += NTH) {
     const int r = e % TB, g = q0 + r;
@@ -541,7 +552,7 @@ __device__ __forceinline__ void async_row_stats(float* ls, float* dls, int* es, 
     if (e < TB)
       cp_async4(ls + r, lse + gi, in);
     else if (e < 2 * TB)
-      cp_async4(dls + r, delta + gi, in);
+      cp_async8(dls + r, delta + gi, in);
     else
       cp_async4(es + r, ends + gi, in);
   }
@@ -569,13 +580,86 @@ __device__ __forceinline__ float grad_pair(float x, float& dp, bool ok, float ls
   return p;
 }
 
-// x . y over D bf16 values, as sequential float32 FMAs from element 0
+// x . y over D bf16 values (16-byte aligned rows), as sequential float32
+// FMAs from element 0; eight elements a load, the loop kept rolled (it is
+// inlined at every pair of a fragment)
 template <int D>
 __device__ __forceinline__ float dot_fma(const bf16* x, const bf16* y) {
   float acc = 0.f;
 #pragma unroll 1
-  for (int d = 0; d < D; ++d) acc = fmaf(__bfloat162float(x[d]), __bfloat162float(y[d]), acc);
+  for (int d = 0; d < D; d += 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(x + d);
+    const uint4 b = *reinterpret_cast<const uint4*>(y + d);
+    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // the low half is the earlier element
+      acc = fmaf(__uint_as_float(aw[e] << 16), __uint_as_float(bw[e] << 16), acc);
+      acc = fmaf(__uint_as_float(aw[e] & 0xffff0000u), __uint_as_float(bw[e] & 0xffff0000u),
+                 acc);
+    }
+  }
   return acc;
+}
+
+// The norm of bf16 row r of each head (rows of D values, 16-byte aligned)
+// for a group of D / 8 lanes, each reading 8 values; every lane of the
+// group gets it. A warp covers 256 / D rows; `row` is this lane's, and
+// false past n.
+__device__ __forceinline__ float group_row_norm(const bf16* base, const Params& P, int n, int D,
+                                                size_t bh, int r, bool row) {
+  const int L = D / 8, sub = threadIdx.x % L;
+  float s = 0.f;
+  if (row) {
+    const int bi = int(bh / P.H), head = int(bh % P.H);
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        base + head_base(P.nhd, bi, head, P.H, n, D) + size_t(r) * row_stride(P.nhd, P.H, D) +
+        8 * sub);
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lo = __uint_as_float(w[e] << 16), hi = __uint_as_float(w[e] & 0xffff0000u);
+      s = fmaf(lo, lo, fmaf(hi, hi, s));
+    }
+  }
+  for (int o = L / 2; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return sqrtf(s);
+}
+
+// max_j |v_j| of each (batch row, head) into vmax (zeroed; nonnegative
+// floats order as their bits): a block takes 2048 / D rows of one head,
+// one atomic each
+__global__ void __launch_bounds__(256) v_norm_max(const Params P, int D, unsigned* vmax) {
+  const int per = 2048 / D, chunks = (P.nkv + per - 1) / per;
+  const size_t bh = blockIdx.x / chunks;
+  const int r = (blockIdx.x % chunks) * per + int(threadIdx.x) / (D / 8);
+  float x = group_row_norm(static_cast<const bf16*>(P.v), P, P.nkv, D, bh, r, r < P.nkv);
+  for (int o = 16; o > 0; o /= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  __shared__ float warp_max[8];
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < 8; ++w) x = fmaxf(x, warp_max[w]);
+    atomicMax(vmax + bh, __float_as_uint(x));
+  }
+}
+
+// Each q row's bound on |dp - delta| below which the dK/dV kernel sums dp
+// sequentially: 2^-10 of |delta|, or 2^-20 of |dO_i| max_j |v_j|. Where
+// dp - delta is that small, ds is mostly float32 rounding, and the tensor
+// cores' sum order, some ulps of |dO_i| |v_j| from the sequential one,
+// would move it past the row rule. Blocks as `v_norm_max`'s, over q rows.
+__global__ void __launch_bounds__(256) cancel_bounds(const Params P, int D,
+                                                     const unsigned* vmax) {
+  const int L = D / 8, per = 256 / L, chunks = (P.nq + per - 1) / per;
+  const size_t bh = blockIdx.x / chunks;
+  const int r = (blockIdx.x % chunks) * per + int(threadIdx.x) / L;
+  const float x = group_row_norm(static_cast<const bf16*>(P.dout), P, P.nq, D, bh, r, r < P.nq);
+  if (r < P.nq && threadIdx.x % L == 0) {
+    const size_t i = bh * P.nq + r;
+    const float delta = P.delta[i];
+    P.cancel[i] = make_float2(
+        delta, fmaxf(0x1p-10f * fabsf(delta), 0x1p-20f * x * __uint_as_float(vmax[bh])));
+  }
 }
 
 // dK and dV of one (b*h, kv tile), and dQ += ds K of each of its q tiles
@@ -591,7 +675,7 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
   bf16* Os = Qs + 2 * TILE;  // two buffers of dO
   bf16* Ss = Os + 2 * TILE;  // ds^T [kv][q]
   float* ls = reinterpret_cast<float*>(Ss + TB * SLD);  // two buffers of lse
-  float* dls = ls + 2 * TB;                              // two buffers of delta
+  float2* dls = reinterpret_cast<float2*>(ls + 2 * TB);  // two buffers of (delta, bound)
   int* es = reinterpret_cast<int*>(dls + 2 * TB);        // two buffers of visible ends
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
@@ -608,7 +692,7 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
   const bf16* kb = static_cast<const bf16*>(P.k) + head_base(P.nhd, bi, head, H, nkv, D);
   const bf16* vb = static_cast<const bf16*>(P.v) + head_base(P.nhd, bi, head, H, nkv, D);
   const float* lse = P.lse + size_t(bh) * nq;
-  const float* delta = P.delta + size_t(bh) * nq;
+  const float2* delta = P.cancel + size_t(bh) * nq;
   const float scale = P.scale, cap = P.softcap, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
   const int* sp = P.spans + size_t(bi) * P.m * 3;
   const int* ends = P.ends + size_t(bi) * nq;
@@ -650,7 +734,7 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
     const bf16* Qb = Qs + buf * TILE;
     const bf16* Ob = Os + buf * TILE;
     const float* lb = ls + buf * TB;
-    const float* db = dls + buf * TB;
+    const float2* db = dls + buf * TB;  // (delta, its bound)
     const int* eb = es + buf * TB;  // 0 past nq
     // full: every pair visible (the tile's first row sees the whole kv tile)
     const bool full = eb[0] >= k0 + TB && q0 + TB <= nq;
@@ -673,14 +757,15 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
         mma(dpt[j + 1], va, of[2], of[3]);
       }
     }
-    // Where dp - delta cancels (a row that sees one key, or keys of equal
-    // v: ds is then float32 rounding noise), dp is taken as the plain
-    // version's float32 product takes it, sequential FMAs over d, not in
-    // the tensor cores' sum order, so that the noise agrees. Rare: one
-    // warp-wide test first.
+    // Where dp - delta cancels to within the row's bound (a row that sees
+    // one key, keys of equal v, a dO . v that cancels: ds is then mostly
+    // float32 rounding), dp is taken as the plain version's float32
+    // product takes it, sequential FMAs over d, not in the tensor cores'
+    // sum order, so that the rounding agrees. Rare: one warp-wide test
+    // first.
     auto cancels = [&](int j, int c) {
-      const float dl = db[8 * j + 2 * t + (c & 1)];
-      return fabsf(dpt[j][c] - dl) < 0x1p-10f * fabsf(dl);
+      const int qi = 8 * j + 2 * t + (c & 1);
+      return fabsf(dpt[j][c] - db[qi].x) < db[qi].y;
     };
     bool any_cancel = false;
 #pragma unroll
@@ -711,7 +796,7 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
         for (int c = 0; c < 4; ++c) {
           const int qi = 8 * j + 2 * t + (c & 1), kj = rw + g + 8 * (c >> 1);
           const bool ok = !decltype(masked)::value || k0 + kj < eb[qi];
-          st[j][c] = grad_pair(st[j][c], dpt[j][c], ok, lb[qi], db[qi], cap, inv_cap);
+          st[j][c] = grad_pair(st[j][c], dpt[j][c], ok, lb[qi], db[qi].x, cap, inv_cap);
         }
     };
     if (full)
@@ -860,12 +945,15 @@ int dispatch(int d, const Params& P, int b, float* dq_acc, cudaStream_t stream) 
 // [b,n,h*d] (nhd = 1), contiguous, bf16 (is_bf16=1; q, k, v, dout and
 // cos/sin 16-byte aligned) or float32; lse and delta float32 [b,h,nq];
 // spans int32 [b,m,3] (any m); cos/sin float32 [b,nq,d] or NULL (needs
-// nq == nkv when given); dq_acc: for bf16 a zeroed float32 [b,h,nq,d]
-// scratch, for float32 NULL; ends: an int32 [b,nq] scratch (each q row's
-// visible end, written here first).
+// nq == nkv when given); dq_acc and cancel: for bf16 a zeroed float32
+// [b,h,nq,d] scratch and a float32 [b*h*(2*nq+1)] one (`cancel_bounds`'s
+// (delta, bound) pairs and the heads' largest |v|), for float32 NULL;
+// ends: an int32 [b,nq] scratch (each q row's visible end, written here
+// first).
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                         const float* lse, const float* delta, const int* spans, int m,
+                         const float* lse, const float* delta, float* cancel,
+                         const int* spans, int m,
                          const float* cos, const float* sin, void* dq, void* dk, void* dv,
                          float* dq_acc, int* ends, int b, int h, int nq, int nkv, int d,
                          int q_off, int kv_off, int nhd, float scale, float softcap,
@@ -873,13 +961,26 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   if (m < 0 || nq <= 0 || nkv <= 0 || ends == nullptr) return int(cudaErrorInvalidValue);
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && nq != nkv))
     return int(cudaErrorInvalidValue);
-  if ((dq_acc != nullptr) != (is_bf16 != 0)) return int(cudaErrorInvalidValue);
-  const Params P{q,  k,  v,  dout, lse,   delta,  cos, sin,   spans,  ends, dq,
-                 dk, dv, m,  h,    nq,    nkv,    q_off, kv_off, nhd, scale, softcap};
+  if ((dq_acc != nullptr) != (is_bf16 != 0) || (cancel != nullptr) != (is_bf16 != 0))
+    return int(cudaErrorInvalidValue);
+  float2* pairs = reinterpret_cast<float2*>(cancel);
+  const Params P{q,  k,  v,  dout, lse, delta, cos,   sin,    pairs, spans, ends,   dq,
+                 dk, dv, m,  h,    nq,  nkv,   q_off, kv_off, nhd,   scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t rows = size_t(b) * nq;
   row_ends<<<unsigned((rows + 255) / 256), 256, 0, s>>>(P, b);
   if (cudaError_t err = cudaGetLastError(); err != cudaSuccess) return int(err);
-  if (is_bf16) return tc::dispatch(d, P, b, dq_acc, s);
+  if (is_bf16) {
+    if (d != 32 && d != 64 && d != 128 && d != 256) return int(cudaErrorInvalidValue);
+    const size_t bh = size_t(b) * h;
+    unsigned* vmax = reinterpret_cast<unsigned*>(cancel + 2 * bh * nq);
+    cudaError_t err = cudaMemsetAsync(vmax, 0, bh * sizeof(unsigned), s);
+    if (err != cudaSuccess) return int(err);
+    const int per = 2048 / d;  // rows a block of the two
+    tc::v_norm_max<<<unsigned(bh * ((nkv + per - 1) / per)), 256, 0, s>>>(P, d, vmax);
+    tc::cancel_bounds<<<unsigned(bh * ((nq + per - 1) / per)), 256, 0, s>>>(P, d, vmax);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+    return tc::dispatch(d, P, b, dq_acc, s);
+  }
   return dispatch_d<float>(d, P, b, s);
 }

@@ -1,5 +1,5 @@
 """Host-side packing of ragged multimodal samples into static-shape buffers
-(counterpart of `transfusion_tpu/data/packing.py`, numpy path):
+(counterpart of `transfusion_tpu/data/packing.py`):
 
   text     Int[b, n]     token ids; -1 at modality interiors and padding
   cfg_mask Bool[b, n]    positions replaced by null_text_id under CFG dropout
@@ -10,10 +10,15 @@
 Token ids: text 0..N-1; sos=N; eos=N+1; null=N+2; som_ids N+3..;
 eom_ids after them; meta_id; char meta tokens meta_id+1 .. meta_id+128.
 Per modality instance: [meta_id][shape chars][som] <interior, text=-1> [eom].
+
+The first four buffers are assembled in one pass by the native packer
+(`csrc/fastpack.cpp`, built with the host C++ compiler at first use and
+loaded with ctypes) or by numpy (`_assemble`); both give the same bytes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Any, Callable, Optional, Sequence
@@ -21,6 +26,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from transfusion_tpu_torch.ops import _build
 from transfusion_tpu_torch.utils.helpers import (
     char_tokenize,
     is_int_array,
@@ -141,6 +147,8 @@ def normalize_sample(sample) -> list:
 
 
 def _assemble(descriptors, n: int, m: int):
+    """(text, cfg, spans, lengths) of the packer's descriptors: per sample a
+    list of ("t", ids) and ("m", type, head ids, interior, eom) items."""
     batch = len(descriptors)
     text = np.full((batch, n), -1, np.int32)
     cfg = np.zeros((batch, n), bool)
@@ -168,10 +176,49 @@ def _assemble(descriptors, n: int, m: int):
     return text, cfg, spans, lengths
 
 
+def _flatten(descriptors):
+    """The descriptors as `csrc/fastpack.cpp` reads them: items int64 [k, 5]
+    (kind, n_ids, type, interior, eom), counts int64 [b] (items a sample),
+    ids int32 (every item's ids in order)."""
+    rows, ids = [], []
+    for items in descriptors:
+        for item in items:
+            if item[0] == "t":
+                rows.append((0, len(item[1]), 0, 0, -1))
+                ids.append(item[1])
+            else:
+                _, mtype, head, interior, eom = item
+                rows.append((1, len(head), mtype, interior, eom))
+                ids.append(head)
+    counts = np.fromiter(map(len, descriptors), np.int64, len(descriptors))
+    flat = np.concatenate(ids).astype(np.int32, copy=False) if ids else np.zeros(0, np.int32)
+    return np.asarray(rows, np.int64).reshape(-1, 5), counts, np.ascontiguousarray(flat)
+
+
+_FASTPACK_ARGTYPES = [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 7
+
+
+def _assemble_native(descriptors, n: int, m: int):
+    """`_assemble` in one native pass (`csrc/fastpack.cpp`); the library is
+    built on first use, and a failed build raises with the compiler's
+    output."""
+    fn = _build.load("fastpack", _FASTPACK_ARGTYPES)
+    items, counts, ids = _flatten(descriptors)
+    b = len(descriptors)
+    text, cfg = np.empty((b, n), np.int32), np.empty((b, n), bool)
+    spans, lengths = np.empty((b, m, 3), np.int32), np.empty(b, np.int32)
+    err = fn(b, n, m, *(a.ctypes.data for a in (items, counts, ids, text, cfg, spans, lengths)))
+    if err:
+        raise ValueError({1: f"a sample does not fit pad_len {n}",
+                          2: f"a sample has more than {m} modalities"}.get(
+                              err, f"fastpack: error {err}"))
+    return text, cfg, spans, lengths
+
+
 def pack_samples(samples: Sequence[list], spec: PackSpec, *, wrap_sos_eos: bool = True,
                  add_meta: bool = True, pad_multiple: int = 64,
                  pad_len: Optional[int] = None, span_multiple: int = 2,
-                 shift_friendly: bool = False) -> PackedBatch:
+                 use_native: bool = True, shift_friendly: bool = False) -> PackedBatch:
     """Pack ragged ModalitySamples (lists of int arrays / float arrays /
     (type, float array) tuples) into one PackedBatch of numpy arrays.
 
@@ -185,7 +232,10 @@ def pack_samples(samples: Sequence[list], spec: PackSpec, *, wrap_sos_eos: bool 
     shift_friendly adds one slot, so that after the training step's
     next-token shift (text[:, :-1]) the model sees a length that is a
     multiple of pad_multiple; with it, pad_len must leave room for that
-    slot beyond the longest sample."""
+    slot beyond the longest sample.
+
+    use_native assembles the buffers in the native packer (built at first
+    use; a failed build raises), else in numpy: the same arrays."""
     num_modalities = len(spec.modalities)
     descriptors: list = []
     span_counts: list = []
@@ -265,7 +315,8 @@ def pack_samples(samples: Sequence[list], spec: PackSpec, *, wrap_sos_eos: bool 
         )
     m = max(span_multiple, round_up_to_multiple(max(span_counts, default=1), span_multiple))
 
-    text, cfg, spans_arr, lengths = _assemble(descriptors, n, m)
+    text, cfg, spans_arr, lengths = (_assemble_native if use_native else _assemble)(
+        descriptors, n, m)
 
     keys = sorted({(i["mtype"], i["spatial"]) for i in instances})
     groups = []

@@ -52,10 +52,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # flash_fwd(q, k, v, spans, m, cos, sin, out, lse, b, h, nq, nkv, d, q_off,
 #           kv_off, nhd, scale, softcap, is_bf16, stream)
 _FWD_ARGTYPES = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 8 + [_F] * 2 + [_I, _P]
-# flash_bwd(q, k, v, dout, lse, delta, spans, m, cos, sin, dq, dk, dv, dq_acc,
-#           ends, b, h, nq, nkv, d, q_off, kv_off, nhd, scale, softcap, is_bf16,
-#           stream)
-_BWD_ARGTYPES = [_P] * 7 + [_I] + [_P] * 7 + [_I] * 8 + [_F] * 2 + [_I, _P]
+# flash_bwd(q, k, v, dout, lse, delta, cancel, spans, m, cos, sin, dq, dk, dv,
+#           dq_acc, ends, b, h, nq, nkv, d, q_off, kv_off, nhd, scale, softcap,
+#           is_bf16, stream)
+_BWD_ARGTYPES = [_P] * 8 + [_I] + [_P] * 7 + [_I] * 8 + [_F] * 2 + [_I, _P]
 
 
 def supported(n: int, d: int) -> bool:
@@ -265,9 +265,10 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
                cos=None, sin=None, dq_float32=False):
     """Launch csrc/flash_bwd.cu in either layout (see `launch_fwd`): the
     kernel that writes each q row's visible end into a scratch, then for
-    bf16 the tensor-core dK/dV kernel, which adds dq into a zeroed float32
-    scratch, and the kernel that stores dq from it; for float32 the dK/dV
-    and dQ kernels. Returns (dq, dk, dv) like q, k, v; with dq_float32
+    bf16 the two that bound each row's cancellation (the heads' largest |v|,
+    then the bound, into a second scratch), the tensor-core dK/dV kernel,
+    which adds dq into a zeroed float32 scratch, and the kernel that stores
+    dq from it; for float32 the dK/dV and dQ kernels. Returns (dq, dk, dv) like q, k, v; with dq_float32
     (head-major only) dq is the float32 scratch times the scale, before the
     store rounds it. Callers count the launch."""
     nhd = heads is not None
@@ -288,14 +289,16 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
     spans_t = _spans_arg(what, spans, b, q.device)
     cos, sin, cos_p, sin_p = _rope_args(cos, sin, b, nq, d, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dq_acc = None
+    dq_acc = cancel = None
     if q.dtype == torch.bfloat16:
         dq_acc = torch.zeros((b, h, nq, d), dtype=torch.float32, device=q.device)
+        cancel = torch.empty(b * h * (2 * nq + 1), dtype=torch.float32, device=q.device)
     ends = torch.empty((b, nq), dtype=torch.int32, device=q.device)  # each q row's visible end
     fn = _build.load("flash_bwd", _BWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), spans_t.data_ptr(), spans_t.shape[1], cos_p, sin_p,
+        delta.data_ptr(), None if cancel is None else cancel.data_ptr(), spans_t.data_ptr(),
+        spans_t.shape[1], cos_p, sin_p,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if dq_acc is None else dq_acc.data_ptr(), ends.data_ptr(),
         b, h, nq, nkv, d, int(q_offset), int(kv_offset), int(nhd),

@@ -30,6 +30,13 @@ one tick's sends and receives, posted together.
 
 Tensors that go through one collective together go through one autograd
 node, so that every rank runs its backward collectives in the same order.
+
+On a gloo group the collectives take CUDA tensors as they are: gloo copies
+them through host memory itself, so nothing here stages them. The mesh
+Trainer's step uses `all_gather` and `all_reduce` only, which
+`chip_smoke.py`'s phase "sharded optimizer" runs on 4 gloo ranks of one
+card; `exchange`'s point-to-point ops on CUDA tensors over gloo are not
+tried.
 """
 
 from __future__ import annotations

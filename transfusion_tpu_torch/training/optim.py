@@ -25,13 +25,33 @@ A 2-D parameter here is an `nn.Linear` weight [out, in], the transpose of
 the flax kernel [in, out]: Muon's Newton-Schulz result is the transpose of
 the JAX one, and its scale max(1, in / out) ** 0.5 reads the flax
 orientation.
+
+On a mesh that shards parameters ('fsdp' or 'tensor' > 1) the dicts a
+transformation sees are this rank's shards. Inside `sharded(specs, axes)`
+(the Trainer opens it around its update) each transformation computes what
+it computes on whole tensors, as the JAX chain does under GSPMD: the
+elementwise ones (Adam, Adam-atan2, MultiSteps, Muon's momentum,
+`apply_updates`) run on the shards unchanged, `global_norm` sums every
+shard's squared norm over the mesh, and Muon orthogonalizes each whole
+matrix (every rank gathers it, runs the same Newton-Schulz and keeps its
+own part). A transformation written by the caller sees the shards as they
+are.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from transfusion_tpu_torch.parallel import comm
+from transfusion_tpu_torch.parallel.mesh import shard_tensor, unshard_tensor
+
+# (specs, axes) of the shards that the transformations are handed, inside
+# `sharded`
+_LAYOUT: contextvars.ContextVar = contextvars.ContextVar("sharded_layout", default=None)
 
 
 class GradientTransformation(NamedTuple):
@@ -39,10 +59,40 @@ class GradientTransformation(NamedTuple):
     update: Callable[..., tuple]
 
 
+@contextlib.contextmanager
+def sharded(specs: dict, axes: dict):
+    """While open, the dicts handed to the transformations hold this rank's
+    shards: `specs` maps a parameter name to the mesh axis of each dim
+    (`parallel.mesh.shard_params`), `axes` an axis name to its `comm.Axis`.
+    Every rank of the mesh makes the same calls inside it (they hold
+    collectives)."""
+    token = _LAYOUT.set((specs, axes))
+    try:
+        yield
+    finally:
+        _LAYOUT.reset(token)
+
+
 def global_norm(tree: dict):
     """The L2 norm over every tensor of a dict (the norm of the per-leaf
-    norms), a 0-d tensor."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tree.values()))))
+    norms), a 0-d tensor. Inside `sharded`: the norm of the whole tensors,
+    each shard's squared norm divided by the number of ranks that hold the
+    same shard, summed over 'tensor' and 'fsdp'."""
+    norms = torch.stack(torch._foreach_norm(list(tree.values())))
+    layout = _LAYOUT.get()
+    if layout is None:
+        return torch.linalg.vector_norm(norms)
+    specs, axes = layout
+    copies = [1] * len(tree)
+    for i, k in enumerate(tree):
+        for a in ("fsdp", "tensor"):
+            if a not in specs[k]:
+                copies[i] *= axes[a].size
+    sq = (norms.float().square() / torch.tensor(copies, dtype=torch.float32,
+                                                device=norms.device)).sum()
+    for a in ("tensor", "fsdp"):
+        sq = comm.all_reduce_sum(sq, axes[a])
+    return sq.sqrt()
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
@@ -78,14 +128,12 @@ def chain(*transforms) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def clip_by_global_norm(max_norm: float, norm_fn: Callable = None) -> GradientTransformation:
-    """g / norm * max_norm when the global norm reaches max_norm. `norm_fn`
-    (default `global_norm`) computes the norm: a mesh's trainer passes one
-    that sums over every shard."""
-    norm_fn = norm_fn or global_norm
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """g / norm * max_norm when the global norm (`global_norm`) reaches
+    max_norm."""
 
     def update(updates, state, params=None):
-        g_norm = norm_fn(updates)
+        g_norm = global_norm(updates)
         trigger = g_norm < max_norm
         return {k: torch.where(trigger, g, g / g_norm.to(g.dtype) * max_norm)
                 for k, g in updates.items()}, state
@@ -155,23 +203,36 @@ def _newton_schulz(g, steps: int = 5, eps: float = 1e-7):
     return x.to(g.dtype)
 
 
+def _orth_whole(u, ns_steps: int):
+    return _newton_schulz(u, ns_steps) * max(1.0, u.shape[1] / u.shape[0]) ** 0.5
+
+
 def muon(learning_rate, momentum: float = 0.95, nesterov: bool = True,
          ns_steps: int = 5) -> GradientTransformation:
     """Momentum, orthogonalized per matrix (other shapes pass through),
-    scaled by max(1, in / out) ** 0.5 of the flax kernel [in, out]."""
+    scaled by max(1, in / out) ** 0.5 of the flax kernel [in, out]. Inside
+    `sharded`, each matrix is rebuilt whole from its shards
+    (`unshard_tensor`, which keeps the fused matrices' halves in order),
+    orthogonalized and scaled by its whole shape, and cut back to this
+    rank's shard."""
 
     def init(params):
         return {"mu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
-    def orth(u):
+    def orth(name, u):
         if u.ndim != 2:
             return u
-        return _newton_schulz(u, ns_steps) * max(1.0, u.shape[1] / u.shape[0]) ** 0.5
+        layout = _LAYOUT.get()
+        if layout is None:
+            return _orth_whole(u, ns_steps)
+        specs, axes = layout
+        whole = unshard_tensor(name, u, specs[name], axes)
+        return shard_tensor(name, _orth_whole(whole, ns_steps), specs[name], axes)
 
     def update(updates, state, params=None):
         mu = {k: momentum * state["mu"][k] + g for k, g in updates.items()}
         use = {k: g + momentum * mu[k] for k, g in updates.items()} if nesterov else mu
-        return {k: orth(u) * -learning_rate for k, u in use.items()}, {"mu": mu}
+        return {k: orth(k, u) * -learning_rate for k, u in use.items()}, {"mu": mu}
 
     return GradientTransformation(init, update)
 

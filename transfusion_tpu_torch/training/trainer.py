@@ -50,14 +50,20 @@ attn_impl 'ring' / 'cp_allgather' and the same mesh shards attention over
 'context'), sums the gradients of replicated parameters that compute on
 tensor-local slices over 'tensor', sums everything over 'data' and
 reduce-scatters over 'fsdp' (a mean: the fsdp ranks of a data row compute
-the same loss, as JAX's `batch_sharding` replicates the batch over it).
+the same loss, as JAX's `batch_sharding` replicates the batch over it);
+the gradient of a shard that several fsdp or tensor ranks hold is their
+mean, so its replicas stay equal where the ranks' backward passes differ
+in their last bits (the card's attention backward adds dq with atomics).
 The loss and its parts are summed over 'data', so every rank reports the
-whole batch's. The clip's global norm sums the squared norms of every
-shard over 'fsdp' and 'tensor' (`_mesh_norm`). On a mesh that shards
-parameters ('fsdp' or 'tensor' > 1) the optimizer is the default Adam
-(fused or not): a custom chain's norms and Muon's Newton-Schulz would see
-only a shard. Checkpoints gather the whole state to rank 0 in the usual
-format; `restore` reads it on every rank and shards it again.
+whole batch's. On a mesh that shards parameters ('fsdp' or 'tensor' > 1)
+the update runs inside `optim.sharded`: `training/optim.py`'s
+transformations are exact on the shards (global norms, the clip's and
+grad_norm's included, sum every shard over 'fsdp' and 'tensor'; Muon
+orthogonalizes whole matrices), so any chain of them works as
+`optimizer=`; a transformation the caller writes sees this rank's shards.
+Checkpoints gather the whole state, every optimizer state included, to
+rank 0 in the usual format; `restore` reads it on every rank and shards it
+again.
 
 With `pipeline_microbatches=M` (a mesh with 'pipe' > 1) the loss runs
 pipeline-parallel over the 'pipe' axis (`Transfusion._loss_impl(pipeline=)`):
@@ -66,15 +72,15 @@ data, fsdp and tensor axes alongside) or '1f1b' (the in-schedule loss,
 `models/pipeline_loss.py`; 'pipe' and 'data' only). Every rank then takes
 the whole batch and whole weights (the shards gathered over 'fsdp' and
 'tensor'); the engines split the rows over 'data' and hand back the whole
-loss and gradients on every rank, of which each keeps its shards. The
-optimizer runs alike on every rank, so `optimizer=` works on a data x pipe
-mesh. A pipelined rank thus holds the whole model, its float32 gradients
-and its optimizer state (JAX's pipe-replicated layout): only the
-activations are split by stage.
+loss and gradients on every rank, of which each keeps its shards, and the
+update runs on those shards as above. A pipelined rank thus holds the
+whole model, its float32 gradients and its optimizer state (JAX's
+pipe-replicated layout): only the activations are split by stage.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import re
@@ -120,15 +126,19 @@ def _structure(packed: PackedBatch) -> tuple:
         for g in packed.groups))
 
 
-def _map_param_dicts(tree, keys: frozenset, fn):
-    """tree with fn(name, tensor) applied to every dict whose keys are the
-    parameters' (the params, Adam's moments, the EMA copy, ...)."""
+def _map_param_dicts(tree, names: frozenset, fn):
+    """tree with fn(name, tensor) applied to every entry of each non-empty
+    dict whose keys are parameter names and whose values are tensors: the
+    params, the EMA copy, Adam's moments, and the moments of a
+    `multi_transform` label, which hold a subset of the names. Matched by
+    the keys alone, since the values are shards or whole tensors."""
     if isinstance(tree, dict):
-        if frozenset(tree) == keys:
+        if tree and tree.keys() <= names and all(
+                isinstance(v, torch.Tensor) for v in tree.values()):
             return {k: fn(k, v) for k, v in tree.items()}
-        return {k: _map_param_dicts(v, keys, fn) for k, v in tree.items()}
+        return {k: _map_param_dicts(v, names, fn) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map_param_dicts(v, keys, fn) for v in tree)
+        return type(tree)(_map_param_dicts(v, names, fn) for v in tree)
     return tree
 
 
@@ -161,16 +171,16 @@ class Trainer:
             fused_update = optimizer is None and isinstance(learning_rate, (int, float))
         if fused_update and optimizer is not None:
             raise ValueError("fused_update runs clip + Adam only; it takes no optimizer")
-        self._axes = self._specs = self._norm_fn = None
+        self._axes = self._specs = self._layout = None
         if mesh is not None:
-            self._setup_mesh(mesh, optimizer)
+            self._setup_mesh(mesh)
         self.velocity_consistency = velocity_consistency
         self.velocity_delta = velocity_consistency_delta_time
         self.learning_rate = learning_rate
         self.grad_clip_norm = grad_clip_norm
         tx = optimizer or optim.adam(learning_rate)
         if grad_clip_norm is not None:
-            tx = optim.chain(optim.clip_by_global_norm(grad_clip_norm, self._norm_fn), tx)
+            tx = optim.chain(optim.clip_by_global_norm(grad_clip_norm), tx)
         self.tx = tx
         self.fused_update = fused_update
         self.ema_cfg = dict(beta=ema_beta, update_every=ema_update_every,
@@ -216,7 +226,7 @@ class Trainer:
                     f"(got {', '.join(bad)}); use pipeline_schedule='gpipe' for fsdp/tensor x "
                     "pipe meshes")
 
-    def _setup_mesh(self, mesh, optimizer):
+    def _setup_mesh(self, mesh):
         from torch.distributed.device_mesh import DeviceMesh
 
         if not isinstance(mesh, DeviceMesh):
@@ -226,30 +236,10 @@ class Trainer:
         self._specs = shard_params(params, mesh, heads=self.model.transformer_cfg.get("heads", 8))
         self._partial = [k for k in params if tensor_partial(k, self._specs)]
         if axes["fsdp"].size > 1 or axes["tensor"].size > 1:
-            if optimizer is not None:
-                raise ValueError(
-                    "optimizer= on a mesh that shards parameters (fsdp or tensor > 1): a "
-                    "custom chain's norms and Muon's Newton-Schulz would see only a shard; "
-                    "the default Adam (fused or not) runs on the shards")
-            self._norm_fn = self._mesh_norm
+            self._layout = (self._specs, axes)
         if self.pipeline_microbatches is None:  # a pipeline's stages take whole weights
             set_tensor_axis(self.model.core, axes["tensor"])
         self._axes = axes
-
-    def _mesh_norm(self, grads: dict):
-        """The global L2 norm of sharded gradients: each shard's squared
-        norm over the number of ranks that hold the same shard, summed over
-        'tensor' and 'fsdp'."""
-        sq = torch.zeros((), dtype=torch.float32, device=self.model.device)
-        for k, g in grads.items():
-            rep = 1
-            for a in ("fsdp", "tensor"):
-                if a not in self._specs[k]:
-                    rep *= self._axes[a].size
-            sq = sq + g.float().pow(2).sum() / rep
-        for a in ("tensor", "fsdp"):
-            sq = comm.all_reduce_sum(sq, self._axes[a])
-        return sq.sqrt()
 
     def init_state(self, params: Optional[dict] = None) -> TrainState:
         """Masters from `params` (a state dict, e.g. `weights.from_flax`'s;
@@ -344,6 +334,16 @@ class Trainer:
             if "fsdp" in spec:
                 grads[k] = comm.reduce_scatter_sum(g, spec.index("fsdp"), ax["fsdp"]) / \
                     ax["fsdp"].size
+        # the ranks that hold a replica of a shard computed its gradient each
+        # on their own, and the card's attention backward adds dq with
+        # atomics, so their last bits differ: their mean keeps the replicas
+        # equal (on a 2-rank axis it is exact where they agree)
+        for a in ("fsdp", "tensor"):
+            rep = [k for k in grads if a not in self._specs[k]
+                   and not (a == "tensor" and k in self._partial)]
+            if ax[a].size > 1 and rep:
+                mean = comm.all_reduce_dict({k: grads[k] for k in rep}, ax[a])
+                grads.update({k: g / ax[a].size for k, g in mean.items()})
         sums = comm.all_reduce_sum(torch.stack([loss, *parts.values()]).float(), ax["data"])
         return sums[0], dict(zip(parts, sums[1:])), grads
 
@@ -360,27 +360,35 @@ class Trainer:
 
     def _apply(self, state: TrainState, grads, loss, parts: dict, tokens: int):
         """The update (fused, or the optimizer chain then the EMA); logs the
-        metrics when `metrics_path` is set. Returns (new state, metrics)."""
+        metrics when `metrics_path` is set. Returns (new state, metrics). On
+        a parameter-sharded mesh it runs inside `optim.sharded`."""
+        with (contextlib.nullcontext() if self._layout is None
+              else optim.sharded(*self._layout)):
+            params, opt_state, ema, grad_norm = self._update(state, grads)
+        new_state = TrainState(params=params, opt_state=opt_state, ema=ema, step=state.step + 1)
+        metrics = {"loss": loss, "grad_norm": grad_norm, **parts}
+        if self.metrics is not None:
+            self.metrics.log(new_state.step, metrics, tokens=tokens)
+        return new_state, metrics
+
+    def _update(self, state: TrainState, grads):
+        """(new params, optimizer state, EMA, grad_norm) from the step's
+        gradients."""
         if self.fused_update:
             clipped = self.grad_clip_norm is not None
             adam = state.opt_state[1] if clipped else state.opt_state
             params, adam, ema_params, grad_norm = fused_clip_adam_ema(
                 grads, state.params, adam, state.ema.params, state.ema.step,
                 learning_rate=self.learning_rate, grad_clip_norm=self.grad_clip_norm,
-                **{f"ema_{k}": v for k, v in self.ema_cfg.items()}, norm_fn=self._norm_fn,
+                **{f"ema_{k}": v for k, v in self.ema_cfg.items()},
             )
             opt_state = (state.opt_state[0], adam) if clipped else adam
             ema = EmaState(params=ema_params, step=state.ema.step + 1)
-        else:
-            grad_norm = (self._norm_fn or optim.global_norm)(grads)
-            updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
-            params = optim.apply_updates(state.params, updates)
-            ema = ema_update(state.ema, params, **self.ema_cfg)
-        new_state = TrainState(params=params, opt_state=opt_state, ema=ema, step=state.step + 1)
-        metrics = {"loss": loss, "grad_norm": grad_norm, **parts}
-        if self.metrics is not None:
-            self.metrics.log(new_state.step, metrics, tokens=tokens)
-        return new_state, metrics
+            return params, opt_state, ema, grad_norm
+        grad_norm = optim.global_norm(grads)
+        updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
+        params = optim.apply_updates(state.params, updates)
+        return params, opt_state, ema_update(state.ema, params, **self.ema_cfg), grad_norm
 
     def train_step(self, state: TrainState, batch, draws=None, generator=None):
         """One optimizer step on a ragged batch (list of samples) or a
@@ -464,18 +472,25 @@ class Trainer:
             for k, p in self.model.core.named_parameters():
                 p.copy_(params[k])
 
+    def _map_state(self, state: TrainState, fn) -> TrainState:
+        """state with fn(name, tensor) applied to every parameter-shaped
+        tensor: the params, the EMA and every optimizer state's."""
+        names = frozenset(self._specs)
+        return dataclasses.replace(
+            state, params=_map_param_dicts(state.params, names, fn),
+            opt_state=_map_param_dicts(state.opt_state, names, fn),
+            ema=EmaState(params=_map_param_dicts(state.ema.params, names, fn),
+                         step=state.ema.step))
+
     def _unshard(self, state: TrainState) -> TrainState:
         """The whole state from every rank's shards (a collective)."""
-        keys = frozenset(state.params)
+        return self._map_state(
+            state, lambda k, v: unshard_tensor(k, v, self._specs[k], self._axes))
 
-        def whole(k, v):
-            return unshard_tensor(k, v, self._specs[k], self._axes)
-
-        return dataclasses.replace(
-            state, params=_map_param_dicts(state.params, keys, whole),
-            opt_state=_map_param_dicts(state.opt_state, keys, whole),
-            ema=EmaState(params=_map_param_dicts(state.ema.params, keys, whole),
-                         step=state.ema.step))
+    def _shard(self, state: TrainState) -> TrainState:
+        """This rank's shards of a whole state."""
+        return self._map_state(
+            state, lambda k, v: shard_tensor(k, v, self._specs[k], self._axes))
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -517,14 +532,4 @@ class Trainer:
         ck = torch.load(path, map_location=self.model.device, weights_only=True)
         state = TrainState(params=ck["params"], opt_state=ck["opt_state"],
                            ema=EmaState(params=ck["ema"], step=ck["ema_step"]), step=ck["step"])
-        if self._axes is None:
-            return state
-        keys = frozenset(state.params)
-
-        def shard(k, v):
-            return shard_tensor(k, v, self._specs[k], self._axes)
-
-        return TrainState(params=_map_param_dicts(state.params, keys, shard),
-                          opt_state=_map_param_dicts(state.opt_state, keys, shard),
-                          ema=EmaState(params=_map_param_dicts(state.ema.params, keys, shard),
-                                       step=state.ema.step), step=state.step)
+        return state if self._axes is None else self._shard(state)
