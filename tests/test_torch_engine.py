@@ -194,24 +194,47 @@ def test_serve_empty_raises_as_jax(params, model):
 
 
 def test_engine_metrics_schema(model):
-    """One row a tick with the JAX engine's keys; admitted, retired and
-    emitted tokens add up to the workload."""
+    """One row a tick with the JAX engine's keys and the port's admission
+    and chunk clocks; admitted, retired and emitted tokens add up to the
+    workload, the prompt tokens to the prompts, the prefill positions to
+    each admitted prompt's width bucket, and the chunk's dispatch and fetch
+    fit inside its time."""
     log = MetricsLogger()
     eng = ServingEngine(model, max_batch=2, max_seq_len=256, decode_chunk=8, temperature=0.0,
                         metrics=log)
-    prompts = [[SOS, 1], [SOS, 2, 3], [SOS, 4]]
+    prompts = [[SOS, 1], [SOS, 2, 3], [SOS, 4], [SOS] + [5] * 140]
     for p in prompts:
         eng.submit(np.asarray(p, np.int32), 5)
     assert len(eng.run()) == len(prompts)
     assert len(log.history) >= 2
     want = {"admitted", "retired", "chunk_k", "chunk_seconds", "cost_model_residual_s",
-            "emitted_tokens", "active_slots", "queue_depth"}
+            "emitted_tokens", "active_slots", "queue_depth", "admit_seconds", "prompt_tokens",
+            "prefill_positions", "queued_seconds", "dispatch_seconds", "fetch_seconds"}
     for row in log.history:
         assert want <= set(row), sorted(want - set(row))
+        assert row["prefill_positions"] >= row["prompt_tokens"]
+        assert row["admit_seconds"] >= 0 and row["queued_seconds"] >= 0
+        assert row["dispatch_seconds"] >= 0 and row["fetch_seconds"] >= 0
+        assert row["dispatch_seconds"] + row["fetch_seconds"] <= row["chunk_seconds"]
     assert sum(r["admitted"] for r in log.history) == len(prompts)
     assert sum(r["retired"] for r in log.history) == len(prompts)
     assert sum(r["emitted_tokens"] for r in log.history) == 5 * len(prompts)
+    assert sum(r["prompt_tokens"] for r in log.history) == sum(map(len, prompts))
+    assert sum(r["prefill_positions"] for r in log.history) == 128 * 3 + 256
     assert log.ewma("chunk_k") is not None
+
+
+def test_engine_chunk_samples_stop_growing_after_warmup(model):
+    """warmup() freezes the cost model, so later chunks add no samples (a
+    long-running server's lists stay bounded); before it, each chunk adds
+    one."""
+    eng = ServingEngine(model, max_batch=2, max_seq_len=256, decode_chunk=4, temperature=0.0)
+    eng.run([np.asarray([SOS, 1], np.int32)], 3)
+    assert sum(map(len, eng._chunk_samples.values())) >= 1
+    eng.warmup(fit_cap_slope=False)
+    frozen = {k: list(v) for k, v in eng._chunk_samples.items()}
+    eng.run([np.asarray(p, np.int32) for p in ([SOS, 1, 2], [SOS, 3], [SOS, 4])], 9)
+    assert eng._chunk_samples == frozen
 
 
 def test_static_step_at_matches_jax(params, model):

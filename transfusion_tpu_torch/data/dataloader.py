@@ -9,7 +9,8 @@ same seed gives the same batches.
 `PackingLoader` encodes and packs the next batches on a background thread
 while the caller trains. Unlike the JAX loader, a worker that raises does
 not leave `next()` waiting for ever: the exception is re-raised in the
-caller.
+caller. Under a profiler, the caller's wait for a packed batch shows as the
+span `transfusion.loader.next` (`training.metrics.span`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Iterator, Sequence
 
 import numpy as np
 import torch
+
+from transfusion_tpu_torch.training.metrics import span
 
 # how long a blocked queue call waits before it looks again at the
 # loader's stop flag and its worker's liveness
@@ -119,15 +122,16 @@ class PackingLoader:
         return self
 
     def __next__(self):
-        while True:
-            if self._stop.is_set():
-                raise StopIteration
-            try:
-                item = self._q.get(timeout=_POLL_S)
-                break
-            except queue.Empty:
-                if not self._thread.is_alive() and self._q.empty():
-                    raise RuntimeError("PackingLoader's worker stopped without a batch")
+        with span("transfusion.loader.next"):
+            while True:
+                if self._stop.is_set():
+                    raise StopIteration
+                try:
+                    item = self._q.get(timeout=_POLL_S)
+                    break
+                except queue.Empty:
+                    if not self._thread.is_alive() and self._q.empty():
+                        raise RuntimeError("PackingLoader's worker stopped without a batch")
         if isinstance(item, _WorkerError):
             raise RuntimeError("PackingLoader's worker failed") from item.exc
         return item

@@ -23,6 +23,12 @@ never waits for the longest row of a static batch (`generate_text_batch`).
     `warmup()` fits on the running device: on the card the fitted `rtt` is
     the fixed host cost of a chunk (launch, fetch, bookkeeping), `step` one
     decode step.
+  * Observability: `metrics=` takes one row a tick (`step`), and under a
+    profiler a tick shows as the span `transfusion.engine.tick` holding
+    `.admit` (one `.prefill` a width group, its args the width and rows),
+    `.plan` (the chunk length), `.decode` (the chunk's draws and launches),
+    `.fetch` (the host blocked on the chunk's payload) and `.retire`
+    (`training.metrics.span`).
 
 Where the port differs from the JAX engine, and why:
 
@@ -64,6 +70,7 @@ from transfusion_tpu_torch.models import sample_batch as _sb
 from transfusion_tpu_torch.models import serving
 from transfusion_tpu_torch.models.serving import choose_chunk
 from transfusion_tpu_torch.models.transformer import cache_mark_valid
+from transfusion_tpu_torch.training.metrics import span
 
 logger = logging.getLogger(__name__)
 
@@ -89,6 +96,7 @@ class Request:
     max_new_tokens: int
     tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
+    submitted: float = 0.0  # host time (`time.perf_counter`) of its submit
 
 
 def _fit_cost_model(engine):
@@ -157,8 +165,14 @@ class ServingEngine:
         decode_chunk: the most decode steps a chunk runs; chunks are sized
         by the cost model. kv_quantize: int8 cache (`plan_serving`).
         metrics: an optional `training.metrics.MetricsLogger`, one row a
-        tick (admitted, retired, chunk k, its seconds and the cost model's
-        residual)."""
+        tick: admitted, retired, chunk_k, chunk_seconds (the chunk's host
+        time, ending in its one fetch), cost_model_residual_s,
+        emitted_tokens, active_slots, queue_depth; and admit_seconds (host
+        time in admission and prefill), prompt_tokens (the admitted
+        prompts' tokens), prefill_positions (each prefill group's width
+        times its rows), queued_seconds (the admitted requests' waits from
+        submit to admission, summed), dispatch_seconds and fetch_seconds
+        (chunk_seconds before the fetch, and blocked in it)."""
         self.model = model
         self.device = model.device
         self.max_batch = int(max_batch)
@@ -225,20 +239,25 @@ class ServingEngine:
     def _run_chunk(self, cache, last, active, left, keys, k):
         """One chunk: the draws (at temperature > 0), the k steps and the
         payload's one fetch. keys: (rid, count) per row, None for inert rows.
-        Returns (cache, last, payload numpy)."""
-        gumbel = None
-        if self.temperature > 0.0:
-            gumbel = _sb._gumbel_rows(
-                self.seed, [None if key is None else (key[0], key[1] + j)
-                            for j in range(k) for key in keys],
-                self.model.vocab_size, self.device, stream=_ENGINE_STREAM,
-            ).view(k, len(keys), -1)
-        act = torch.as_tensor(active, device=self.device)
-        left = torch.as_tensor(left, dtype=torch.int32, device=self.device)
-        cache, last, payload = _decode_impl(
-            self.model, cache, last, act, left, gumbel, k=k, temperature=self.temperature,
-            min_p=self.min_p, eos_id=self.eos_id)
-        return cache, last, _sb._fetch(payload)
+        Returns (cache, last, payload numpy, the host time the fetch
+        began)."""
+        with span("transfusion.engine.decode"):
+            gumbel = None
+            if self.temperature > 0.0:
+                gumbel = _sb._gumbel_rows(
+                    self.seed, [None if key is None else (key[0], key[1] + j)
+                                for j in range(k) for key in keys],
+                    self.model.vocab_size, self.device, stream=_ENGINE_STREAM,
+                ).view(k, len(keys), -1)
+            act = torch.as_tensor(active, device=self.device)
+            left = torch.as_tensor(left, dtype=torch.int32, device=self.device)
+            cache, last, payload = _decode_impl(
+                self.model, cache, last, act, left, gumbel, k=k, temperature=self.temperature,
+                min_p=self.min_p, eos_id=self.eos_id)
+        t_fetch = time.perf_counter()
+        with span("transfusion.engine.fetch"):
+            payload = _sb._fetch(payload)
+        return cache, last, payload, t_fetch
 
     # ------------------------------------------------------------------
     # host loop
@@ -253,16 +272,22 @@ class ServingEngine:
         )
         rid = self._next_rid
         self._next_rid += 1
-        self.queue.append(Request(rid, prompt, int(max_new_tokens)))
+        self.queue.append(Request(rid, prompt, int(max_new_tokens),
+                                  submitted=time.perf_counter()))
         return rid
 
     @property
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.active.any())
 
-    def _admit_pending(self):
-        # pair queued requests with free rows, grouped by width bucket so each
-        # group prefills in one call
+    def _admit_pending(self) -> tuple:
+        """Pair queued requests with free rows, grouped by width bucket so
+        each group prefills in one call. Returns (the admitted prompts'
+        tokens, the prefills' positions, the seconds the admitted requests
+        waited from submit to now)."""
+        now = time.perf_counter()
+        prompt_tokens = positions = 0
+        queued_s = 0.0
         groups = {}
         for slot in range(self.max_batch):
             if not self.queue:
@@ -279,14 +304,19 @@ class ServingEngine:
             for i, (_, r) in enumerate(pairs):
                 rect[i, : r.prompt.size] = r.prompt
                 lengths[i] = r.prompt.size
-            self._admit_group(
-                torch.as_tensor(rect, device=self.device),
-                torch.as_tensor(lengths, device=self.device),
-                torch.as_tensor([slot for slot, _ in pairs], device=self.device))
+            with span("transfusion.engine.prefill", f"width={width} rows={nb}"):
+                self._admit_group(
+                    torch.as_tensor(rect, device=self.device),
+                    torch.as_tensor(lengths, device=self.device),
+                    torch.as_tensor([slot for slot, _ in pairs], device=self.device))
             for slot, r in pairs:
                 self.slots[slot] = r
                 self.active[slot] = True
+                queued_s += now - r.submitted
+            prompt_tokens += int(lengths.sum())
+            positions += width * nb
             self.stats["admitted"] += nb
+        return prompt_tokens, positions, queued_s
 
     def _chunk_len(self) -> int:
         """The chunk length that maximizes useful tokens per second under the
@@ -315,7 +345,7 @@ class ServingEngine:
         while k <= self.decode_chunk:
             for first in (True, False):
                 t0 = time.perf_counter()
-                self.cache, self.last_logits, _ = self._run_chunk(
+                self.cache, self.last_logits, _, _ = self._run_chunk(
                     self.cache, self.last_logits, inert, zeros, keys, k)
                 if not first:
                     self._chunk_samples.setdefault(k, []).extend(
@@ -330,7 +360,7 @@ class ServingEngine:
             t_half = None
             for first in (True, False):
                 t0 = time.perf_counter()
-                scratch, scratch_logits, _ = self._run_chunk(
+                scratch, scratch_logits, _, _ = self._run_chunk(
                     scratch, scratch_logits, inert, zeros, keys, k_ref)
                 if not first:
                     t_half = time.perf_counter() - t0
@@ -353,63 +383,77 @@ class ServingEngine:
     def step(self):
         """One tick: admit queued requests into free rows, then decode one
         chunk for every active row. Returns the requests that finished."""
-        admitted_before = self.stats["admitted"]
-        self._admit_pending()
-        n_admitted = self.stats["admitted"] - admitted_before
-        finished = []
-        if not self.active.any():
+        with span("transfusion.engine.tick"):
+            admitted_before = self.stats["admitted"]
+            t_admit = time.perf_counter()
+            with span("transfusion.engine.admit"):
+                prompt_tokens, positions, queued_s = self._admit_pending()
+            admit_s = time.perf_counter() - t_admit
+            n_admitted = self.stats["admitted"] - admitted_before
+            finished = []
+            if not self.active.any():
+                return finished
+
+            with span("transfusion.engine.plan"):
+                k = self._chunk_len()
+            budget_left = np.zeros(self.max_batch, np.int32)
+            keys = [None] * self.max_batch
+            for s in range(self.max_batch):
+                if self.active[s]:
+                    r = self.slots[s]
+                    budget_left[s] = r.max_new_tokens - len(r.tokens)
+                    keys[s] = (r.rid, len(r.tokens))
+            t0 = time.perf_counter()
+            self.cache, self.last_logits, payload, t_fetch = self._run_chunk(
+                self.cache, self.last_logits, self.active, budget_left, keys, k)
+            t_fetched = time.perf_counter()
+            toks = payload[:, :k]
+            emitted = payload[:, k : 2 * k].astype(bool)
+            active_f = payload[:, -1].astype(bool)
+            elapsed = time.perf_counter() - t0
+            if not self._cost_frozen:  # warmup() froze the fit: no more samples
+                self._chunk_samples.setdefault(k, []).append(elapsed)
+            self.stats["decode_time_s"] += elapsed
+            self.stats["decode_chunks"] += 1
+
+            with span("transfusion.engine.retire"):
+                emitted_total = 0
+                for slot in range(self.max_batch):
+                    if not self.active[slot]:
+                        continue
+                    r = self.slots[slot]
+                    for j in range(k):
+                        if not emitted[slot, j]:
+                            break
+                        r.tokens.append(int(toks[slot, j]))
+                        self.stats["generated_tokens"] += 1
+                        emitted_total += 1
+                    self.active[slot] = bool(active_f[slot])
+                    if not self.active[slot]:
+                        r.done = True
+                        finished.append(r)
+                        self.slots[slot] = None
+
+            if self.metrics is not None:
+                self._tick += 1
+                predicted = self._rtt_est + k * self._step_est
+                self.metrics.log(self._tick, {
+                    "admitted": n_admitted,
+                    "retired": len(finished),
+                    "chunk_k": k,
+                    "chunk_seconds": elapsed,
+                    "cost_model_residual_s": elapsed - predicted,
+                    "emitted_tokens": emitted_total,
+                    "active_slots": int(self.active.sum()),
+                    "queue_depth": len(self.queue),
+                    "admit_seconds": admit_s,
+                    "prompt_tokens": prompt_tokens,
+                    "prefill_positions": positions,
+                    "queued_seconds": queued_s,
+                    "dispatch_seconds": t_fetch - t0,
+                    "fetch_seconds": t_fetched - t_fetch,
+                })
             return finished
-
-        k = self._chunk_len()
-        budget_left = np.zeros(self.max_batch, np.int32)
-        keys = [None] * self.max_batch
-        for s in range(self.max_batch):
-            if self.active[s]:
-                r = self.slots[s]
-                budget_left[s] = r.max_new_tokens - len(r.tokens)
-                keys[s] = (r.rid, len(r.tokens))
-        t0 = time.perf_counter()
-        self.cache, self.last_logits, payload = self._run_chunk(
-            self.cache, self.last_logits, self.active, budget_left, keys, k)
-        toks = payload[:, :k]
-        emitted = payload[:, k : 2 * k].astype(bool)
-        active_f = payload[:, -1].astype(bool)
-        elapsed = time.perf_counter() - t0
-        self._chunk_samples.setdefault(k, []).append(elapsed)
-        self.stats["decode_time_s"] += elapsed
-        self.stats["decode_chunks"] += 1
-
-        emitted_total = 0
-        for slot in range(self.max_batch):
-            if not self.active[slot]:
-                continue
-            r = self.slots[slot]
-            for j in range(k):
-                if not emitted[slot, j]:
-                    break
-                r.tokens.append(int(toks[slot, j]))
-                self.stats["generated_tokens"] += 1
-                emitted_total += 1
-            self.active[slot] = bool(active_f[slot])
-            if not self.active[slot]:
-                r.done = True
-                finished.append(r)
-                self.slots[slot] = None
-
-        if self.metrics is not None:
-            self._tick += 1
-            predicted = self._rtt_est + k * self._step_est
-            self.metrics.log(self._tick, {
-                "admitted": n_admitted,
-                "retired": len(finished),
-                "chunk_k": k,
-                "chunk_seconds": elapsed,
-                "cost_model_residual_s": elapsed - predicted,
-                "emitted_tokens": emitted_total,
-                "active_slots": int(self.active.sum()),
-                "queue_depth": len(self.queue),
-            })
-        return finished
 
     def serve(self, prompts, max_new_tokens):
         """Serve a batch of prompts by continuous batching or by static

@@ -6,11 +6,35 @@
     step;
   * `ProfilerHook`: a `torch.profiler` trace (CPU, and CUDA where there is
     a card) of a window of training steps, written to a directory as a
-    Chrome trace.
+    Chrome trace;
+  * `span(name)`: a host range at a layer boundary of the program. While a
+    `torch.profiler` records, it is a `record_function` range in the same
+    trace as the device's kernels, on the same clock; otherwise a shared
+    no-op after one check. The program's spans, all on the calling thread:
+
+      trainer (`Trainer.train_step`)  transfusion.train.step, and inside it
+                                      .batch (encode, pack, to the device),
+                                      .draws (the loss's draws and
+                                      denominators), .forward and .backward
+                                      (each microbatch), .reduce (the mesh's
+                                      reduction, the accumulation's sum),
+                                      .update, .log (with `metrics_path`)
+      loader (`PackingLoader`)        transfusion.loader.next: the caller
+                                      waiting for a packed batch
+      serving (`ServingEngine.step`)  transfusion.engine.tick, and inside it
+                                      .admit (with one .prefill a width
+                                      group, args its width and rows),
+                                      .plan (the chunk length), .decode (the
+                                      chunk's launches), .fetch (the host
+                                      blocked on the chunk), .retire
+
+    A training step opens at most 8 spans, plus 3 for each microbatch after
+    the first (4 on a mesh); a tick at most 6, plus 1 a prefill group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -18,6 +42,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 
 class MetricsLogger:
@@ -86,3 +111,17 @@ class ProfilerHook:
             self._prof.export_chrome_trace(os.path.join(
                 self.logdir, f"trace_steps_{self.start_step}-{self.stop_step}.json"))
             self._prof = None
+
+
+# the span of a process with no profiler recording (stateless, so shared)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, args: Optional[str] = None):
+    """A context over a layer boundary named `name`
+    (`transfusion.<layer>.<what>`): a `torch.profiler.record_function`
+    range while a profiler records, else the shared no-op (nothing is
+    allocated and no clock is read)."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name, args)

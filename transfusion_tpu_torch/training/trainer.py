@@ -33,7 +33,13 @@ are packed, each microbatch on its own under grad accumulation.
 `metrics_path` logs every step's metrics and packed tokens as JSONL
 (`MetricsLogger`); `profile_logdir` writes a `torch.profiler` trace of
 steps [profile_start_step, profile_start_step + profile_num_steps)
-(`ProfilerHook`).
+(`ProfilerHook`). Under any profiler a step shows as the span
+`transfusion.train.step`, and inside it `.batch` (encoding, packing and
+the copy to the device), `.draws` (the loss's draws when the caller passes
+none, and the loss denominators the trainer computes), `.forward` and
+`.backward` (each microbatch), `.reduce` (the mesh's reduction and the
+accumulation's sum), `.update` and `.log` (`metrics_path`'s row, which
+synchronises): `training.metrics.span`.
 
 Randomness: `train_step` takes the loss's draws (`LossDraws`, or a list of
 M of them) or makes them from a `torch.Generator`.
@@ -107,7 +113,7 @@ from transfusion_tpu_torch.parallel.mesh import (
 from transfusion_tpu_torch.training import optim
 from transfusion_tpu_torch.training.ema import EmaState, ema_update, init_ema
 from transfusion_tpu_torch.training.fused_update import fused_clip_adam_ema
-from transfusion_tpu_torch.training.metrics import MetricsLogger, ProfilerHook
+from transfusion_tpu_torch.training.metrics import MetricsLogger, ProfilerHook, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,24 +308,25 @@ class Trainer:
             if ema is not None:
                 ema = {k: unshard_tensor(k, v, specs[k], axes) for k, v in ema.items()}
         elif axes is not None:
-            if loss_scales is None:
-                loss_scales = model.loss_denominators(packed, draws)
             packed, draws = batch_sharding(self.mesh, packed, draws)
             params = {k: gather_fsdp(v, specs[k], axes) for k, v in params.items()}
             if ema is not None:
                 ema = {k: gather_fsdp(v, specs[k], axes) for k, v in ema.items()}
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-        loss, breakdown = model._loss_impl(
-            leaves, packed, draws, model.prob_uncond, train=True, loss_scales=loss_scales,
-            ema_params=ema, velocity_delta=self.velocity_delta, pipeline=pipeline)
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        with span("transfusion.train.forward"):
+            loss, breakdown = model._loss_impl(
+                leaves, packed, draws, model.prob_uncond, train=True, loss_scales=loss_scales,
+                ema_params=ema, velocity_delta=self.velocity_delta, pipeline=pipeline)
+        with span("transfusion.train.backward"):
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(leaves.items(), grads)}
         loss, parts = loss.detach(), self._loss_parts(breakdown)
         if pipeline is not None:
             grads = {k: shard_tensor(k, g, specs[k], axes) for k, g in grads.items()}
         elif axes is not None:
-            loss, parts, grads = self._reduce(loss, parts, grads)
+            with span("transfusion.train.reduce"):
+                loss, parts, grads = self._reduce(loss, parts, grads)
         return loss, parts, grads
 
     def _reduce(self, loss, parts: dict, grads: dict):
@@ -362,13 +369,15 @@ class Trainer:
         """The update (fused, or the optimizer chain then the EMA); logs the
         metrics when `metrics_path` is set. Returns (new state, metrics). On
         a parameter-sharded mesh it runs inside `optim.sharded`."""
-        with (contextlib.nullcontext() if self._layout is None
-              else optim.sharded(*self._layout)):
+        with span("transfusion.train.update"), (
+                contextlib.nullcontext() if self._layout is None
+                else optim.sharded(*self._layout)):
             params, opt_state, ema, grad_norm = self._update(state, grads)
         new_state = TrainState(params=params, opt_state=opt_state, ema=ema, step=state.step + 1)
         metrics = {"loss": loss, "grad_norm": grad_norm, **parts}
         if self.metrics is not None:
-            self.metrics.log(new_state.step, metrics, tokens=tokens)
+            with span("transfusion.train.log"):
+                self.metrics.log(new_state.step, metrics, tokens=tokens)
         return new_state, metrics
 
     def _update(self, state: TrainState, grads):
@@ -399,13 +408,23 @@ class Trainer:
         the device."""
         if self.profiler is not None:
             self.profiler(state.step)
-        if self.grad_accumulation is not None:
-            return self._train_step_accum(state, batch, draws, generator)
-        packed = self._packed(batch)
-        if draws is None:
-            draws = self.model.make_draws(packed, generator, velocity=self.velocity_consistency)
-        loss, parts, grads = self._grads(state, packed, draws)
-        return self._apply(state, grads, loss, parts, int(packed.total_tokens))
+        with span("transfusion.train.step"):
+            if self.grad_accumulation is not None:
+                return self._train_step_accum(state, batch, draws, generator)
+            with span("transfusion.train.batch"):
+                packed = self._packed(batch)
+            # a data-sharded step needs the whole batch's loss denominators
+            sharded = self._axes is not None and self.pipeline_microbatches is None
+            scales = None
+            if draws is None or sharded:
+                with span("transfusion.train.draws"):
+                    if draws is None:
+                        draws = self.model.make_draws(packed, generator,
+                                                      velocity=self.velocity_consistency)
+                    if sharded:
+                        scales = self.model.loss_denominators(packed, draws)
+            loss, parts, grads = self._grads(state, packed, draws, scales)
+            return self._apply(state, grads, loss, parts, int(packed.total_tokens))
 
     def _train_step_accum(self, state: TrainState, batch, draws, generator):
         """Exact gradient accumulation (the JAX `_train_step_accum`,
@@ -415,23 +434,26 @@ class Trainer:
         then one update. Loss and breakdown are summed the same way, so
         they equal the whole batch's."""
         model = self.model
-        packs = self._microbatches(batch)
-        if draws is None:
-            draws = [model.make_draws(p, generator, velocity=self.velocity_consistency)
-                     for p in packs]
-        if len(draws) != len(packs):
-            raise ValueError(f"{len(draws)} draws for {len(packs)} microbatches")
-        scales = model.sum_loss_denominators(
-            [model.loss_denominators(p, d) for p, d in zip(packs, draws)])
+        with span("transfusion.train.batch"):
+            packs = self._microbatches(batch)
+        with span("transfusion.train.draws"):
+            if draws is None:
+                draws = [model.make_draws(p, generator, velocity=self.velocity_consistency)
+                         for p in packs]
+            if len(draws) != len(packs):
+                raise ValueError(f"{len(draws)} draws for {len(packs)} microbatches")
+            scales = model.sum_loss_denominators(
+                [model.loss_denominators(p, d) for p, d in zip(packs, draws)])
         loss = parts = grads = None
         for packed, d in zip(packs, draws):
             loss_m, parts_m, grads_m = self._grads(state, packed, d, scales)
             if grads is None:
                 loss, parts, grads = loss_m, parts_m, grads_m
                 continue
-            loss = loss + loss_m
-            parts = {k: v + parts_m[k] for k, v in parts.items()}
-            torch._foreach_add_(list(grads.values()), [grads_m[k] for k in grads])
+            with span("transfusion.train.reduce"):
+                loss = loss + loss_m
+                parts = {k: v + parts_m[k] for k, v in parts.items()}
+                torch._foreach_add_(list(grads.values()), [grads_m[k] for k in grads])
             del grads_m  # not held through the next microbatch or the update
         return self._apply(state, grads, loss, parts, sum(int(p.total_tokens) for p in packs))
 
