@@ -1347,12 +1347,40 @@ def counted(mods, fn):
         fn_.launches = 0
         if hasattr(fn_, "launches_by_row"):
             fn_.launches_by_row = dict.fromkeys(fn_.launches_by_row, 0)
-    out = fn()
+    with replayed_launches(mods):
+        out = fn()
     torch.cuda.synchronize()
     counts = {name: fn_.launches for name, fn_ in counters.items()}
     for name, (wrapper, row) in BY_ROW.items():
         counts[name] = counters[wrapper].launches_by_row[row]
     return out, counts
+
+
+@contextlib.contextmanager
+def replayed_launches(mods):
+    """While open, the decode kernel's launch counter counts what the card
+    runs of a text engine's `DecodeGraph`: the step its capture records
+    (recorded, not run) is taken off, and each replay adds it back. Open it
+    inside a `chunk_watch` of `DecodeGraph.chunk`, which counts replays on
+    its own."""
+    cls, decode = mods["engine"].DecodeGraph, mods["counters"]["decode_attn"]
+    capture, chunk = cls.capture, cls.chunk
+
+    def spy_capture(graph):
+        capture(graph)
+        decode.launches -= graph.decode_launches
+
+    def spy_chunk(graph, *args, **kw):
+        replays = graph.replays
+        out = chunk(graph, *args, **kw)
+        decode.launches += (graph.replays - replays) * graph.decode_launches
+        return out
+
+    cls.capture, cls.chunk = spy_capture, spy_chunk
+    try:
+        yield
+    finally:
+        cls.capture, cls.chunk = capture, chunk
 
 
 # kernel name -> the wrapper that `models/layers.py` calls
@@ -1599,12 +1627,16 @@ def forced_agreement(torch, model, items, sampled, text_only=False):
 
 
 @contextlib.contextmanager
-def chunk_watch(torch, mods, owner="sample_batch", attr="_chunk_tick_impl"):
-    """While open, time and count the text chunks (`owner`'s `attr`:
-    sample_batch's, or the text engine's `_decode_impl`): each runs with
-    CUDA's sync debug mode at 'error' (a synchronising call inside a chunk
-    raises), and the host fetches made right after it are counted."""
-    sb, host = mods["sample_batch"], mods[owner]
+def chunk_watch(torch, mods, host=None, attr="_chunk_tick_impl"):
+    """While open, time and count the text chunks (`host`'s `attr`:
+    sample_batch's `_chunk_tick_impl` by default, or the text engine's
+    `DecodeGraph.chunk`, whose replays count the decode launches its capture
+    recorded): each runs with CUDA's sync debug mode at 'error' (a
+    synchronising call inside a chunk raises), and the host fetches made
+    right after it are counted."""
+    sb = mods["sample_batch"]
+    host = sb if host is None else host
+    graph_cls = mods["engine"].DecodeGraph
     decode = mods["counters"]["decode_attn"]
     chunk, fetch = getattr(host, attr), sb._fetch
     stats = dict(chunks=0, ticks=0, fetches_after_chunk=0, chunk_seconds=0.0,
@@ -1613,7 +1645,8 @@ def chunk_watch(torch, mods, owner="sample_batch", attr="_chunk_tick_impl"):
 
     def spy_chunk(*args, **kw):
         t0 = time.perf_counter()
-        before = decode.launches
+        graph = args[0] if isinstance(args[0], graph_cls) else None
+        before = decode.launches, graph.replays if graph is not None else 0
         torch.cuda.set_sync_debug_mode("error")
         try:
             out = chunk(*args, **kw)
@@ -1621,7 +1654,9 @@ def chunk_watch(torch, mods, owner="sample_batch", attr="_chunk_tick_impl"):
             torch.cuda.set_sync_debug_mode("default")
         stats["chunks"] += 1
         stats["ticks"] += kw["k"]
-        stats["decode_launches"] += decode.launches - before
+        stats["decode_launches"] += decode.launches - before[0]
+        if graph is not None:
+            stats["decode_launches"] += (graph.replays - before[1]) * graph.decode_launches
         last["t0"] = t0
         return out
 
@@ -1911,12 +1946,15 @@ def phase_engines(torch, Transfusion, mods):
     for p, b in zip(prompts, budgets):
         eng.submit(p, b)
     t0 = time.perf_counter()
-    with chunk_watch(torch, mods, "engine", "_decode_impl") as stats:
+    graph_steps = eng.stats["graph_steps"]
+    with chunk_watch(torch, mods, mods["engine"].DecodeGraph, "chunk") as stats:
         done, counts = counted(mods, eng.run)
     dt = time.perf_counter() - t0
     require(counts["flash_fwd"] > 0 and counts["decode_attn"] > 0, f"{name}: launches {counts}")
     require(stats["chunks"] > 0 and stats["fetches_after_chunk"] == stats["chunks"],
             f"{name}: chunk fetches {stats}")
+    require(eng.stats["graph_steps"] - graph_steps == stats["ticks"],
+            f"{name}: graph steps {eng.stats['graph_steps'] - graph_steps} of {stats['ticks']}")
     tokens = {r.rid: r.tokens for r in done}
     require(sorted(tokens) == list(range(ENGINE_REQUESTS))
             and all(len(tokens[i]) == budgets[i] for i in tokens), f"{name}: budgets")

@@ -193,7 +193,7 @@ def main() -> int:
 
     from transfusion_tpu_torch.models import engine as engine_mod
 
-    with FirstCall(engine_mod, "_decode_impl", lambda *a, **k: k["k"] >= 8) as text_chunk:
+    with FirstCall(engine_mod.DecodeGraph, "chunk", lambda *a, **k: k["k"] >= 8) as text_chunk:
         profile(torch, "ServingEngine 8 rows, 24 requests (16-900 prompt tokens, 16-256 new)",
                 lambda: serve_queue(eng, list(zip(t_prompts, budgets))))
     mm = MultimodalServingEngine.for_workload(
@@ -204,8 +204,8 @@ def main() -> int:
         profile(torch, "MultimodalServingEngine 4 requests (8 pool rows), 8 requests, 196 + 32 "
                 "tokens each", lambda: serve_queue(mm, [(p, 196 + 32) for p in prompts]))
     per_call = {}
-    for name, cap, fn in (("ServingEngine decode step, 8 rows", text_chunk,
-                           engine_mod._decode_impl),
+    for name, cap, fn in (("ServingEngine decode step (graph replay), 8 rows", text_chunk,
+                           engine_mod.DecodeGraph.chunk),
                           ("MultimodalServingEngine text tick, 8 rows", mm_chunk,
                            sb._chunk_tick_impl)):
         (args, kw) = cap.args

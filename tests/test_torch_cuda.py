@@ -593,10 +593,45 @@ def test_serving_engines_on_card_match_cpu(cuda_device):
                 np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("kv_quantize", [False, True])
+def test_graphed_engine_matches_eager_engine(cuda_device, monkeypatch, kv_quantize):
+    """The text engine replaying its captured decode step against the same
+    engine with its `DecodeGraph` left uncaptured (the step launched
+    eagerly) on the card, same bf16 weights, over
+    `test_serving_engines_on_card_match_cpu`'s five requests, bf16 and int8
+    KV: tokens equal, and every tick's steps replayed from the graph."""
+    from transfusion_tpu_torch.models import engine as engine_mod
+    from transfusion_tpu_torch.models.engine import ServingEngine
+    from transfusion_tpu_torch.training.metrics import MetricsLogger
+
+    gm = Transfusion(device="cuda", seed=1, dtype=torch.bfloat16, **CFG)
+    rng = np.random.default_rng(2)
+    prompts = [[8] + rng.integers(0, 8, 99).tolist(), [8, 3, 4], [8, 5], [8, 6, 1], [8, 2]]
+    budgets = [28, 40, 9, 7, 12]
+    text, logs = [], []
+    for graphed in (True, False):
+        log = MetricsLogger()
+        eng = ServingEngine(gm, max_batch=2, max_seq_len=128, decode_chunk=16,
+                            temperature=0.0, kv_quantize=kv_quantize, metrics=log)
+        for p, b in zip(prompts, budgets):
+            eng.submit(np.asarray(p, np.int32), b)
+        with monkeypatch.context() as m:
+            if not graphed:
+                m.setattr(engine_mod.DecodeGraph, "capture", lambda graph: None)
+            text.append({r.rid: r.tokens for r in eng.run()})
+        logs.append(log.history)
+        assert eng.stats["generated_tokens"] == sum(budgets)
+    assert text[0] == text[1]
+    assert all(row["graph_steps"] == row["chunk_k"] for row in logs[0])
+    assert all(row["graph_steps"] == 0 for row in logs[1])
+
+
 def test_engine_chunks_fetch_to_the_host_once(cuda_device, monkeypatch):
     """Every chunk of both engines runs with no synchronising call (sync
     debug mode 'error') and is read back by one fetch; the text engine's
-    chunk launches the decode kernel once a layer and step."""
+    chunk launches the decode kernel once a layer and step: each step is
+    one replay of its captured step, whose capture recorded one decode
+    launch a layer (the Python counter moves only at capture)."""
     from transfusion_tpu_torch.models import engine as engine_mod
     from transfusion_tpu_torch.models import sample_batch as sb
     from transfusion_tpu_torch.models.engine import ServingEngine
@@ -623,8 +658,21 @@ def test_engine_chunks_fetch_to_the_host_once(cuda_device, monkeypatch):
         log.append(("fetch",))
         return fetch(t)
 
-    monkeypatch.setattr(engine_mod, "_decode_impl",
-                        watched(engine_mod._decode_impl, lambda kw: kw["k"]))
+    def watched_graph(fn):
+        def spy(graph, active, left, gumbel, *, k):
+            before = decode_attn.decode_attention.launches, graph.replays
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(graph, active, left, gumbel, k=k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            log.append(("chunk", k, decode_attn.decode_attention.launches - before[0],
+                        graph.replays - before[1], graph.decode_launches))
+            return out
+        return spy
+
+    monkeypatch.setattr(engine_mod.DecodeGraph, "chunk",
+                        watched_graph(engine_mod.DecodeGraph.chunk))
     monkeypatch.setattr(sb, "_chunk_tick_impl", watched(sb._chunk_tick_impl, lambda kw: kw["k"]))
     monkeypatch.setattr(sb, "_fetch", spy_fetch)
     eng = ServingEngine(gm, max_batch=2, max_seq_len=128, decode_chunk=8, temperature=1.0)
@@ -634,7 +682,8 @@ def test_engine_chunks_fetch_to_the_host_once(cuda_device, monkeypatch):
     assert len(chunks) >= 3
     for i in chunks:
         assert log[i + 1] == ("fetch",)
-        assert log[i][2] == log[i][1] * depth
+        _, k, launched, replays, recorded = log[i]
+        assert launched == 0 and replays == k and recorded == depth
     log.clear()
     mm = MultimodalServingEngine(gm, max_requests=2, max_seq_len=256, text_temperature=1.0,
                                  cfg_scale=3.0, modality_steps=2, text_chunk=8)

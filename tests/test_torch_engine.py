@@ -198,7 +198,7 @@ def test_engine_metrics_schema(model):
     and chunk clocks; admitted, retired and emitted tokens add up to the
     workload, the prompt tokens to the prompts, the prefill positions to
     each admitted prompt's width bucket, and the chunk's dispatch and fetch
-    fit inside its time."""
+    fit inside its time; no step on the CPU replays a graph."""
     log = MetricsLogger()
     eng = ServingEngine(model, max_batch=2, max_seq_len=256, decode_chunk=8, temperature=0.0,
                         metrics=log)
@@ -209,9 +209,11 @@ def test_engine_metrics_schema(model):
     assert len(log.history) >= 2
     want = {"admitted", "retired", "chunk_k", "chunk_seconds", "cost_model_residual_s",
             "emitted_tokens", "active_slots", "queue_depth", "admit_seconds", "prompt_tokens",
-            "prefill_positions", "queued_seconds", "dispatch_seconds", "fetch_seconds"}
+            "prefill_positions", "queued_seconds", "dispatch_seconds", "fetch_seconds",
+            "graph_steps"}
     for row in log.history:
         assert want <= set(row), sorted(want - set(row))
+        assert row["graph_steps"] == 0  # nothing is captured on the CPU
         assert row["prefill_positions"] >= row["prompt_tokens"]
         assert row["admit_seconds"] >= 0 and row["queued_seconds"] >= 0
         assert row["dispatch_seconds"] >= 0 and row["fetch_seconds"] >= 0
@@ -290,10 +292,10 @@ def test_decode_chunk_resets_a_stopped_rows_index(model):
     cache["mask"][0, : cap - 1] = True
     cache["mask"][1, :5] = True
     cache["idx"] = torch.tensor([cap - 1, 5], dtype=torch.int32)
-    cache, last, payload = engine_mod._decode_impl(
-        model, cache, torch.zeros(2, model.vocab_size), torch.tensor([True, False]),
-        torch.tensor([1, 0], dtype=torch.int32), None, k=4, temperature=0.0, min_p=0.0,
-        eos_id=None)
+    last = torch.zeros(2, model.vocab_size)
+    graph = engine_mod.DecodeGraph(model, cache, last, temperature=0.0, min_p=0.0, eos_id=None)
+    payload = graph.chunk(torch.tensor([True, False]), torch.tensor([1, 0], dtype=torch.int32),
+                          None, k=4)
     assert payload.shape == (2, 9)
     assert payload[:, 4:].tolist() == [[1, 0, 0, 0, 0], [0, 0, 0, 0, 0]]
     assert cache["idx"].tolist() == [0, 5]
@@ -315,3 +317,86 @@ def test_admission_clamps_the_width_bucket_to_the_capacity(model):
     eng.submit(np.asarray([SOS, 1], np.int32), 6)
     got = {r.rid: r.tokens for r in eng.run()}
     assert got[0] == solo(model, prompt, 100) and got[1] == solo(model, [SOS, 1], 6)
+
+
+def eager_chunk(model, cache, last, active, left, gumbel, *, k, temperature, min_p, eos_id):
+    """The plain reference of a chunk: k `_decode_step`s on tensors rebound
+    at each step (no static buffer), stacked into the engine's payload
+    [B, 2k + 1]. Returns (cache, last logits, payload)."""
+    text_only = engine_mod._text_ids(model, last.device)
+    toks, emits = [], []
+    for j in range(k):
+        emits.append(active)
+        cache, last, active, left, tok = engine_mod._decode_step(
+            model, cache, last, active, left, None if gumbel is None else gumbel[j], text_only,
+            temperature=temperature, min_p=min_p, eos_id=eos_id)
+        toks.append(tok)
+    payload = torch.cat([torch.stack(toks, 1), torch.stack(emits, 1).long(),
+                         active[:, None].long()], dim=1)
+    return cache, last, payload
+
+
+# (engine options, prompts, budgets, chunk length): the captured step's cases
+STATIC_STEP_CASES = {
+    "greedy": (dict(), [[SOS, 1, 2], [SOS, 3, 4, 5]], [20, 20], 8),
+    "sampled": (dict(temperature=1.0, min_p=0.1), [[SOS, 1, 2], [SOS, 3, 4, 5]], [20, 20], 8),
+    "eos": (dict(eos_id="first greedy token"), [[SOS, 1, 2], [SOS, 6]], [20, 20], 8),
+    "budget": (dict(), [[SOS, 1, 2], [SOS, 3], [SOS, 7, 7]], [3, 5, 20], 8),
+    "full row": (dict(), [[SOS] + [3] * 99, [SOS, 2]], [28, 40], 32),
+    "int8": (dict(kv_quantize=True), [[SOS, 1, 2], [SOS, 3, 4, 5]], [6, 20], 8),
+}
+
+
+@pytest.mark.parametrize("case", list(STATIC_STEP_CASES))
+def test_static_step_matches_the_eager_chunk(params, case):
+    """`DecodeGraph`'s step (the body a CUDA device captures), run eagerly
+    on its static buffers k times a chunk for two chunks, against
+    `eager_chunk` on a copy of the same pool: the payloads are equal token
+    for token, and the static buffers hold the eager chunk's cache, last
+    logits and active flags."""
+    opts, prompts, budgets, k = STATIC_STEP_CASES[case]
+    tm = port(params, "flash" if opts.get("kv_quantize") else "dense")
+    eng = ServingEngine(tm, max_batch=len(prompts), max_seq_len=128,
+                        **{o: v for o, v in opts.items() if o != "eos_id"})
+    for p, b in zip(prompts, budgets):
+        eng.submit(np.asarray(p, np.int32), b)
+    eng._admit_pending()
+    eos_id = None
+    if "eos_id" in opts:  # row 0 stops on EOS at its first step
+        masked = torch.where(engine_mod._text_ids(tm, "cpu"), eng.last_logits, float("-inf"))
+        eos_id = int(masked[0].argmax())
+    kw = dict(temperature=eng.temperature, min_p=eng.min_p, eos_id=eos_id)
+    cache = {key: t.clone() for key, t in eng.cache.items()}
+    last = eng.last_logits.clone()
+    graph = engine_mod.DecodeGraph(tm, eng.cache, eng.last_logits, **kw)
+    active = torch.ones(len(prompts), dtype=torch.bool)
+    left = torch.tensor(budgets, dtype=torch.int32)
+    gen = torch.Generator().manual_seed(5)
+    emitted, payloads = 0, []
+    for _ in range(2):
+        gumbel = None
+        if eng.temperature > 0:
+            gumbel = -torch.log(-torch.log(torch.rand(k, len(prompts), tm.vocab_size,
+                                                      generator=gen)))
+        cache, last, want = eager_chunk(tm, cache, last, active, left, gumbel, k=k, **kw)
+        got = graph.chunk(active, left, gumbel, k=k)
+        assert torch.equal(got, want)
+        payloads.append(want)
+        for key in cache:
+            assert torch.equal(graph.cache[key], cache[key]), key
+        assert torch.equal(graph.last, last)
+        assert torch.equal(graph.active, want[:, -1].bool())
+        emits = want[:, k : 2 * k].sum(1)
+        emitted += int(emits.sum())
+        left = left - emits.to(torch.int32)
+        active = want[:, -1].bool()
+    assert graph.graph is None and graph.replays == 0
+    if case == "eos":
+        first = payloads[0]
+        assert first[0, k] == 1 and first[0, k + 1 :].sum() == 0 and first[1, k + 1] == 1
+    elif case == "full row":  # the row fills its 128 slots, its index returns to 0 and the
+        # inert steps after it write slot 0, masked invalid
+        assert emitted == 28 + 40 and cache["idx"][0] == 0
+        assert cache["mask"][0, 1:].all() and not cache["mask"][0, 0]
+    elif case != "sampled":
+        assert emitted == sum(min(b, 2 * k) for b in budgets)

@@ -13,12 +13,17 @@ never waits for the longest row of a static batch (`generate_text_batch`).
     `TransfusionCore.text_forward(prefill=True)` (the flash kernel) into a
     side cache, whose K/V, scales, mask, idx and last logits are then copied
     into the pool at the group's rows (`index_copy_` on the row dimension).
-  * Decode: every row advances together in chunks of k steps (`_decode_impl`,
-    the decode kernel), a Python loop on device tensors: a row stops inside
+  * Decode: every row advances together in chunks of k steps (`_decode_step`,
+    the decode kernel, on the static buffers of a `DecodeGraph` over the
+    pool): a row stops inside
     the chunk on its budget or on EOS; inert rows keep their index pinned and
     their fresh slot masked invalid. The chunk comes back as one
     [B, 2k + 1] payload (tokens, emit mask, final active flag): one host
-    fetch a chunk, and nothing inside the chunk reads the device.
+    fetch a chunk, and nothing inside the chunk reads the device. On a CUDA
+    device the first chunk on a pool captures the step into a CUDA graph
+    and every chunk replays it once a step, so the card paces decoding, not
+    the host launching each of the step's kernels from Python; elsewhere
+    the same step runs eagerly.
   * Chunk lengths come from a dispatch-cost model (`choose_chunk`) that
     `warmup()` fits on the running device: on the card the fitted `rtt` is
     the fixed host cost of a chunk (launch, fetch, bookkeeping), `step` one
@@ -26,9 +31,10 @@ never waits for the longest row of a static batch (`generate_text_batch`).
   * Observability: `metrics=` takes one row a tick (`step`), and under a
     profiler a tick shows as the span `transfusion.engine.tick` holding
     `.admit` (one `.prefill` a width group, its args the width and rows),
-    `.plan` (the chunk length), `.decode` (the chunk's draws and launches),
-    `.fetch` (the host blocked on the chunk's payload) and `.retire`
-    (`training.metrics.span`).
+    `.plan` (the chunk length), `.decode` (the chunk's draws and launches, or
+    graph replays), `.fetch` (the host blocked on the chunk's payload) and
+    `.retire` (`training.metrics.span`). A tick row's `graph_steps` counts
+    the chunk's steps replayed from a graph.
 
 Where the port differs from the JAX engine, and why:
 
@@ -52,7 +58,10 @@ Where the port differs from the JAX engine, and why:
   * `warmup()` has nothing to compile in eager PyTorch; it times the chunk
     ladder (every power of two k <= `decode_chunk`, twice each: 2 x (2 *
     decode_chunk - 1) inert decode steps, 1022 at the default 256) and the
-    cap slope (2 x 64 more steps on a half-capacity scratch pool).
+    cap slope (2 x 64 more steps on a half-capacity scratch pool, which
+    captures a graph of its own, dropped after), on the path the chunks
+    take: on a CUDA device the replayed graph, captured by the first chunk
+    if none has run yet.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from transfusion_tpu_torch.models import sample_batch as _sb
 from transfusion_tpu_torch.models import serving
 from transfusion_tpu_torch.models.serving import choose_chunk
 from transfusion_tpu_torch.models.transformer import cache_mark_valid
+from transfusion_tpu_torch.ops.decode_attn import decode_attention
 from transfusion_tpu_torch.training.metrics import span
 
 logger = logging.getLogger(__name__)
@@ -119,41 +129,121 @@ def _fit_cost_model(engine):
                 engine._rtt_est, engine._step_est)
 
 
-def _decode_impl(model, cache, last, active, left, gumbel, *, k, temperature, min_p, eos_id):
-    """k decode steps over the pool with per-row stopping, all on the
-    device. active Bool[B], left Int[B] the rows' remaining budgets, gumbel
-    Float[k, B, vocab] or None at temperature 0. At each step every row
-    samples from its last logits (text ids only) and streams that token;
-    an active row emits it, spends one of its budget and stops on the budget
-    or on EOS, and on the step it stops its index returns to 0 (see the
-    module docstring). Inactive rows write their slot at the pinned index,
-    masked invalid. Returns (cache, last logits, payload Int64[B, 2k + 1]:
-    tokens, emit mask, final active flag)."""
-    dev = last.device
-    text_only = torch.arange(model.vocab_size, device=dev)[None] < model.num_text_tokens
-    zero = torch.zeros_like(cache["idx"])
-    toks_out, emits_out = [], []
-    for j in range(k):
-        masked = torch.where(text_only, last, float("-inf"))
-        tok = _sb._pick_impl(model, masked, None if gumbel is None else gumbel[j],
-                             temperature=temperature, min_p=min_p)
-        old_idx = cache["idx"]
-        cache = cache_mark_valid(cache, active[:, None])
-        logits, cache = model.core.text_forward(tok[:, None], cache, old_idx[:, None].long())
-        last = torch.where(active[:, None], logits[:, -1].float(), last)
-        left = left - active.to(left.dtype)
-        stop = left <= 0
-        if eos_id is not None:
-            stop = stop | (tok == eos_id)
-        nxt = active & ~stop
-        idx = torch.where(nxt, cache["idx"], torch.where(active, zero, old_idx))
-        cache = {**cache, "idx": idx}
-        toks_out.append(tok)
-        emits_out.append(active)
-        active = nxt
-    payload = torch.cat([torch.stack(toks_out, 1), torch.stack(emits_out, 1).long(),
-                         active[:, None].long()], dim=1)
-    return cache, last, payload
+def _text_ids(model, device):
+    """Bool[1, vocab]: the ids a decode step may sample (text tokens)."""
+    return torch.arange(model.vocab_size, device=device)[None] < model.num_text_tokens
+
+
+def _decode_step(model, cache, last, active, left, gumbel, text_only, *, temperature, min_p,
+                 eos_id):
+    """One decode step over the pool: every row samples from its last
+    logits (text ids only; gumbel Float[B, vocab], or None at temperature
+    0) and streams that token; an active row emits it, spends one of its
+    budget and stops on the budget or on EOS, and on the step it stops its
+    index returns to 0 (see the module docstring). Inactive rows write
+    their slot at the pinned index, masked invalid. Returns (cache, last
+    logits, active after the step, left, the step's tokens)."""
+    masked = torch.where(text_only, last, float("-inf"))
+    tok = _sb._pick_impl(model, masked, gumbel, temperature=temperature, min_p=min_p)
+    old_idx = cache["idx"]
+    cache = cache_mark_valid(cache, active[:, None])
+    logits, cache = model.core.text_forward(tok[:, None], cache, old_idx[:, None].long())
+    last = torch.where(active[:, None], logits[:, -1].float(), last)
+    left = left - active.to(left.dtype)
+    stop = left <= 0
+    if eos_id is not None:
+        stop = stop | (tok == eos_id)
+    nxt = active & ~stop
+    idx = torch.where(nxt, cache["idx"], torch.where(active, 0, old_idx))
+    return {**cache, "idx": idx}, last, nxt, left, tok
+
+
+class DecodeGraph:
+    """One decode step (`_decode_step`) over a pool, on static buffers: the
+    pool's own cache tensors and last logits, which it updates in place,
+    and buffers of its own for the rows' active flags, budgets, the step's
+    gumbel row (at temperature > 0), token and emit flag. What the
+    functional step rebinds (the mask `cache_mark_valid` clones, idx, last,
+    active, left) is copied back into its buffer, so the next step reads
+    it, and `_admit_group`'s `index_copy_` into the pool reaches the step.
+
+    `capture()` records the step into a `torch.cuda.CUDAGraph`; `chunk()`
+    then replays it once a step, so a step costs the host one graph launch
+    and two small copies, where the eager step launches every kernel of the
+    model from Python. Uncaptured (off a CUDA device), `chunk()` runs the
+    same step eagerly."""
+
+    def __init__(self, model, cache, last, *, temperature, min_p, eos_id):
+        b, dev = last.shape[0], last.device
+        self.model, self.cache, self.last = model, cache, last
+        self.active = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.left = torch.zeros(b, dtype=torch.int32, device=dev)
+        self.gumbel = torch.zeros_like(last) if temperature > 0.0 else None
+        self.tok = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.emit = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.text_only = _text_ids(model, dev)
+        self.opts = dict(temperature=temperature, min_p=min_p, eos_id=eos_id)
+        self.graph = None
+        self.decode_launches = 0  # decode kernel launches the capture recorded
+        self.replays = 0
+
+    def step(self):
+        """One step from the static buffers back into them."""
+        self.emit.copy_(self.active)
+        cache, last, active, left, tok = _decode_step(
+            self.model, self.cache, self.last, self.active, self.left, self.gumbel,
+            self.text_only, **self.opts)
+        if "mask" in self.cache:
+            self.cache["mask"].copy_(cache["mask"])
+        self.cache["idx"].copy_(cache["idx"])
+        self.last.copy_(last)
+        self.active.copy_(active)
+        self.left.copy_(left)
+        self.tok.copy_(tok)
+
+    def capture(self):
+        """Record `step` into a CUDA graph. Two inert steps (no row active)
+        run first on a side stream, as capture asks; an inert step changes
+        nothing a later step reads (its writes land at pinned indices,
+        masked invalid), so the pool may hold live rows."""
+        dev = self.last.device
+        self.active.zero_()
+        self.left.zero_()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = decode_attention.launches
+        with torch.cuda.graph(graph):
+            self.step()
+        self.decode_launches = decode_attention.launches - before
+        self.graph = graph
+
+    def chunk(self, active, left, gumbel, *, k):
+        """k steps with per-row stopping, all on the device, from the rows'
+        active flags Bool[B] and remaining budgets Int[B] (gumbel Float[k, B,
+        vocab], or None at temperature 0), replayed from the graph once
+        captured. Returns the payload Int64[B, 2k + 1] on the device: tokens,
+        emit mask, final active flag."""
+        self.active.copy_(active)
+        self.left.copy_(left)
+        payload = torch.empty((self.tok.shape[0], 2 * k + 1), dtype=torch.int64,
+                              device=self.tok.device)
+        for j in range(k):
+            if gumbel is not None:
+                self.gumbel.copy_(gumbel[j])
+            if self.graph is None:
+                self.step()
+            else:
+                self.graph.replay()
+                self.replays += 1
+            payload[:, j].copy_(self.tok)
+            payload[:, k + j].copy_(self.emit)
+        payload[:, 2 * k].copy_(self.active)
+        return payload
 
 
 class ServingEngine:
@@ -192,7 +282,7 @@ class ServingEngine:
         self.active = np.zeros(self.max_batch, bool)
         self._next_rid = 0
         self.stats = {"generated_tokens": 0, "decode_chunks": 0, "admitted": 0,
-                      "decode_time_s": 0.0}
+                      "decode_time_s": 0.0, "graph_steps": 0}
         # the dispatch-cost model: per chunk length, (k, seconds) samples;
         # the first of each length is excluded (the length's first run)
         self._chunk_samples: dict = {}
@@ -203,6 +293,7 @@ class ServingEngine:
         self._cost_frozen = False  # warmup() freezes the fit
         self.metrics = metrics
         self._tick = 0
+        self._graph = self._decode_graph(self.cache, self.last_logits)
 
     @classmethod
     def for_workload(cls, model, prompts, budgets, *, max_batch, **kw):
@@ -236,11 +327,19 @@ class ServingEngine:
         self.cache["idx"].index_copy_(0, slots, lengths.to(torch.int32))
         self.last_logits.index_copy_(0, slots, last)
 
-    def _run_chunk(self, cache, last, active, left, keys, k):
-        """One chunk: the draws (at temperature > 0), the k steps and the
-        payload's one fetch. keys: (rid, count) per row, None for inert rows.
-        Returns (cache, last, payload numpy, the host time the fetch
+    def _decode_graph(self, cache, last):
+        """The `DecodeGraph` over a pool and its last logits (its static
+        buffers from then on); the first chunk on a CUDA device captures it."""
+        return DecodeGraph(self.model, cache, last, temperature=self.temperature,
+                           min_p=self.min_p, eos_id=self.eos_id)
+
+    def _run_chunk(self, graph, active, left, keys, k):
+        """One chunk on `graph`'s pool: the draws (at temperature > 0), the k
+        steps and the payload's one fetch. keys: (rid, count) per row, None
+        for inert rows. Returns (payload numpy, the host time the fetch
         began)."""
+        if graph.graph is None and self.device.type == "cuda":
+            graph.capture()
         with span("transfusion.engine.decode"):
             gumbel = None
             if self.temperature > 0.0:
@@ -251,13 +350,13 @@ class ServingEngine:
                 ).view(k, len(keys), -1)
             act = torch.as_tensor(active, device=self.device)
             left = torch.as_tensor(left, dtype=torch.int32, device=self.device)
-            cache, last, payload = _decode_impl(
-                self.model, cache, last, act, left, gumbel, k=k, temperature=self.temperature,
-                min_p=self.min_p, eos_id=self.eos_id)
+            replays = graph.replays
+            payload = graph.chunk(act, left, gumbel, k=k)
+            self.stats["graph_steps"] += graph.replays - replays
         t_fetch = time.perf_counter()
         with span("transfusion.engine.fetch"):
             payload = _sb._fetch(payload)
-        return cache, last, payload, t_fetch
+        return payload, t_fetch
 
     # ------------------------------------------------------------------
     # host loop
@@ -345,8 +444,7 @@ class ServingEngine:
         while k <= self.decode_chunk:
             for first in (True, False):
                 t0 = time.perf_counter()
-                self.cache, self.last_logits, _, _ = self._run_chunk(
-                    self.cache, self.last_logits, inert, zeros, keys, k)
+                self._run_chunk(self._graph, inert, zeros, keys, k)
                 if not first:
                     self._chunk_samples.setdefault(k, []).extend(
                         [0.0, time.perf_counter() - t0])
@@ -355,13 +453,12 @@ class ServingEngine:
 
         if fit_cap_slope and self.cap >= 256:
             half = self.cap // 2
-            scratch, scratch_logits = self._pool(half), torch.zeros_like(self.last_logits)
+            scratch = self._decode_graph(self._pool(half), torch.zeros_like(self.last_logits))
             k_ref = 1 << (min(self.decode_chunk, 64) - 1).bit_length()
             t_half = None
             for first in (True, False):
                 t0 = time.perf_counter()
-                scratch, scratch_logits, _, _ = self._run_chunk(
-                    scratch, scratch_logits, inert, zeros, keys, k_ref)
+                self._run_chunk(scratch, inert, zeros, keys, k_ref)
                 if not first:
                     t_half = time.perf_counter() - t0
             step_half = max((t_half - self._rtt_est) / k_ref, 1e-6)
@@ -385,6 +482,7 @@ class ServingEngine:
         chunk for every active row. Returns the requests that finished."""
         with span("transfusion.engine.tick"):
             admitted_before = self.stats["admitted"]
+            graph_steps_before = self.stats["graph_steps"]
             t_admit = time.perf_counter()
             with span("transfusion.engine.admit"):
                 prompt_tokens, positions, queued_s = self._admit_pending()
@@ -404,8 +502,7 @@ class ServingEngine:
                     budget_left[s] = r.max_new_tokens - len(r.tokens)
                     keys[s] = (r.rid, len(r.tokens))
             t0 = time.perf_counter()
-            self.cache, self.last_logits, payload, t_fetch = self._run_chunk(
-                self.cache, self.last_logits, self.active, budget_left, keys, k)
+            payload, t_fetch = self._run_chunk(self._graph, self.active, budget_left, keys, k)
             t_fetched = time.perf_counter()
             toks = payload[:, :k]
             emitted = payload[:, k : 2 * k].astype(bool)
@@ -452,6 +549,7 @@ class ServingEngine:
                     "queued_seconds": queued_s,
                     "dispatch_seconds": t_fetch - t0,
                     "fetch_seconds": t_fetched - t_fetch,
+                    "graph_steps": self.stats["graph_steps"] - graph_steps_before,
                 })
             return finished
 
