@@ -1,6 +1,7 @@
-"""What every run of the benchmark shares: the files of a cell, the checks
-on the device and on the modules loaded, the device trace's reduction, the
-per-layer metric readers and the result line."""
+"""What every run of the benchmark shares: the files of a cell (with its
+architecture and runner, found by name), the checks on the device and on
+the modules loaded, the device trace's reduction, the per-layer metric
+readers and the result line."""
 
 from __future__ import annotations
 
@@ -38,27 +39,66 @@ def set_cache_env():
     os.environ.setdefault("CUDA_CACHE_PATH", str(CACHE_DIR / "cuda"))
 
 
-def load_json(*parts) -> dict:
-    with open(ROOT.joinpath(*parts)) as f:
+# what an architecture module (architectures/<name>.py) gives the harness
+HOOKS = ("check_config", "spec", "fill_value", "build_model", "load_weights",
+         "unserved_leaves", "reference", "forward_flops", "serve_flops", "attention_pair",
+         "flash_position_bytes", "cache_slot_bytes")
+# the runner of a traffic kind whose file names none
+KIND_RUNNERS = {"train_packed": "train", "serve_open_loop": "serve"}
+
+
+def load_json(*parts, root: Path = ROOT) -> dict:
+    with open(Path(root).joinpath(*parts)) as f:
         return json.load(f)
 
 
-def load_cell(name: str) -> tuple[dict, dict, dict]:
-    """(cell, configuration, traffic) of the cell `name`, from
-    cells/<name>.json, configs/<config>.json and traffic/<traffic>.json."""
-    cell = load_json("cells", f"{name}.json")
-    return cell, load_json("configs", f"{cell['config']}.json"), load_json(
-        "traffic", f"{cell['traffic']}.json")
+def load_cell(name: str, root: Path = ROOT) -> tuple:
+    """(cell, configuration, traffic, architecture, runner) of the cell
+    `name`, from cells/<name>.json, configs/<config>.json,
+    traffic/<traffic>.json and the modules `architecture` and `runner`
+    find, all under `root`."""
+    cell = load_json("cells", f"{name}.json", root=root)
+    cfg = load_json("configs", f"{cell['config']}.json", root=root)
+    traffic = load_json("traffic", f"{cell['traffic']}.json", root=root)
+    return cell, cfg, traffic, architecture(cfg, root), runner(traffic, root)
 
 
-def load_reader(metric: str):
-    """The `read(ctx)` of layer_metrics/<metric>.py (loaded by path: metric
-    names hold dots)."""
-    path = ROOT / "layer_metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", path)
+def architecture(cfg: dict, root: Path = ROOT):
+    """The module `root`/architectures/<cfg's "architecture", default
+    "transfusion">.py, which defines every name of HOOKS."""
+    name = cfg.get("architecture", "transfusion")
+    arch = _load_module(Path(root) / "architectures" / f"{name}.py", "architecture")
+    missing = [h for h in HOOKS if not hasattr(arch, h)]
+    if missing:
+        raise SystemExit(f"portbench: the architecture {arch.__file__} lacks {missing}")
+    return arch
+
+
+def runner(traffic: dict, root: Path = ROOT):
+    """The module `root`/runners/<traffic's "runner", default by its
+    "kind">.py, whose `run` drives a cell of that traffic."""
+    name = traffic.get("runner", KIND_RUNNERS.get(traffic.get("kind")))
+    if name is None:
+        raise SystemExit(f"portbench: the traffic kind {traffic.get('kind')!r} has no runner: "
+                         f"name one as \"runner\": \"<module>\" ({Path(root) / 'runners'}"
+                         f"/<module>.py)")
+    return _load_module(Path(root) / "runners" / f"{name}.py", "runner")
+
+
+def _load_module(path: Path, what: str):
+    """The module at `path` (loaded by path: names may hold dots), or exit
+    naming the file looked for."""
+    if not path.is_file():
+        raise SystemExit(f"portbench: no {what} {path.stem!r}: {path} not found")
+    spec = importlib.util.spec_from_file_location(f"portbench_{what}_{path.stem}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_reader(metric: str):
+    """The `read(ctx)` of layer_metrics/<metric>.py."""
+    return _load_module(ROOT / "layer_metrics" / f"{metric}.py", "metric")
 
 
 def peaks(kind: str) -> dict:

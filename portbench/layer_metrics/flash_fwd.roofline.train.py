@@ -5,9 +5,10 @@ Kernel time: the profiled steps' kernels of `csrc/flash_fwd.cu`
 (`flash_fwd_tc`, `flash_fwd_kernel`), which the entry points
 `ops/flash_attn.py` (`flash_attention`) and `ops/flash_attn_nhd.py`
 (`flash_attention_nhd`) launch. Work, from the traffic: every layer's
-q k^T and p v over the rows' visible pairs (4 x heads x head_dim FLOPs a
-pair), and q, k, v and o read or written once in bf16 and the float32
-log-sum-exp; twice under remat, whose backward runs the forward again.
+q k^T and p v over the rows' visible pairs (the architecture's
+`attention_pair` widths), and q, k, v and o read or written once and the
+float32 log-sum-exp (its `flash_position_bytes`); twice under remat, whose
+backward runs the forward again.
 """
 
 from portbench import work
@@ -15,16 +16,14 @@ from portbench import work
 KERNELS = r"\bflash_fwd_(tc|kernel)\b"
 
 
-def flops_and_bytes(cfg, step_work, calls: int) -> tuple[float, float]:
-    inner = cfg["num_attention_heads"] * cfg["head_dim"]
-    depth = cfg["num_hidden_layers"]
-    flops = work.attention_forward_flops(cfg, step_work["pairs"])
-    nbytes = depth * step_work["positions"] * (4 * inner * 2 + cfg["num_attention_heads"] * 4)
+def flops_and_bytes(arch, cfg, step_work, calls: int) -> tuple[float, float]:
+    flops = work.attention_flops(arch.attention_pair(cfg), step_work["pairs"])
+    nbytes = step_work["positions"] * sum(arch.flash_position_bytes(cfg).values())
     return calls * flops, calls * nbytes
 
 
 def read(ctx):
     seconds = work.kernel_seconds(ctx, KERNELS)
     calls = 2 if ctx.get("remat") else 1
-    fb = [flops_and_bytes(ctx["cfg"], w, calls) for w in ctx["traced_work"]]
+    fb = [flops_and_bytes(ctx["arch"], ctx["cfg"], w, calls) for w in ctx["traced_work"]]
     return work.roofline_share(ctx, sum(f for f, _ in fb), sum(b for _, b in fb), seconds)

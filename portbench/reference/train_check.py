@@ -1,7 +1,8 @@
-"""The training cells' check: the plain float32 reference follows the
-program's first three steps on the same weights, rows and draws, with the
-update the configuration states (clip by global norm, then Adam), and the
-program's readings are held against it.
+"""The training cells' check: the plain float32 reference (the
+architecture's `reference.joint_loss`) follows the program's first three
+steps on the same weights, rows and draws, with the update the
+configuration states (clip by global norm, then Adam), and the program's
+readings are held against it.
 
 The numbers compared, each with a limit of its own (the cell's `limits`):
 
@@ -26,7 +27,7 @@ import statistics
 import torch
 
 from portbench import weights
-from portbench.reference import model as ref
+from portbench.reference.model import strict_fp32
 from portbench.reference.packing import pack
 
 ADAM = {"b1": 0.9, "b2": 0.999, "eps": 1e-8}
@@ -43,13 +44,13 @@ def _merge_draws(draws: list, m: int) -> dict:
             "noise": torch.cat([d["noise"] for d in draws])}
 
 
-def follow(cfg: dict, seed: int, device, step_rows: list, step_draws: list, n: int,
+def follow(arch, cfg: dict, seed: int, device, step_rows: list, step_draws: list, n: int,
            names: list, lr: float, quant=None, half: bool = False) -> dict:
     """The reference's readings of the steps: {'loss': [...], 'grad':
     {leaf: norm}, 'change': {leaf: norm}}. step_rows[s]: the step's rows
     (samples); step_draws[s]: its microbatches' draws."""
-    ref.strict_fp32()
-    W = weights.make(cfg, seed, device, torch.float32)
+    strict_fp32()
+    W = weights.make(arch, cfg, seed, device, torch.float32)
     init = {k: W[k].clone() for k in names}
     params = {k: W[k].requires_grad_(True) for k in names}
     mu = {k: torch.zeros_like(p) for k, p in params.items()}
@@ -64,7 +65,7 @@ def follow(cfg: dict, seed: int, device, step_rows: list, step_draws: list, n: i
             k_img = int((batch["img_row"] >= 0).sum())
             d = {"times": d["times"][:keep, :batch["spans"].shape[1]],
                  "cfg_uniform": d["cfg_uniform"][:keep], "noise": d["noise"][:k_img]}
-        loss, _, _ = ref.joint_loss(W, cfg, batch, d, quant=quant)
+        loss, _, _ = arch.reference.joint_loss(W, cfg, batch, d, quant=quant)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         out["loss"].append(float(loss.detach()))
         with torch.no_grad():
@@ -107,11 +108,11 @@ def compare(prog: dict, reference: dict, names: list) -> dict:
             "update_gap_median": statistics.median(update)}
 
 
-def check(cfg: dict, cell: dict, traffic: dict, seed: int, device, step_rows: list,
+def check(arch, cfg: dict, cell: dict, traffic: dict, seed: int, device, step_rows: list,
           step_draws: list, program: dict, names: list) -> dict:
     """{number: {'value', 'limit'}} of the program's readings against the
     reference's, with the cell's limits."""
-    reference = follow(cfg, seed, device, step_rows, step_draws, traffic["row_len"] + 1, names,
-                       cell.get("trainer", {}).get("learning_rate", 3e-4))
+    reference = follow(arch, cfg, seed, device, step_rows, step_draws, traffic["row_len"] + 1,
+                       names, cell.get("trainer", {}).get("learning_rate", 3e-4))
     gaps = compare(program, reference, names)
     return {k: {"value": gaps[k], "limit": v} for k, v in cell["limits"].items()}

@@ -3,8 +3,11 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell is `portbench/cells/<cell>.json`; it names its configuration
-(`configs/`) and its traffic (`traffic/`), whose `kind` picks the runner
-(`runners/`). The run sets up, warms up, measures for `--seconds`, checks
+(`configs/`), whose `architecture` (default `transfusion`) names the module
+of `architectures/` that builds the model, makes its weights, holds its
+plain reference and counts its work, and its traffic (`traffic/`), whose
+`runner` (default by its `kind`) names the module of `runners/` that
+drives it. The run sets up, warms up, measures for `--seconds`, checks
 what the timed path produced against the plain reference (`reference/`)
 and prints, as its last line, one JSON object: `correct`, `attempted`,
 `failed`, `metrics` (with --trace 0 the cell's end-to-end metrics, with
@@ -60,24 +63,20 @@ def layer_metrics(entries: list, ctx: dict) -> dict:
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
-             cell_override: dict | None = None,
-             started: float | None = None) -> tuple[dict, dict]:
+             cell_override: dict | None = None, started: float | None = None,
+             root=common.ROOT) -> tuple[dict, dict]:
     """(result line without checks, checks) of one run. `cell_override`
     replaces the cell's files (tests run a tiny configuration on the CPU
-    through it); `started`: when set-up began (`time.perf_counter()`)."""
+    through it); `started`: when set-up began (`time.perf_counter()`);
+    `root`: the directory the cell's files and modules are found under."""
     if cell_override is None:
-        cell, cfg, traffic = common.load_cell(name)
+        cell, cfg, traffic, arch, runner = common.load_cell(name, root)
     else:
         cell, cfg, traffic = (cell_override[k] for k in ("cell", "cfg", "traffic"))
+        arch, runner = common.architecture(cfg, root), common.runner(traffic, root)
     if device == "cuda":
         common.require_devices(cell["chips"])
-    if traffic["kind"] == "train_packed":
-        from portbench.runners import train as runner
-    elif traffic["kind"] == "serve_open_loop":
-        from portbench.runners import serve as runner
-    else:
-        raise SystemExit(f"portbench: unknown traffic kind {traffic['kind']!r}")
-    raw, checks = runner.run(cell, cfg, traffic, seed, seconds, trace, device=device,
+    raw, checks = runner.run(arch, cell, cfg, traffic, seed, seconds, trace, device=device,
                              started=started)
     e2e, per_layer = cell_metrics(name) if cell_override is None else ([], [])
     result = {"correct": all(c["value"] <= c["limit"] for c in checks.values()),

@@ -1,13 +1,13 @@
 """The serving cells (traffic kind `serve_open_loop`).
 
-Set-up builds the port's `ServingEngine` on weights made on the device
-from the seed, runs its `warmup()` and one request of each prefill width
-the traffic's prompts take, and starts the arrivals `ramp_s` seconds
-before the window, so that the window opens on a loaded engine. One host
-thread drives the engine: it submits each request when it falls due and
-otherwise calls `engine.step()` (admission and prefill of the queued
-requests, then one decode chunk); when nothing is running it sleeps until
-the next arrival. Arrivals go on after the window until every request due
+Set-up builds the port's `ServingEngine` over the architecture's model,
+on weights made on the device from the seed, runs its `warmup()` and one
+request of each prefill width the traffic's prompts take, and starts the
+arrivals `ramp_s` seconds before the window, so that the window opens on
+a loaded engine. One host thread drives the engine: it submits each
+request when it falls due and otherwise calls `engine.step()` (admission
+and prefill of the queued requests, then one decode chunk); when nothing
+is running it sleeps until the next arrival. Arrivals go on after the window until every request due
 in it has finished, or `drain_s` seconds have passed (then the rest count
 as failed).
 
@@ -22,6 +22,8 @@ After the run the program is freed, and the plain reference
 With `trace` a few seconds in the middle of the window run under the
 profiler (a synchronise at each end); the host-clock metrics come from
 the window's other ticks.
+
+`readings` gives `control.py` the numbers that set the cell's limit.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ from portbench.common import (breakdown, device_info, percentile, profiled, span
 from portbench.generators.serve_open_loop import requests as make_requests
 from portbench.generators.train_packed import rng_for
 from portbench.reference import serve_check
-from portbench.runners.train import build_model
 
 TRACE_S = 4.0
 WINDOW = 1  # the stretch of the traffic that is the window: after the ramp
@@ -160,27 +161,28 @@ def summarize(rec: dict, w0: float, w1: float) -> dict:
             "late_max_s": max(rec["late"]) if rec["late"] else 0.0}
 
 
-def build_engine(cell: dict, cfg: dict, seed: int, device):
+def build_engine(arch, cell: dict, cfg: dict, seed: int, device):
     from transfusion_tpu_torch.models.engine import ServingEngine
 
-    model = build_model(cfg, cell, device)
-    W = weights.make(cfg, seed, device, getattr(torch, cfg["dtype"]))
-    weights.load_into(model.core, W)
+    model = arch.build_model(cfg, cell, device)
+    W = weights.make(arch, cfg, seed, device, getattr(torch, cfg["dtype"]))
+    arch.load_weights(model, W)
     del W
     return ServingEngine(model, **cell["engine"], metrics=TickRows())
 
 
-def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
+def run(arch, cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         device: str = "cuda", check: bool = True, rate: float | None = None, after=None,
         started: float | None = None):
-    """One run of a serving cell: (result without checks, checks).
+    """One run of a serving cell of the architecture `arch`: (result
+    without checks, checks).
     `after(sample)`, when given, is called with the checked sample once
     the program is freed (the control's readings). `started`: the
     `time.perf_counter()` at which set-up began (default: now)."""
     started = time.perf_counter() if started is None else started
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    engine = build_engine(cell, cfg, seed, device)
+    engine = build_engine(arch, cell, cfg, seed, device)
     ramp, drain = traffic["ramp_s"], traffic["drain_s"]
     reqs = make_requests(traffic, seed, [ramp, seconds, drain], cfg["num_text_tokens"], rate)
     warm(engine, cfg, reqs)  # first, so that lazy first calls stay out of warmup's timings
@@ -203,7 +205,7 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
 
     result = {"attempted": stats["due"], "failed": stats["due"] - stats["done"]}
     if trace:
-        result["layer_ctx"] = _trace_ctx(rec, w0, w1, cfg, cell, traffic, peak)
+        result["layer_ctx"] = _trace_ctx(rec, w0, w1, arch, cfg, cell, traffic, peak)
     else:
         result["metrics"] = {
             "serve_tokens_per_s": {"value": stats["serve_tokens_per_s"], "unit": "tokens/s"},
@@ -224,7 +226,7 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
     if after is not None:
         after(sample)
     if check:
-        gap = serve_check.widest_gap(cfg, seed, device, sample)
+        gap = serve_check.widest_gap(arch, cfg, seed, device, sample)
         checks = {"logit_gap": {"value": gap, "limit": cell["limits"]["logit_gap"]},
                   "unfinished": {"value": stats["due"] - stats["done"], "limit": 0}}
     return result, checks
@@ -241,7 +243,7 @@ def sample_requests(served: list, seed: int, k: int) -> list:
     return [served[i] for i in [longest, *picked]]
 
 
-def _trace_ctx(rec, w0, w1, cfg, cell, traffic, peak) -> dict:
+def _trace_ctx(rec, w0, w1, arch, cfg, cell, traffic, peak) -> dict:
     dev, host = trace_events(rec["prof"])
     lo = min(s for _, s, _ in host + dev)
     hi = max(e for _, _, e in host + dev)
@@ -252,10 +254,31 @@ def _trace_ctx(rec, w0, w1, cfg, cell, traffic, peak) -> dict:
     # requests of the window that neither waited nor decoded under the profiler
     clear = [(r["first"] - r["due"]) * 1e3 for r in rec["due_in_window"]
              if r["last"] is not None and (r["last"] <= p0 or r["due"] >= p1)]
-    return {"kind": "serve", "cfg": cfg, "traffic": traffic, "cell": cell,
+    return {"kind": "serve", "arch": arch, "cfg": cfg, "traffic": traffic, "cell": cell,
             "ttft_ms_outside": clear,
             "device_ops": dev, "host_ops": host, "trace_lo": lo, "trace_hi": hi,
             "busy_s": union_seconds(dev, lo, hi), "trace_window_s": hi - lo,
             "traced_ticks": inside, "outside_ticks": outside,
             "outside_s": (w1 - w0) - (p1 - p0), "max_batch": cell["engine"]["max_batch"],
             "peak_bytes": peak, "breakdown": breakdown(dev, host, lo, hi)}
+
+
+def readings(arch, cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float,
+             with_control: bool) -> dict:
+    """The readings that set the cell's limit (`control.py`), on the card:
+    a short window at the cell's load, and the same sample as a benchmark
+    run read by the float32 reference against the program's tokens and,
+    with `with_control`, against the control's (the reference in fp8)."""
+    from portbench.reference import quant
+
+    out = {"seed": seed}
+
+    def after(sample):
+        out["served_tokens"] = sum(len(t) for _, t in sample)
+        out["program"] = {"logit_gap": serve_check.widest_gap(arch, cfg, seed, "cuda", sample)}
+        if with_control:
+            out["control"] = {"logit_gap": serve_check.widest_gap(arch, cfg, seed, "cuda",
+                                                                  sample, quant=quant.fp8)}
+
+    run(arch, cell, cfg, traffic, seed, seconds, False, check=False, after=after)
+    return out

@@ -1,12 +1,12 @@
 """The training cells (traffic kind `train_packed`).
 
-Set-up builds one `Trainer` with its model and state, on weights made on
-the device from the seed, and a `PackingLoader` over the seed's rows. It
-drives that trainer through its first three steps, on the loader's
-batches and the benchmark's own draws, reading what the check compares:
-each step's loss, the first gradient as the optimizer got it (Adam's first
-moment after one step, over 1 - b1) and, after the third step, each
-leaf's change. Those steps are also the warm-up: every shape of the cell
+Set-up builds one `Trainer` with its model (the architecture's) and
+state, on weights made on the device from the seed, and a `PackingLoader`
+over the seed's rows. It drives that trainer through its first three
+steps, on the loader's batches and the benchmark's own draws, reading
+what the check compares: each step's loss, the first gradient as the
+optimizer got it (Adam's first moment after one step, over 1 - b1) and,
+after the third step, each leaf's change. Those steps are also the warm-up: every shape of the cell
 has run. The same trainer then runs the window: whole steps, back to back,
 until `seconds` have passed, and one synchronise at the end. Tokens are
 the packed rows' positions.
@@ -18,6 +18,8 @@ draws, made again from the seed.
 With `trace` a few steps in the middle of the window run under the
 profiler (a synchronise at each end); the host-clock metrics come from the
 window's other steps.
+
+`readings` gives `control.py` the numbers that set the cell's limits.
 """
 
 from __future__ import annotations
@@ -36,27 +38,6 @@ from portbench.reference import train_check
 CHECK_STEPS = 3
 B1 = 0.9  # Adam's first-moment decay in the port's default optimizer
 TRACE_STEPS = 2
-
-
-def build_model(cfg: dict, cell: dict, device):
-    """The port's model for the configuration, built on `device` (the
-    constructor then initialises there, not on the host) and loaded with
-    the weights the caller makes."""
-    from transfusion_tpu_torch import Transfusion
-
-    opts = cell.get("model", {})
-    transformer = dict(dim=cfg["hidden_size"], depth=cfg["num_hidden_layers"],
-                       dim_head=cfg["head_dim"], heads=cfg["num_attention_heads"],
-                       ff_expansion_factor=cfg["ff_expansion_factor"],
-                       attn_impl=cfg["attn_impl"], remat=opts.get("remat", False),
-                       remat_policy=opts.get("remat_policy", "full"))
-    dtype = getattr(torch, cfg["dtype"])
-    with torch.device(device):
-        return Transfusion(num_text_tokens=cfg["num_text_tokens"], transformer=transformer,
-                           dim_latent=cfg["dim_latent"],
-                           modality_default_shape=tuple(cfg["latent_shape"]),
-                           ce_chunk_size=opts.get("ce_chunk_size"), dtype=dtype,
-                           device=device)
 
 
 def modality_times(u_count, u_time, num_mods, m: int):
@@ -113,10 +94,11 @@ def program_draws(packed, d: dict):
     return LossDraws(times=times, cfg_uniform=d["cfg_uniform"][:b], noises=noises)
 
 
-def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
+def run(arch, cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         device: str = "cuda", check: bool = True, after=None,
         started: float | None = None) -> tuple[dict, dict]:
-    """One run of a training cell: (result without checks, checks).
+    """One run of a training cell of the architecture `arch`: (result
+    without checks, checks).
     `after(step_rows, step_draws, program, names)`, when given, is called
     once the program is freed (the control's readings). `started`: the
     `time.perf_counter()` at which set-up began (default: now)."""
@@ -130,9 +112,9 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
     rows_per_micro = traffic["rows_per_step"] // M
     n = traffic["row_len"]
 
-    model = build_model(cfg, cell, device)
-    W = weights.make(cfg, seed, device, torch.float32)
-    weights.load_into(model.core, W)
+    model = arch.build_model(cfg, cell, device)
+    W = weights.make(arch, cfg, seed, device, torch.float32)
+    arch.load_weights(model, W)
     names = [k for k, _ in model.core.named_parameters()]
     trainer = Trainer(model, **cell.get("trainer", {}),
                       grad_accumulation=M if M > 1 else None)
@@ -166,7 +148,7 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
             if s == 0:
                 mu = _adam_state(state)["mu"]
                 grad_norms = {k: mu[k].float().norm() / (1.0 - B1) for k in names}
-        init = weights.make(cfg, seed, device, torch.float32, names=set(names))
+        init = weights.make(arch, cfg, seed, device, torch.float32, names=set(names))
         change_norms = {k: (state.params[k] - init[k]).norm() for k in names}
         del init
         sync()
@@ -211,7 +193,7 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
 
     result = {"attempted": steps, "failed": 0}
     if trace:
-        result["layer_ctx"] = _trace_ctx(prof_done, t_prof, window_s, steps, waits, cfg,
+        result["layer_ctx"] = _trace_ctx(prof_done, t_prof, window_s, steps, waits, arch, cfg,
                                          traffic, seed, cell, peak)
     else:
         result["metrics"] = {
@@ -228,8 +210,8 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
     checks = {}
     step_batches = [[dataset[i] for i in step_rows(traffic, s)] for s in range(CHECK_STEPS)]
     if check:
-        checks = train_check.check(cfg, cell, traffic, seed, device, step_batches, kept_draws,
-                                   program, names)
+        checks = train_check.check(arch, cfg, cell, traffic, seed, device, step_batches,
+                                   kept_draws, program, names)
     if after is not None:
         after(step_batches, kept_draws, program, names)
     return result, checks
@@ -242,7 +224,8 @@ def _adam_state(state) -> dict:
     return opt[1] if isinstance(opt, tuple) else opt
 
 
-def _trace_ctx(prof, t_prof, window_s, steps, waits, cfg, traffic, seed, cell, peak) -> dict:
+def _trace_ctx(prof, t_prof, window_s, steps, waits, arch, cfg, traffic, seed, cell,
+               peak) -> dict:
     """What the per-layer readers read of a traced run."""
     dev, host = trace_events(prof)
     lo = min(s for _, s, _ in host + dev)
@@ -259,10 +242,43 @@ def _trace_ctx(prof, t_prof, window_s, steps, waits, cfg, traffic, seed, cell, p
     traced = [step_work(s) for s in range(first, last)]
     window_steps = range(CHECK_STEPS, CHECK_STEPS + steps)
     outside = [step_work(s) for s in window_steps if not first <= s < last]
-    return {"kind": "train", "cfg": cfg, "traffic": traffic, "cell": cell,
+    return {"kind": "train", "arch": arch, "cfg": cfg, "traffic": traffic, "cell": cell,
             "device_ops": dev, "host_ops": host, "trace_lo": lo, "trace_hi": hi,
             "busy_s": busy, "trace_window_s": hi - lo, "traced_work": traced,
             "outside_work": outside, "outside_s": window_s - (t_prof[1] - t_prof[0]),
             "loader_waits_s": waits, "peak_bytes": peak,
             "remat": cell.get("model", {}).get("remat", False),
             "breakdown": breakdown(dev, host, lo, hi)}
+
+
+def readings(arch, cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float,
+             with_control: bool) -> dict:
+    """The readings that set the cell's limits (`control.py`), on the card:
+    the program's numbers against the float32 reference and, with
+    `with_control`, the control's (the reference in fp8 in the program's
+    place), the planted fault of half the batch left out, and the state
+    left unchanged."""
+    from portbench.reference import quant
+
+    out = {"seed": seed}
+
+    def after(step_rows, step_draws, program, names):
+        n, lr = traffic["row_len"] + 1, cell.get("trainer", {}).get("learning_rate", 3e-4)
+        args = (arch, cfg, seed, "cuda", step_rows, step_draws, n, names, lr)
+        ref = train_check.follow(*args)
+        out["program"] = train_check.compare(program, ref, names)
+        out["loss"] = {"program": program["loss"], "reference": ref["loss"]}
+        if with_control:
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["control"] = train_check.compare(train_check.follow(*args, quant=quant.fp8),
+                                                 ref, names)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["half"] = train_check.compare(train_check.follow(*args, half=True), ref, names)
+            out["unchanged"] = train_check.compare(
+                {"loss": ref["loss"], "grad": {k: 0.0 for k in names},
+                 "change": {k: 0.0 for k in names}}, ref, names)
+
+    run(arch, cell, cfg, traffic, seed, seconds, False, check=False, after=after)
+    return out

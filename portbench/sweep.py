@@ -34,7 +34,7 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=2**31 + 101)
     args = p.parse_args(argv)
     common.set_cache_env()
-    cell, cfg, traffic = common.load_cell(args.workload)
+    cell, cfg, traffic, arch, _ = common.load_cell(args.workload)
     common.require_devices(cell["chips"])
 
     import torch
@@ -42,7 +42,7 @@ def main(argv=None):
     from portbench.generators.serve_open_loop import requests as make_requests
     from portbench.runners import serve
 
-    engine = serve.build_engine(cell, cfg, args.seed, "cuda")
+    engine = serve.build_engine(arch, cell, cfg, args.seed, "cuda")
     engine.warmup(fit_cap_slope=False)
     ramp, drain = traffic["ramp_s"], traffic["drain_s"]
     for i, rate in enumerate(float(r) for r in args.rates.split(",")):

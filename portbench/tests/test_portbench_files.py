@@ -1,11 +1,13 @@
 """The benchmark's manifest and files: every cell, configuration, traffic
-mix and per-layer metric that BENCHMARK.json names loads by name, and the
-manifest keeps to the benchmark contract's shapes."""
+mix, architecture, runner and per-layer metric that BENCHMARK.json names
+loads by name, and the manifest keeps to the benchmark contract's
+shapes."""
 
 from __future__ import annotations
 
 import json
 import re
+from pathlib import Path
 
 import pytest
 
@@ -43,17 +45,17 @@ def test_config_file_loads(entry):
     cfg = common.load_json("configs", f"{entry['name']}.json")
     assert cfg["name"] == entry["name"]
     assert cfg["reduced"] == entry["reduced"]
-    assert len(cfg["source"]) <= 200 and "2408.11039" in cfg["source"]
-    assert cfg["hidden_size"] == cfg["num_attention_heads"] * cfg["head_dim"]
+    assert len(cfg["source"]) <= 200
+    common.architecture(cfg).check_config(cfg)
 
 
 @pytest.mark.parametrize("entry", MANIFEST["workloads"], ids=lambda e: e["name"])
 def test_cell_files_load(entry):
-    cell, cfg, traffic = common.load_cell(entry["name"])
+    cell, cfg, traffic, _, runner = common.load_cell(entry["name"])
     assert (cell["config"], cell["traffic"], cell["chips"]) == (
         entry["config"], entry["traffic"], entry["chips"])
     assert cfg["name"] == entry["config"]
-    assert traffic["kind"] in ("train_packed", "serve_open_loop")
+    assert Path(runner.__file__).is_file() and callable(runner.run)
     assert len(entry["why"]) <= 200
     assert cell["limits"] and all(v > 0 for v in cell["limits"].values())
 

@@ -18,6 +18,8 @@ from portbench import common, run
 from portbench.reference import quant, serve_check, train_check
 from portbench.tests import tiny
 
+ARCH = common.architecture(tiny.CFG)
+
 
 @pytest.fixture(autouse=True)
 def _threads():
@@ -110,7 +112,7 @@ def _train_inputs(cell, seed):
 
     from portbench.runners import train
 
-    train.run(cell["cell"], cell["cfg"], cell["traffic"], seed, 0.1, False, device="cpu",
+    train.run(ARCH, cell["cell"], cell["cfg"], cell["traffic"], seed, 0.1, False, device="cpu",
               check=False, after=after)
     return got
 
@@ -121,7 +123,7 @@ def test_control_fails_the_tiny_limits():
     cell = tiny.train_cell()
     seed = 31
     got = _train_inputs(cell, seed)
-    args = (cell["cfg"], seed, "cpu", got["rows"], got["draws"],
+    args = (ARCH, cell["cfg"], seed, "cpu", got["rows"], got["draws"],
             cell["traffic"]["row_len"] + 1, got["names"], 3e-4)
     ref = train_check.follow(*args)
     program = train_check.compare(got["program"], ref, got["names"])
@@ -132,7 +134,7 @@ def test_control_fails_the_tiny_limits():
 
     rng = np.random.default_rng(0)
     sample = [(rng.integers(0, 200, 12), rng.integers(0, 200, 6).tolist()) for _ in range(3)]
-    gap = serve_check.widest_gap(tiny.CFG, seed, "cpu", sample, quant=quant.fp8)
+    gap = serve_check.widest_gap(ARCH, tiny.CFG, seed, "cpu", sample, quant=quant.fp8)
     assert gap > tiny.serve_cell()["cell"]["limits"]["logit_gap"]
 
 
@@ -145,10 +147,8 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["t037-train-4k"])
 def test_control_fails_on_the_card(card, name):
-    from portbench import control
-
-    cell, cfg, traffic = common.load_cell(name)
-    out = control.train_readings(cell, cfg, traffic, 2**31 + 77, 0.5, True)
+    cell, cfg, traffic, arch, runner = common.load_cell(name)
+    out = runner.readings(arch, cell, cfg, traffic, 2**31 + 77, 0.5, True)
     assert all(out["program"][k] <= v for k, v in cell["limits"].items()), out
     assert any(out["control"][k] > v for k, v in cell["limits"].items()), out
     assert any(out["half"][k] > v for k, v in cell["limits"].items()), out

@@ -1,5 +1,5 @@
-"""The yardstick's FLOP and byte counts against hand counts at tiny
-shapes."""
+"""The yardstick's FLOP and byte counts (`work.py` and the architecture's)
+against hand counts at tiny shapes."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ from portbench import common, work
 from portbench.generators.train_packed import image_head
 from portbench.reference.model import allowed_mask
 from portbench.tests import tiny
+
+ARCH = common.architecture(tiny.CFG)
 
 
 def test_visible_pairs_match_the_mask():
@@ -43,17 +45,17 @@ def test_forward_flops_hand_count():
     # inner 4, ff inner int(4 * 1.5 * 2 / 3) = 4
     # block 0: qk 2*4*4 + v 16 + out 16 + gates 8 + ff 2*4*4 + 4*4 = 120
     # block 1: + mix 8 + skip 2*4*4 = 160
-    assert work.block_matmul_params(cfg, 0) == 120
-    assert work.block_matmul_params(cfg, 1) == 160
+    assert ARCH.block_matmul_params(cfg, 0) == 120
+    assert ARCH.block_matmul_params(cfg, 1) == 160
     w = {"positions": 10, "text": 7, "image_rows": 3, "images": 1, "pairs": 20}
     V = 6 + 134
     expect = (2 * 280 * 10 + 2 * V * 4 * 7 + 2 * 2 * 3 * 4 * 3
               + 2 * 1 * (5 * 16 + 2 * 2 * 12 * 16) + 4 * 4 * 20 * 2)
-    assert work.forward_flops(cfg, w) == expect
+    assert ARCH.forward_flops(cfg, w) == expect
 
 
 def _ctx(device_ops):
-    return {"device_ops": device_ops, "cfg": dict(tiny.CFG),
+    return {"device_ops": device_ops, "arch": ARCH, "cfg": dict(tiny.CFG),
             "peaks": {"bf16_flops_per_s": 1e12, "hbm_bytes_per_s": 1e9}}
 
 

@@ -1,6 +1,8 @@
 """The work a cell's traffic asks for, counted from the traffic itself (the
 row layouts and the requests' lengths), never from the program's launches,
-so that it reads the same whatever implements it."""
+so that it reads the same whatever implements it. What the work costs in a
+model's layers is its architecture's (`architectures/<name>.py`); the
+counts here hold for any."""
 
 from __future__ import annotations
 
@@ -43,39 +45,19 @@ def train_step_work(step: dict) -> dict:
             "pairs": pairs, "rows": rows}
 
 
-def block_matmul_params(cfg: dict, i: int) -> int:
-    """The weights that every position of block i multiplies by."""
-    d, h, dh = cfg["hidden_size"], cfg["num_attention_heads"], cfg["head_dim"]
-    inner = h * dh
-    fi = int(d * cfg["ff_expansion_factor"] * 2 / 3)
-    p = 2 * inner * d + inner * d + inner * d + h * d + (h * d if i > 0 else 0)
-    p += 2 * fi * d + fi * d
-    if i >= cfg["num_hidden_layers"] / 2:
-        p += 2 * d * d
-    return p
+def attention_flops(pair: tuple, pairs: int) -> float:
+    """q k^T and p v over `pairs` visible pairs; pair: (q k widths, value
+    widths) of one pair, heads x dim summed over the layers that attend
+    (an architecture's `attention_pair`)."""
+    qk, v = pair
+    return 2.0 * (qk + v) * pairs
 
 
-def forward_flops(cfg: dict, w: dict) -> float:
-    """The forward's model FLOPs (2 a multiply-add) of the work `w`: every
-    position through the blocks, the text head on text positions, the
-    latent projections on image rows, the conditioning of each image, and
-    attention over the visible pairs (q k^T and p v)."""
-    d, V = cfg["hidden_size"], cfg["num_text_tokens"] + 134
-    depth = cfg["num_hidden_layers"]
-    inner = cfg["num_attention_heads"] * cfg["head_dim"]
-    per_pos = sum(block_matmul_params(cfg, i) for i in range(depth))
-    flops = 2.0 * per_pos * w["positions"]
-    flops += 2.0 * V * d * w["text"]
-    flops += 2.0 * 2 * cfg["dim_latent"] * d * w["image_rows"]
-    flops += 2.0 * w["images"] * ((d + 1) * 4 * d + depth * 2 * 12 * d * d)
-    flops += 4.0 * inner * w["pairs"] * depth
-    return flops
-
-
-def attention_forward_flops(cfg: dict, pairs: int) -> float:
-    """q k^T and p v over `pairs` visible pairs, every layer."""
-    inner = cfg["num_attention_heads"] * cfg["head_dim"]
-    return 4.0 * inner * pairs * cfg["num_hidden_layers"]
+def attention_backward_flops(pair: tuple, pairs: int) -> float:
+    """The backward of `attention_flops`: q k^T again, dO v^T, dV = P^T dO,
+    dQ = dS k and dK = dS^T q."""
+    qk, v = pair
+    return 2.0 * (3 * qk + 2 * v) * pairs
 
 
 def serve_work(ticks: list) -> dict:
@@ -94,11 +76,6 @@ def serve_work(ticks: list) -> dict:
             kv += sum(p + e + 1 for e in range(e0, e1))
     return {"prompts": prompts, "prefill_tokens": prefill_tokens,
             "prefill_pairs": prefill_pairs, "decoded": decoded, "decode_kv": kv}
-
-
-def model_step_params(cfg: dict) -> int:
-    """The weights a text position multiplies by through the blocks."""
-    return sum(block_matmul_params(cfg, i) for i in range(cfg["num_hidden_layers"]))
 
 
 def kernel_seconds(ctx: dict, pattern: str):
