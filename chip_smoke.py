@@ -144,6 +144,18 @@ Phases (any failure exits non-zero and prints no result line):
      launch the route's forward and backward kernels once per layer per
      step, and the loss must be finite and fall (the 20 steps reuse one
      set of draws, so the loss compares like with like);
+  5m. latent attention: the flash kernels at q k 192 beside v 128 (kernel
+     table rows 2m and 8m). Moonlight-16B-A3B's block at its published
+     widths (d 2048, 16 heads, MLA, 64 routed experts of which 8 held),
+     2 layers (one dense, one of experts), under remat 'full', through
+     `Trainer.train_step` on 8 rows of 4096 positions with 5 caption-image
+     pairs a row (16 x 16 x 32 latents), the moonlight-train-4k cell's
+     shapes: the warm-up step captures one attention call, held in bf16
+     and, cast, in float32 (forward and backward) against the plain
+     versions in 1024-row blocks, with flex's times in bf16; one b1 h16
+     n8192 causal call (the context) the same way; then LATENT_STEPS steps
+     with the counters set to 0 must launch the forward 2 x depth times a
+     step (remat's recompute) and the backward depth times;
   6. long-context training: the 573M config of `scripts/probe_573m.py`
      (dim 1024, depth 12, 16x64 heads, vocab 50k, per-block remat 'full',
      ce_chunk_size 256, bf16; seeded weights) at full width through
@@ -280,6 +292,18 @@ LONG_CFG = dict(
 )
 LONG_GROUPS, LONG_TAIL, LONG_N = 20, 270, 16385  # packed length before the shift
 LONG_STEPS = 4
+# phase 5m: Moonlight-16B-A3B's published widths (config.json), 2 layers
+LATENT_MOONLIGHT = dict(
+    kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    intermediate_size=11264, moe_intermediate_size=1408, n_routed_experts=64, experts_held=8,
+    num_experts_per_tok=6, n_shared_experts=2, routed_scaling_factor=2.446,
+    first_k_dense_replace=1, rms_norm_eps=1e-5)
+LATENT_CFG = dict(
+    num_text_tokens=512, dim_latent=32, modality_default_shape=(16, 16),
+    transformer=dict(dim=2048, depth=2, heads=16, block="moonlight", moonlight=LATENT_MOONLIGHT,
+                     rope_theta=50000.0, attn_impl="flash", remat=True, remat_policy="full"),
+)
+LATENT_STEPS = 3
 LONG_BLOCK_Q = 1024  # query rows per block of the plain versions at n 16384
 # phase 4's long-prompt serving run on LONG_CFG: 8 ragged prompts, width 8192
 LONG_PROMPTS = [8192, 7150, 6100, 5050, 4000, 2950, 1900, 850]
@@ -376,13 +400,13 @@ def check_flash(torch, mods, a, iters=10, library=False, block_q=None, laser=Fal
     plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, spans, a["softcap"], q_off, kv_off,
                                                      block_q), max(2, iters // 3))
     b, h, nq, d = q.shape
-    nkv = k.shape[2]
+    nkv, dv = k.shape[2], v.shape[-1]
     visible = visible_pairs(torch, mods, b, nq, nkv, spans, q_off, kv_off)
     itemsize = q.element_size()
-    nbytes = 2 * b * h * (nq + nkv) * d * itemsize + (b * h * nq * 4 if lse else 0)
+    nbytes = b * h * (nq + nkv) * (d + dv) * itemsize + (b * h * nq * 4 if lse else 0)
     if spans is not None:
         nbytes += spans.numel() * 4
-    bnd, by = bound_ms(nbytes, 4 * h * d * visible, str(q.dtype).split(".")[-1])
+    bnd, by = bound_ms(nbytes, 2 * h * (d + dv) * visible, str(q.dtype).split(".")[-1])
     sdpa = None  # its dense boolean mask does not fit at long lengths
     if nq * nkv <= 4096 * 4096:
         rows = torch.arange(nq, device="cuda") + q_off
@@ -553,11 +577,12 @@ def flex_ms(torch, q, k, v, spans, softcap, q_off=0, kv_off=0, do=None, iters=10
         # compiled backward with donated buffers refuses
         torch._functorch.config.donated_buffer = False
         flex = torch.compile(flex_attention)
-        fwd = time_ms(lambda: flex(q, k, v, score_mod=score_mod, block_mask=block), iters)
+        mod = score_mod if softcap else None  # softcap 0: no cap (latent attention)
+        fwd = time_ms(lambda: flex(q, k, v, score_mod=mod, block_mask=block), iters)
         bwd = None
         if do is not None:
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-            out = flex(qg, kg, vg, score_mod=score_mod, block_mask=block)
+            out = flex(qg, kg, vg, score_mod=mod, block_mask=block)
             bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
                           iters)
         return fwd, bwd
@@ -577,11 +602,13 @@ def grad_compare(torch, got, want):
     return err, rel, row
 
 
-def bwd_bound(torch, b, h, nq, nkv, d, itemsize, visible, extra_bytes=0):
+def bwd_bound(torch, b, h, nq, nkv, d, itemsize, visible, extra_bytes=0, dv=None):
     """Reads q, o, dO [nq] and k, v [nkv] and lse; writes dq, dk, dv: 5
-    products of 2 d FLOPs per visible pair and head."""
-    nbytes = itemsize * b * h * d * (4 * nq + 4 * nkv) + 4 * b * h * nq + extra_bytes
-    return nbytes, 10 * h * d * visible
+    products per visible pair and head, 3 of 2 d FLOPs (s, dk, dq) and 2
+    of 2 dv (dp, dv; dv the value width, d unless given)."""
+    dv = d if dv is None else dv
+    nbytes = itemsize * b * h * (2 * d + 2 * dv) * (nq + nkv) + 4 * b * h * nq + extra_bytes
+    return nbytes, 2 * h * (3 * d + 2 * dv) * visible
 
 
 def row_cancellation(torch, mods, a, lse, delta, grad, ix):
@@ -677,7 +704,8 @@ def check_flash_bwd(torch, mods, a, iters=5, library=False, block_q=None):
     nkv = k.shape[2]
     vis = visible_pairs(torch, mods, b, nq, nkv, spans, q_off, kv_off)
     extra = (0 if spans is None else spans.numel() * 4) + (0 if g_lse is None else 4 * b * h * nq)
-    nbytes, ops = bwd_bound(torch, b, h, nq, nkv, d, q.element_size(), vis, extra)
+    nbytes, ops = bwd_bound(torch, b, h, nq, nkv, d, q.element_size(), vis, extra,
+                            dv=v.shape[-1])
     bnd, by = bound_ms(nbytes, ops, str(q.dtype).split(".")[-1])
     lib = flex_ms(torch, q, k, v, spans, cap, q_off, kv_off, do, iters)[1] if library else None
     return dict(err=err, rel_err=rel, row_rel_err=row, ms=ms, plain_ms=plain, bound_ms=bnd,
@@ -3025,6 +3053,89 @@ def phase_training(torch, Transfusion, Trainer, mods):
     return totals, main
 
 
+def latent_row(rng):
+    """One row of the 4k cell's shape: 5 x ([524 text][16x16x32 latent])
+    and text to 4096 packed positions."""
+    import numpy as np
+
+    items = []
+    for _ in range(5):
+        items += [rng.integers(0, 512, 524).astype(np.int32),
+                  (0, rng.standard_normal((16, 16, 32)).astype(np.float32))]
+    return items + [rng.integers(0, 512, 139).astype(np.int32)]
+
+
+def phase_latent_pair(torch, Transfusion, Trainer, mods):
+    """Phase 5m. Returns the flash launch totals of the counted steps."""
+    import numpy as np
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    model = Transfusion(device="cuda", dtype=bf16, seed=0, **LATENT_CFG)
+    trainer = Trainer(model, learning_rate=3e-4)
+    depth = LATENT_CFG["transformer"]["depth"]
+    packed = model.pack([latent_row(np.random.default_rng(i)) for i in range(8)],
+                        shift_friendly=True).to_torch("cuda")
+    state = trainer.init_state()
+    draws = model.make_draws(packed, torch.Generator("cuda").manual_seed(0))
+    wide = {"flash_fwd": lambda a: a["q"].shape[-1] == 192}
+    with capturing(torch, dict(mods, layers=mods["moonlight"]), wide) as calls:
+        state, _ = trainer.train_step(state, packed, draws=draws)
+    torch.cuda.synchronize()
+    require("flash_fwd" in calls and "do" in calls["flash_fwd"],
+            "latent attention: no (192, 128) call captured")
+    a = calls.pop("flash_fwd")
+    require(a["v"].shape[-1] == 128 and a["q"].shape[1] == 16,
+            f"latent attention: q {shape_str(a['q'])} v {shape_str(a['v'])}")
+    rng = np.random.default_rng(1)
+    n = 8192
+    ctx = dict(q=torch.from_numpy(rng.standard_normal((1, 16, n, 192), np.float32)),
+               k=torch.from_numpy(rng.standard_normal((1, 16, n, 192), np.float32)),
+               v=torch.from_numpy(rng.standard_normal((1, 16, n, 128), np.float32)),
+               do=torch.from_numpy(rng.standard_normal((1, 16, n, 128), np.float32)),
+               spans=None, causal=True, softcap=0.0, q_offset=0, kv_offset=0,
+               return_lse=False)
+    ctx = {k: x.to("cuda", bf16) if isinstance(x, torch.Tensor) else x for k, x in ctx.items()}
+    for what, case in ((f"main path, moonlight 4k step: q {shape_str(a['q'])} v "
+                        f"{shape_str(a['v'])} spans {shape_str(a['spans'])}", a),
+                       (f"b1 h16 n{n} qk192 v128 causal", ctx)):
+        for dtype in (bf16, f32):
+            c = {k: x.to(dtype) if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+                 for k, x in case.items()}
+            lib = dtype == bf16
+            name = f"{what} {str(dtype).split('.')[-1]}"
+            record("flash_fwd", name, check_flash(torch, mods, c, iters=5, library=lib,
+                                                  block_q=1024), dtype)
+            record("flash_bwd", name, check_flash_bwd(torch, mods, c, iters=3, library=lib,
+                                                      block_q=1024), dtype)
+    del calls, a, ctx
+    torch.cuda.empty_cache()
+
+    def steps(state=state):
+        losses = []
+        for _ in range(LATENT_STEPS):
+            state, metrics = trainer.train_step(state, packed, draws=draws)
+            losses.append(metrics["loss"])
+        return [float(x) for x in losses]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, counts = counted(mods, steps)
+    dt = time.perf_counter() - t0
+    require(all(np.isfinite(losses)), f"latent attention step: non-finite loss {losses}")
+    require(counts["flash_fwd"] == 2 * depth * LATENT_STEPS
+            and counts["flash_bwd"] == depth * LATENT_STEPS,
+            f"latent attention step: launches {counts}, want {2 * depth} forward and {depth} "
+            "backward a step")
+    log(json.dumps({"training": "moonlight 2 layers, 8 x 4096, remat full",
+                    "steps": LATENT_STEPS, "ms_per_step": dt / LATENT_STEPS * 1e3,
+                    "tokens_per_step": int(packed.total_tokens), "losses": losses,
+                    "launches": counts, "by_row": {
+                        "flash_fwd": mods["flash"].flash_attention.launches_by_row,
+                        "flash_bwd": mods["flash"].flash_attention_backward.launches_by_row},
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    return {"flash_fwd": counts["flash_fwd"], "flash_bwd": counts["flash_bwd"]}
+
+
 # ---------------------------------------------------------------------------
 # phase 6: long-context training of the 573M config
 # ---------------------------------------------------------------------------
@@ -3907,6 +4018,7 @@ def port_modules():
         engine_mm,
         layers,
         modality_io,
+        moonlight,
         sample_batch,
         serving,
         transfusion,
@@ -3925,7 +4037,7 @@ def port_modules():
     mods = dict(flash=flash_attn, nhd=flash_attn_nhd, decode=decode_attn, layers=layers,
                 spans=spans, rope=rope, transfusion=transfusion, sample_batch=sample_batch,
                 engine=engine, engine_mm=engine_mm, serving=serving, modality_io=modality_io,
-                context=context, counters=counters)
+                context=context, moonlight=moonlight, counters=counters)
     return Transfusion, Trainer, mods
 
 
@@ -3973,6 +4085,7 @@ def main() -> int:
     recipe_launches = timed_phase(phase_recipes, torch, Transfusion, Trainer, mods)
     surface_launches = timed_phase(phase_surface, torch, Transfusion, Trainer, mods)
     train_launches, train_path = timed_phase(phase_training, torch, Transfusion, Trainer, mods)
+    latent_launches = timed_phase(phase_latent_pair, torch, Transfusion, Trainer, mods)
     long_launches, long_path, capture = timed_phase(phase_long_training, torch, Transfusion,
                                                     Trainer, mods)
     parallel_launches = timed_phase(phase_parallel, torch, Transfusion, Trainer, mods, capture)
@@ -3991,7 +4104,8 @@ def main() -> int:
         total = (launches.get(name, 0) + sampling_launches.get(name, 0)
                  + engine_launches.get(name, 0) + image_launches.get(name, 0)
                  + recipe_launches.get(name, 0) + surface_launches.get(name, 0)
-                 + train_launches.get(name, 0) + long_launches.get(name, 0)
+                 + train_launches.get(name, 0) + latent_launches.get(name, 0)
+                 + long_launches.get(name, 0)
                  + parallel_launches.get(name, 0) + pipeline_launches.get(name, 0)
                  + sharded_launches.get(name, 0))
         require(total > 0, f"{name} was not launched on the main paths")

@@ -33,6 +33,11 @@ seeded bf16 inputs, at the main-path shapes of the kernel table's rows:
     ODE: b2 h8 nq196 cap512 (CFG rows), lens 222;
     long: b8 h8 nq1 cap8192, lens 8192 - 37 i, bf16 and int8 caches (the
           cache, 134 MB in bf16, does not fit in L2; the shorter ones do).
+  q k 192 beside v 128 (`--only pair`, the moonlight cell's latent
+  attention; checkouts before the pair do not take it): forward and
+  backward at b8 h16 n4096 with the 4k cell's caption-image spans, and at
+  b1 h16 n8192 (its context), no softcap; each with its bound (the larger
+  of its FLOPs over 989 TFLOP/s and its bytes over 3.35 TB/s).
 A backward call includes its delta = rowsum(dO o) and, where the checkout
 has one, its dq scratch. --compare PARENT runs this script on PARENT (a
 checkout unpacked with `git archive`) and on this checkout in turns
@@ -79,6 +84,14 @@ DECODE_SHAPES = (
      False, 100),
     ("row 4 long b8 h8 nq1 cap8192 d64 int8", 8, 8, 1, 8192, [8192 - 37 * i for i in range(8)],
      True, 100),
+)
+
+
+# (name, b, h, n, spans, iterations): q k 192, v 128, no softcap
+PAIR_SHAPES = (
+    ("pair b8 h16 n4096 qk192 v128 spans5", 8, 16, 4096, [(40 + 800 * i, 256) for i in range(5)],
+     20),
+    ("pair b1 h16 n8192 qk192 v128 causal", 1, 16, 8192, None, 10),
 )
 
 
@@ -197,6 +210,28 @@ def time_decode(torch, out):
         torch.cuda.empty_cache()
 
 
+def time_pair(torch, out):
+    """Forward and backward at (192, 128), and each one's bound."""
+    from transfusion_tpu_torch.ops import flash_attn
+
+    for name, b, h, n, span_list, iters in PAIR_SHAPES:
+        (q, k), spans, _, _ = inputs(torch, b, h, n, span_list, False, 2, 192)
+        (v, do), _, _, _ = inputs(torch, b, h, n, span_list, False, 2, 128)
+        o, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True, softcap=0.0,
+                                            return_lse=True)
+        pairs = b * (n * (n + 1) // 2 + sum(ln * (ln - 1) // 2 for _, ln in span_list or ()))
+        pos_bytes = b * n * h * (2 * (192 + 192 + 128 + 128) + 4)
+        fwd_bound = max(2.0 * h * (192 + 128) * pairs / 989e12, pos_bytes / 3.35e12) * 1e3
+        bwd_bound = max(2.0 * h * (3 * 192 + 2 * 128) * pairs / 989e12,
+                        (2 * pos_bytes - b * n * h * 4) / 3.35e12) * 1e3
+        out[name + " fwd"] = [mean_ms(torch, lambda: flash_attn.flash_attention(
+            q, k, v, spans=spans, causal=True, softcap=0.0), iters), fwd_bound]
+        out[name + " bwd"] = [mean_ms(torch, lambda: flash_attn.flash_attention_backward(
+            q, k, v, o, lse, do, spans, 0.0), iters), bwd_bound]
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+
 def compare(parent, only):
     """Run the parent and this checkout in turns; one JSON line per shape."""
     runs = []
@@ -222,7 +257,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--compare", metavar="PARENT")
-    ap.add_argument("--only", choices=("fwd", "bwd", "decode"))
+    ap.add_argument("--only", choices=("fwd", "bwd", "decode", "pair"))
     args = ap.parse_args()
     import torch
 
@@ -242,6 +277,8 @@ def main() -> int:
         time_backward(torch, out)
     if args.only in (None, "decode"):
         time_decode(torch, out)
+    if args.only == "pair":
+        time_pair(torch, out)
     print(json.dumps(out), flush=True)
     return 0
 

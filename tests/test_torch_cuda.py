@@ -244,6 +244,74 @@ def test_backward_kernel_matches_plain(cuda_device, dtype, rel, n, d, spans_np):
             assert (got[0].permute(0, 2, 1, 3)[dead] == 0).all()
 
 
+# the 4k training cell's rows: caption-image pairs, 256 latent rows an image
+SPANS_4K = np.asarray([[[0, 40 + 700 * i, 256] for i in range(5)],
+                       [[0, 900 + 1100 * i, 256] for i in range(3)] + [[0, 0, 0]] * 2], np.int32)
+
+
+@pytest.mark.parametrize("dtype,tol,rel", [(torch.float32, 1e-4, 1e-4),
+                                           (torch.bfloat16, 2e-2, 2e-2)])
+@pytest.mark.parametrize("n,softcap", [(4096, 0.0), (4096, 50.0), (8192, 0.0)],
+                         ids=["4k", "4k-softcap", "8k"])
+def test_flash_kernels_at_qk_192_v_128_match_plain(cuda_device, dtype, tol, rel, n, softcap):
+    """The (q k 192, value 128) pair of latent attention, forward and
+    backward, at the 4k training cell's spans and at 8192 positions (its
+    context), against the plain versions in 1024-row blocks; no padding:
+    the output and dv are 128 wide."""
+    b, h = (2, 2) if n == 4096 else (1, 2)
+    q, k = (randn(b, h, n, 192, seed=s, dtype=dtype) for s in range(2))
+    v, do = (randn(b, h, n, 128, seed=s, dtype=dtype) for s in range(2, 4))
+    spans = torch.tensor(SPANS_4K[:b], device=cuda_device)
+    out, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True, softcap=softcap,
+                                          return_lse=True)
+    assert out.shape == (b, h, n, 128)
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, spans, softcap, block_q=1024)
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, do, spans, softcap)
+    assert got[2].shape == v.shape and got[0].shape == q.shape
+    delta = (do.float() * out.float()).sum(-1)
+    want = flash_attn.flash_attention_backward_plain(q, k, v, do, lse, delta, spans, softcap,
+                                                     block_q=1024)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    lse_tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert (lse - ref_lse).abs().max().item() <= lse_tol
+    assert_grads_close(got, want, rel)
+
+
+def test_pair_backward_with_collapsed_values_matches_plain(cuda_device):
+    """The (192, 128) backward, bf16, where the values are one vector plus
+    2^-5 of noise (as early training leaves them): dp - delta cancels to
+    within its row's bound on a few % of the visible pairs, unevenly over
+    the lanes of a warp tile, and those dp come from sequential products
+    (the plain versions' rounding); gradients within 1e-2 of each largest
+    element."""
+    b, h, n = 1, 2, 1024
+    q, k = (randn(b, h, n, 192, seed=s, dtype=torch.bfloat16) for s in range(2))
+    base = randn(1, 1, 1, 128, seed=2) + 1.0
+    v = (base + 2.0**-5 * randn(b, h, n, 128, seed=3)).to(torch.bfloat16)
+    do = randn(b, h, n, 128, seed=4, dtype=torch.bfloat16)
+    out, lse = flash_attn.flash_attention(q, k, v, causal=True, softcap=0.0, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dp = do.float() @ v.float().transpose(-1, -2)
+    bound = torch.maximum(2.0**-10 * delta.abs(), 2.0**-20 * do.float().norm(dim=-1)
+                          * v.float().norm(dim=-1).amax(-1, keepdim=True))
+    visible = torch.ones(n, n, device=cuda_device).tril().bool()
+    cancel = ((dp - delta[..., None]).abs() < bound[..., None]) & visible
+    share = cancel.sum().item() / (b * h * visible.sum().item())
+    assert 0.005 < share < 0.2, share
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, do, None, 0.0)
+    want = flash_attn.flash_attention_backward_plain(q, k, v, do, lse, delta, None, 0.0)
+    torch.cuda.synchronize()
+    assert_grads_close(got, want, 1e-2)
+
+
+def test_flash_kernels_refuse_other_unequal_widths(cuda_device):
+    q = randn(1, 2, 64, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attn.flash_attention(q, q, randn(1, 2, 64, 64, dtype=torch.bfloat16), causal=True)
+    assert flash_attn.supported(8192, 192, 128) and not flash_attn.supported(64, 192, 64)
+
+
 def test_long_sequence_kernels_match_blocked_plain(cuda_device):
     """b1 h2 n12288 d64 bf16 with spans (the TPU's streamed envelope, rows 3
     and 9 of the kernel table) against the plain versions computed 2048
@@ -893,3 +961,53 @@ def test_laser_streams_muon_model_on_card_matches_cpu(cuda_device):
             assert np.abs(a[1] - b[1]).max() <= 1e-3
         else:
             assert np.array_equal(a, b)
+
+
+def test_grouped_experts_match_the_expert_loop(cuda_device):
+    """The expert layer on the card in bf16 (assignments sorted on the
+    device, grouped GEMMs, gathers back) against the CPU's loop over the
+    experts in float32 on the same weights, inputs and routing: the output
+    and the gradients of the input and of the experts' weights within 2e-2
+    of each one's largest element; the same bits on a second run (no
+    atomics); the held assignments counted on the device. The CPU's router
+    chooses as the card's for all but near-tied tokens."""
+    from transfusion_tpu_torch.models.moonlight import MoE
+
+    torch.manual_seed(0)
+    cpu = MoE(256, experts=16, held=8, top_k=4, inner=128, shared=2, scale=2.446)
+    with torch.no_grad():
+        cpu.gate.e_score_correction_bias.normal_(std=0.05)
+    card = MoE(256, experts=16, held=8, top_k=4, inner=128, shared=2, scale=2.446).to("cuda")
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(torch.bfloat16)
+    card.gate.float()
+    x = randn(2, 300, 256, seed=5).to(torch.bfloat16)
+    g = randn(2, 300, 256, seed=6).to(torch.bfloat16)
+    with torch.no_grad():  # the CPU side computes from the card's bf16 values
+        for (_, p), (_, q) in zip(cpu.named_parameters(), card.named_parameters()):
+            p.copy_(q.float())
+    choice, weight = card.gate(x.reshape(600, 256))
+    cpu_choice, _ = cpu.gate(x.float().cpu().reshape(600, 256))
+    agree = (cpu_choice.sort(-1).values == choice.cpu().sort(-1).values).all(-1)
+    assert agree.float().mean() >= 0.98
+    card.gate.forward = lambda t: (choice, weight)  # one routing for both sides
+    cpu.gate.forward = lambda t: (choice.cpu(), weight.cpu())
+    leaves = ("experts.gate_up_proj", "experts.down_proj", "shared_experts.gate_proj.weight",
+              "shared_experts.up_proj.weight", "shared_experts.down_proj.weight")
+
+    def run(model, x, g):
+        x = x.detach().requires_grad_(True)
+        out = model(x)
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(out, [x, *(params[k] for k in leaves)], g)
+        return out.detach(), grads
+
+    got, got_g = run(card, x, g)
+    again, again_g = run(card, x, g)
+    want, want_g = run(cpu, x.float().cpu(), g.float().cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and all(torch.equal(a, b) for a, b in zip(got_g, again_g))
+    for a, b in zip((got, *got_g), (want, *want_g)):
+        scale = b.abs().max().item()
+        assert (a.float().cpu() - b).abs().max().item() <= 2e-2 * scale
+    assert card.expert_load.cpu().tolist() == (2 * cpu.expert_load).tolist()  # two runs

@@ -41,3 +41,24 @@ def c_parameters(name: str) -> list:
 ])
 def test_binding_matches_c_entry_point(name, argtypes):
     assert c_parameters(name) == list(argtypes)
+
+
+def c_parameter_names(name: str) -> list:
+    """The name of each parameter of `extern "C" int name(...)`."""
+    src = (CSRC / f"{name}.cu").read_text()
+    match = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src, re.S)
+    return [p.split()[-1].lstrip("*") for p in match.group(1).split(",")]
+
+
+@pytest.mark.parametrize("name, argtypes", [
+    ("flash_fwd", flash_attn._FWD_ARGTYPES),
+    ("flash_bwd", flash_attn._BWD_ARGTYPES),
+])
+def test_flash_entry_points_take_the_value_width_after_the_head_dim(name, argtypes):
+    """The flash kernels take the q k width `d` and the value width `d_v`
+    as two ints, in that order, where the wrappers pass them."""
+    names = c_parameter_names(name)
+    i = names.index("d")
+    assert names[i + 1] == "d_v"
+    assert argtypes[i] == argtypes[i + 1] == ctypes.c_int
+    assert names[i - 2:i] == ["nq", "nkv"] and names[i + 2] == "q_off"

@@ -173,23 +173,24 @@ __device__ __forceinline__ float (&flat(T& x))[N] {
   return reinterpret_cast<float(&)[N]>(x);
 }
 
-template <int D, int RPT>
+// D: the q . k width; DV: the value (and output) width, D unless given.
+template <int D, int RPT, int DV = D>
 struct Tile {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
   static constexpr int ROWS = 16 * RPT;
   static constexpr int QS = D + 1;   // padded row stride of the Q and K tiles
   static constexpr int PS = BK + 1;  // padded row stride of the P tile
-  static constexpr int DC = D / 16;  // output columns per thread
+  static constexpr int DC = DV / 16;  // output columns per thread
   static constexpr size_t kFloats =
-      size_t(ROWS) * QS + size_t(BK) * QS + size_t(BK) * D + size_t(ROWS) * PS;
+      size_t(ROWS) * QS + size_t(BK) * QS + size_t(BK) * DV + size_t(ROWS) * PS;
 
   float* Qs;  // [ROWS][QS]
   float* Ks;  // [BK][QS]
-  float* Vs;  // [BK][D]
+  float* Vs;  // [BK][DV]
   float* Ps;  // [ROWS][PS]
 
   __device__ explicit Tile(float* smem)
-      : Qs(smem), Ks(smem + ROWS * QS), Vs(Ks + BK * QS), Ps(Vs + BK * D) {}
+      : Qs(smem), Ks(smem + ROWS * QS), Vs(Ks + BK * QS), Ps(Vs + BK * DV) {}
 
   // s[r][j] = Q[ty*RPT + r] . K[tx + 16 j]
   __device__ __forceinline__ void scores(float (&s)[RPT][4], int tx, int ty) const {
@@ -247,7 +248,7 @@ struct Tile {
     for (int k = 0; k < BK; ++k) {
       float vv[DC];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = Vs[k * D + tx + 16 * c];
+      for (int c = 0; c < DC; ++c) vv[c] = Vs[k * DV + tx + 16 * c];
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         const float p = Ps[(ty * RPT + r) * PS + k];

@@ -82,6 +82,16 @@
 //     one-dimensional, (b*h) fastest: kv tile 0 of every head, the longest
 //     walk under causality, starts first.
 //
+// Value width. Each kernel takes the q . k width D and the value width DV
+// as template parameters (DV = D unless given; every (d, d) instantiation
+// is the code it was). (D, DV) = (192, 128), the latent attention of
+// DeepSeek-V3-style blocks (128 dims without RoPE and 64 with it beside
+// 128-dim values), is instantiated head-major without RoPE: s^T and dK, dQ
+// run over D columns, dp^T and dV over DV; the tensor-core kernel takes
+// one warp per 64 value columns (2 warps a 16-row slice, 96 columns of dK
+// and dQ each). Padding such a head to d 256 would waste a third of the
+// q k^T products and half of the value products.
+//
 // float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernels:
 // float32 products from shared memory, no tensor cores (TF32 would keep ~3
 // decimal digits), deterministic. Two kernels, no atomics, the mask from
@@ -257,14 +267,16 @@ __device__ __forceinline__ void store_rows(T* base, size_t rs, const float (&acc
   }
 }
 
-template <int D>
+// D: the q . k width; DV: the value width (D unless given)
+template <int D, int DV = D>
 struct Smem {
   static constexpr int LD = D + 1, RT = 16 * rpt<D>();  // rows of the own tile
   // dkv: K, V [RT] and Q, dO [64] tiles + p, ds [RT] tiles; dq: Q, dO [RT]
   // and K, V [64] tiles + the ds [RT] tile; lse and delta [64]; the q
-  // tile's visible ends (dkv, int [64])
+  // tile's visible ends (dkv, int [64]). Q and K rows are D wide, V and dO
+  // rows DV.
   static constexpr size_t kFloats =
-      (2 * size_t(RT) + 2 * 64) * LD + 2 * size_t(RT) * PS + 2 * 64;
+      (size_t(RT) + 64) * (LD + DV + 1) + 2 * size_t(RT) * PS + 2 * 64;
   static constexpr size_t kBytes = kFloats * sizeof(float) + 64 * sizeof(int);
 };
 
@@ -281,15 +293,15 @@ __global__ void __launch_bounds__(256) row_ends(const Params P, int b) {
   P.ends[i] = end[0];
 }
 
-template <typename T, int D, bool ROPE>
+template <typename T, int D, bool ROPE, int DV = D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
-  constexpr int LD = D + 1, DC = D / 16, R = rpt<D>(), KT = 16 * R;
+  constexpr int LD = D + 1, LDV = DV + 1, DC = D / 16, DCV = DV / 16, R = rpt<D>(), KT = 16 * R;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + KT * LD;
-  float* Qs = Vs + KT * LD;
+  float* Qs = Vs + KT * LDV;
   float* dOs = Qs + 64 * LD;
-  float* Ps = dOs + 64 * LD;
+  float* Ps = dOs + 64 * LDV;
   float* dSs = Ps + KT * PS;
   float* lse_s = dSs + KT * PS;
   float* delta_s = lse_s + 64;
@@ -301,17 +313,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
   const int BH = gridDim.x / ((nkv + KT - 1) / KT);
   const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
   const int k0 = int(blockIdx.x / BH) * KT, kg = k0 + P.kv_off;
-  const size_t rs = row_stride(P.nhd, H, D);
+  const size_t rs = row_stride(P.nhd, H, D), rsv = row_stride(P.nhd, H, DV);
   const T* qb = static_cast<const T*>(P.q) + head_base(P.nhd, bi, head, H, nq, D);
-  const T* ob = static_cast<const T*>(P.dout) + head_base(P.nhd, bi, head, H, nq, D);
+  const T* ob = static_cast<const T*>(P.dout) + head_base(P.nhd, bi, head, H, nq, DV);
   const T* kb = static_cast<const T*>(P.k) + head_base(P.nhd, bi, head, H, nkv, D);
-  const T* vb = static_cast<const T*>(P.v) + head_base(P.nhd, bi, head, H, nkv, D);
+  const T* vb = static_cast<const T*>(P.v) + head_base(P.nhd, bi, head, H, nkv, DV);
   const float* lse = P.lse + size_t(bh) * nq;
   const float* delta = P.delta + size_t(bh) * nq;
   const int* sp = P.spans + size_t(bi) * P.m * 3;
 
   load_tile<T, D, ROPE, KT>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
-  load_tile<T, D, false, KT>(Vs, vb, rs, k0, nkv, nullptr, nullptr, bi, 1.f);
+  load_tile<T, DV, false, KT>(Vs, vb, rsv, k0, nkv, nullptr, nullptr, bi, 1.f);
 
   // the q tiles from the one holding the first row that sees kv column kg
   // on: each has a visible pair (the ends grow with the row)
@@ -319,17 +331,20 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
   const int lo = lo_tok - P.q_off <= 0 ? 0 : (lo_tok - P.q_off) / BQ;
   const int n_q_tiles = (nq + BQ - 1) / BQ;
 
-  float dk[R][DC], dv[R][DC];
+  float dk[R][DC], dv[R][DCV];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dk[r][c] = dv[r][c] = 0.f;
+    for (int c = 0; c < DC; ++c) dk[r][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DCV; ++c) dv[r][c] = 0.f;
+  }
 
   for (int iq = lo; iq < n_q_tiles; ++iq) {
     const int q0 = iq * BQ;
     __syncthreads();  // K / V are written / the previous tile's readers are done
     load_tile<T, D, ROPE, BQ>(Qs, qb, rs, q0, nq, P.cos, P.sin, bi, P.scale);
-    load_tile<T, D, false, BQ>(dOs, ob, rs, q0, nq, nullptr, nullptr, bi, 1.f);
+    load_tile<T, DV, false, BQ>(dOs, ob, rsv, q0, nq, nullptr, nullptr, bi, 1.f);
     if (tid < 64) {
       const bool in = q0 + tid < nq;
       lse_s[tid] = in ? lse[q0 + tid] : 0.f;
@@ -342,7 +357,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
     float s[R][4], dp[R][4], p[R][4], l[R][4], dl[R][4];
     bool ok[R][4];
     dot_tile<D, R>(Ks, Qs, s, tx, ty);
-    dot_tile<D, R>(Vs, dOs, dp, tx, ty);
+    dot_tile<DV, R>(Vs, dOs, dp, tx, ty);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int jl = k0 + ty * R + r;
@@ -362,26 +377,26 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(const Params P) {
         dSs[(ty * R + r) * PS + tx + 16 * j] = s[r][j];
       }
     __syncthreads();
-    acc_tile<D, R>(Ps, dOs, dv, tx, ty);   // dv += p^T dO
+    acc_tile<DV, R>(Ps, dOs, dv, tx, ty);  // dv += p^T dO
     acc_tile<D, R>(dSs, Qs, dk, tx, ty);   // dk += ds^T (q * scale)
   }
 
   if (ROPE) unrotate<D, R>(dk, P.cos, P.sin, bi, nkv, k0, tx, ty);
   store_rows<T, D, R>(static_cast<T*>(P.dk) + head_base(P.nhd, bi, head, H, nkv, D), rs, dk,
                       k0, nkv, tx, ty);
-  store_rows<T, D, R>(static_cast<T*>(P.dv) + head_base(P.nhd, bi, head, H, nkv, D), rs, dv,
-                      k0, nkv, tx, ty);
+  store_rows<T, DV, R>(static_cast<T*>(P.dv) + head_base(P.nhd, bi, head, H, nkv, DV), rsv,
+                       dv, k0, nkv, tx, ty);
 }
 
-template <typename T, int D, bool ROPE>
+template <typename T, int D, bool ROPE, int DV = D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
-  constexpr int LD = D + 1, DC = D / 16, R = rpt<D>(), QT = 16 * R;
+  constexpr int LD = D + 1, LDV = DV + 1, DC = D / 16, R = rpt<D>(), QT = 16 * R;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + QT * LD;
-  float* Ks = dOs + QT * LD;
+  float* Ks = dOs + QT * LDV;
   float* Vs = Ks + 64 * LD;
-  float* dSs = Vs + 64 * LD;
+  float* dSs = Vs + 64 * LDV;
   float* lse_s = dSs + QT * PS;
   float* delta_s = lse_s + 64;
 
@@ -390,14 +405,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
   const int BH = gridDim.x / ((nq + QT - 1) / QT);  // as in the dkv kernel
   const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
   const int q0 = int(blockIdx.x / BH) * QT;
-  const size_t rs = row_stride(P.nhd, H, D);
+  const size_t rs = row_stride(P.nhd, H, D), rsv = row_stride(P.nhd, H, DV);
   const T* qb = static_cast<const T*>(P.q) + head_base(P.nhd, bi, head, H, nq, D);
-  const T* ob = static_cast<const T*>(P.dout) + head_base(P.nhd, bi, head, H, nq, D);
+  const T* ob = static_cast<const T*>(P.dout) + head_base(P.nhd, bi, head, H, nq, DV);
   const T* kb = static_cast<const T*>(P.k) + head_base(P.nhd, bi, head, H, nkv, D);
-  const T* vb = static_cast<const T*>(P.v) + head_base(P.nhd, bi, head, H, nkv, D);
+  const T* vb = static_cast<const T*>(P.v) + head_base(P.nhd, bi, head, H, nkv, DV);
 
   load_tile<T, D, ROPE, QT>(Qs, qb, rs, q0, nq, P.cos, P.sin, bi, P.scale);
-  load_tile<T, D, false, QT>(dOs, ob, rs, q0, nq, nullptr, nullptr, bi, 1.f);
+  load_tile<T, DV, false, QT>(dOs, ob, rsv, q0, nq, nullptr, nullptr, bi, 1.f);
   if (tid < QT) {
     const bool in = q0 + tid < nq;
     lse_s[tid] = in ? P.lse[size_t(bh) * nq + q0 + tid] : 0.f;
@@ -436,13 +451,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
     const int k0 = it * BKV;
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D, ROPE, BKV>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
-    load_tile<T, D, false, BKV>(Vs, vb, rs, k0, nkv, nullptr, nullptr, bi, 1.f);
+    load_tile<T, DV, false, BKV>(Vs, vb, rsv, k0, nkv, nullptr, nullptr, bi, 1.f);
     __syncthreads();
 
     float s[R][4], dp[R][4], p[R][4];
     bool ok[R][4];
     dot_tile<D, R>(Qs, Ks, s, tx, ty);
-    dot_tile<D, R>(dOs, Vs, dp, tx, ty);
+    dot_tile<DV, R>(dOs, Vs, dp, tx, ty);
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -465,13 +480,19 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(const Params P) {
                       nq, tx, ty);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 int launch(const Params& P, int b, cudaStream_t stream) {
   constexpr int RT = 16 * rpt<D>();
-  const int smem = int(Smem<D>::kBytes);
+  const int smem = int(Smem<D, DV>::kBytes);
   const bool rope = P.cos != nullptr;  // a template flag: no branch in the loads
-  auto dkv = rope ? flash_bwd_dkv<T, D, true> : flash_bwd_dkv<T, D, false>;
-  auto dq = rope ? flash_bwd_dq<T, D, true> : flash_bwd_dq<T, D, false>;
+  auto dkv = flash_bwd_dkv<T, D, false, DV>;
+  auto dq = flash_bwd_dq<T, D, false, DV>;
+  if constexpr (DV != D) {  // unequal widths: head-major, no RoPE
+    if (rope || P.nhd) return int(cudaErrorInvalidValue);
+  } else if (rope) {
+    dkv = flash_bwd_dkv<T, D, true>;
+    dq = flash_bwd_dq<T, D, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -487,7 +508,11 @@ int launch(const Params& P, int b, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch_d(int d, const Params& P, int b, cudaStream_t stream) {
+int dispatch_d(int d, int dv, const Params& P, int b, cudaStream_t stream) {
+  if (dv != d) {
+    if (d == 192 && dv == 128) return launch<T, 192, 128>(P, b, stream);
+    return int(cudaErrorInvalidValue);
+  }
   switch (d) {
     case 32:
       return launch<T, 32>(P, b, stream);
@@ -513,24 +538,27 @@ using bf16 = __nv_bfloat16;
 
 constexpr int TB = 64;  // q rows and kv rows per tile
 
-template <int D>
+// D: the q . k width; DV: the value width (D unless given)
+template <int D, int DV = D>
 struct Lay {
   static constexpr int LD = D + 8;    // padded bf16 row stride of a [64][D] tile
-  static constexpr int TILE = TB * LD;
+  static constexpr int LDV = DV + 8;  // and of a [64][DV] tile (V, dO)
+  static constexpr int TILE = TB * LD, TILEV = TB * LDV;
   static constexpr int SLD = TB + 8;  // row stride of the ds^T tile
   // warps per 16 kv rows: each computes those rows' s^T and dp^T and owns
-  // DW = D / DS columns of dK, dV and dQ. From d 128 one such warp per 64
-  // columns keeps its sums beside the score fragments in registers (d 128:
-  // 2 warps, no spills; d 256: 4 warps, 512 threads, at most 128
-  // registers a thread).
-  static constexpr int DS = D > 64 ? D / 64 : 1;
-  static constexpr int DW = D / DS;
+  // DW = D / DS columns of dK and dQ and DWV = DV / DS of dV. From d 128
+  // one such warp per 64 value columns keeps its sums beside the score
+  // fragments in registers (d 128: 2 warps, no spills; d 256: 4 warps, 512
+  // threads, at most 128 registers a thread; q . k 192 beside v 128: 2
+  // warps, each 96 columns of dK and dQ and 64 of dV).
+  static constexpr int DS = DV > 64 ? DV / 64 : 1;
+  static constexpr int DW = D / DS, DWV = DV / DS;
   static constexpr int TT = 32 * 4 * DS;  // threads of a block
-  // K, V, 2 x Q and 2 x dO [64][D] tiles, the ds^T tile, 2 x 64 lse,
-  // 2 x 64 (delta, its bound) and 2 x 64 visible ends
+  // K, V, 2 x Q and 2 x dO tiles, the ds^T tile, 2 x 64 lse, 2 x 64
+  // (delta, its bound) and 2 x 64 visible ends
   static constexpr size_t kBytes =
-      (6 * size_t(TILE) + size_t(TB) * SLD) * sizeof(bf16) + 6 * TB * sizeof(float) +
-      2 * TB * sizeof(int);
+      (3 * size_t(TILE) + 3 * size_t(TILEV) + size_t(TB) * SLD) * sizeof(bf16) +
+      6 * TB * sizeof(float) + 2 * TB * sizeof(int);
 };
 
 // 8 bytes, zero-filled when !valid
@@ -664,33 +692,36 @@ __global__ void __launch_bounds__(256) cancel_bounds(const Params P, int D,
 
 // dK and dV of one (b*h, kv tile), and dQ += ds K of each of its q tiles
 // into dq_acc.
-template <int D, bool ROPE>
-__global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, float* dq_acc) {
-  using L = Lay<D>;
-  constexpr int LD = L::LD, TILE = L::TILE, SLD = L::SLD, DW = L::DW;
+template <int D, bool ROPE, int DV = D>
+__global__ void __launch_bounds__(Lay<D, DV>::TT)
+    flash_bwd_dkv_tc(const Params P, float* dq_acc) {
+  using L = Lay<D, DV>;
+  constexpr int LD = L::LD, LDV = L::LDV, TILE = L::TILE, TILEV = L::TILEV, SLD = L::SLD,
+                DW = L::DW, DWV = L::DWV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + TILE;
-  bf16* Qs = Vs + TILE;      // two buffers
-  bf16* Os = Qs + 2 * TILE;  // two buffers of dO
-  bf16* Ss = Os + 2 * TILE;  // ds^T [kv][q]
+  bf16* Qs = Vs + TILEV;      // two buffers
+  bf16* Os = Qs + 2 * TILE;   // two buffers of dO
+  bf16* Ss = Os + 2 * TILEV;  // ds^T [kv][q]
   float* ls = reinterpret_cast<float*>(Ss + TB * SLD);  // two buffers of lse
   float2* dls = reinterpret_cast<float2*>(ls + 2 * TB);  // two buffers of (delta, bound)
   int* es = reinterpret_cast<int*>(dls + 2 * TB);        // two buffers of visible ends
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   // this warp's 16 rows of the tile (kv rows of s^T, dK, dV; q rows of dQ)
-  // and the first of the DW columns of dK, dV and dQ it owns
-  const int rw = 16 * (w & 3), cw = (w >> 2) * DW;
+  // and the first of the DW columns of dK and dQ, and of the DWV of dV, it
+  // owns
+  const int rw = 16 * (w & 3), cw = (w >> 2) * DW, cwv = (w >> 2) * DWV;
   const int H = P.H, nq = P.nq, nkv = P.nkv;
   const int BH = gridDim.x / ((nkv + TB - 1) / TB);
   const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
   const int k0 = (blockIdx.x / BH) * TB, kg = k0 + P.kv_off;
-  const size_t rs = row_stride(P.nhd, H, D);
+  const size_t rs = row_stride(P.nhd, H, D), rsv = row_stride(P.nhd, H, DV);
   const bf16* qb = static_cast<const bf16*>(P.q) + head_base(P.nhd, bi, head, H, nq, D);
-  const bf16* ob = static_cast<const bf16*>(P.dout) + head_base(P.nhd, bi, head, H, nq, D);
+  const bf16* ob = static_cast<const bf16*>(P.dout) + head_base(P.nhd, bi, head, H, nq, DV);
   const bf16* kb = static_cast<const bf16*>(P.k) + head_base(P.nhd, bi, head, H, nkv, D);
-  const bf16* vb = static_cast<const bf16*>(P.v) + head_base(P.nhd, bi, head, H, nkv, D);
+  const bf16* vb = static_cast<const bf16*>(P.v) + head_base(P.nhd, bi, head, H, nkv, DV);
   const float* lse = P.lse + size_t(bh) * nq;
   const float2* delta = P.cancel + size_t(bh) * nq;
   const float scale = P.scale, cap = P.softcap, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
@@ -701,7 +732,7 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
     copy_rows_regs<D, LD, TB, L::TT, true>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
   else
     copy_rows_async<D, LD, TB, L::TT>(Ks, kb, rs, k0, nkv);
-  copy_rows_async<D, LD, TB, L::TT>(Vs, vb, rs, k0, nkv);
+  copy_rows_async<DV, LDV, TB, L::TT>(Vs, vb, rsv, k0, nkv);
 
   // the q tiles from the one holding the first row that sees kv column kg
   // on: each has a visible pair (the ends grow with the row)
@@ -715,12 +746,12 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
                                              1.f);
     else
       copy_rows_async<D, LD, TB, L::TT>(Qs + buf * TILE, qb, rs, q0, nq);
-    copy_rows_async<D, LD, TB, L::TT>(Os + buf * TILE, ob, rs, q0, nq);
+    copy_rows_async<DV, LDV, TB, L::TT>(Os + buf * TILEV, ob, rsv, q0, nq);
     async_row_stats<L::TT>(ls + buf * TB, dls + buf * TB, es + buf * TB, lse, delta, ends, q0,
                            nq);
   };
 
-  float dk[DW / 8][4] = {}, dv[DW / 8][4] = {};
+  float dk[DW / 8][4] = {}, dv[DWV / 8][4] = {};
   int buf = 0;
   if (lo < n_q_tiles) load_q(lo, 0);
   cp_async_commit();  // K, V and the first Q / dO tile
@@ -732,7 +763,7 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
 
     const int q0 = iq * TB;
     const bf16* Qb = Qs + buf * TILE;
-    const bf16* Ob = Os + buf * TILE;
+    const bf16* Ob = Os + buf * TILEV;
     const float* lb = ls + buf * TB;
     const float2* db = dls + buf * TB;  // (delta, its bound)
     const int* eb = es + buf * TB;  // 0 past nq
@@ -741,20 +772,47 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
 
     // transposed scores: rows are kv rows rw + (g, g + 8), columns q rows
     float st[8][4] = {}, dpt[8][4] = {};
+    if constexpr (DV == D) {
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, ldsm_rows(Ks, LD, rw, kk, lane));
-      ldsm_x4(va, ldsm_rows(Vs, LD, rw, kk, lane));
+      for (int kk = 0; kk < D; kk += 16) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, ldsm_rows(Ks, LD, rw, kk, lane));
+        ldsm_x4(va, ldsm_rows(Vs, LD, rw, kk, lane));
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t qf[4], of[4];
-        ldsm_x4(qf, ldsm_cols(Qb, LD, 8 * j, kk, lane));
-        ldsm_x4(of, ldsm_cols(Ob, LD, 8 * j, kk, lane));
-        mma(st[j], ka, qf[0], qf[1]);
-        mma(st[j + 1], ka, qf[2], qf[3]);
-        mma(dpt[j], va, of[0], of[1]);
-        mma(dpt[j + 1], va, of[2], of[3]);
+        for (int j = 0; j < 8; j += 2) {
+          uint32_t qf[4], of[4];
+          ldsm_x4(qf, ldsm_cols(Qb, LD, 8 * j, kk, lane));
+          ldsm_x4(of, ldsm_cols(Ob, LD, 8 * j, kk, lane));
+          mma(st[j], ka, qf[0], qf[1]);
+          mma(st[j + 1], ka, qf[2], qf[3]);
+          mma(dpt[j], va, of[0], of[1]);
+          mma(dpt[j + 1], va, of[2], of[3]);
+        }
+      }
+    } else {  // s^T over the D columns of K and Q, dp^T over the DV of V and dO
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        uint32_t ka[4];
+        ldsm_x4(ka, ldsm_rows(Ks, LD, rw, kk, lane));
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          uint32_t qf[4];
+          ldsm_x4(qf, ldsm_cols(Qb, LD, 8 * j, kk, lane));
+          mma(st[j], ka, qf[0], qf[1]);
+          mma(st[j + 1], ka, qf[2], qf[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < DV; kk += 16) {
+        uint32_t va[4];
+        ldsm_x4(va, ldsm_rows(Vs, LDV, rw, kk, lane));
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          uint32_t of[4];
+          ldsm_x4(of, ldsm_cols(Ob, LDV, 8 * j, kk, lane));
+          mma(dpt[j], va, of[0], of[1]);
+          mma(dpt[j + 1], va, of[2], of[3]);
+        }
       }
     }
     // Where dp - delta cancels to within the row's bound (a row that sees
@@ -767,19 +825,46 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
       const int qi = 8 * j + 2 * t + (c & 1);
       return fabsf(dpt[j][c] - db[qi].x) < db[qi].y;
     };
-    bool any_cancel = false;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) any_cancel |= cancels(j, c);
-    if (__any_sync(0xffffffffu, any_cancel)) {
+    if constexpr (DV == D) {
+      bool any_cancel = false;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (cancels(j, c))
-            dpt[j][c] = dot_fma<D>(Ob + (8 * j + 2 * t + (c & 1)) * LD,
-                                   Vs + (rw + g + 8 * (c >> 1)) * LD);
+        for (int c = 0; c < 4; ++c) any_cancel |= cancels(j, c);
+      if (__any_sync(0xffffffffu, any_cancel)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (cancels(j, c))
+              dpt[j][c] = dot_fma<DV>(Ob + (8 * j + 2 * t + (c & 1)) * LDV,
+                                      Vs + (rw + g + 8 * (c >> 1)) * LDV);
+      }
+    } else {
+      // Latent attention's values collapse toward one vector early in
+      // training, and then most warp tiles hold a cancelling pair in most
+      // of their 32 fragment slots: walked slot by slot, a tile costs a
+      // sequential product for every slot that any lane needs. Here each
+      // lane walks a mask of its own pairs, so a tile costs the most that
+      // one lane holds; each dp is the same sequential product as above.
+      unsigned mine = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mine |= unsigned(cancels(j, c)) << (4 * j + c);
+      while (__any_sync(0xffffffffu, mine != 0u)) {
+        if (mine != 0u) {
+          const int s = __ffs(mine) - 1, j = s >> 2, c = s & 3;
+          mine &= mine - 1u;
+          const float x = dot_fma<DV>(Ob + (8 * j + 2 * t + (c & 1)) * LDV,
+                                      Vs + (rw + g + 8 * (c >> 1)) * LDV);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+              if (4 * jj + cc == s) dpt[jj][cc] = x;
+        }
+      }
     }
     // the capped logits: scale on the float32 sums, the shared exact tanh
 #pragma unroll
@@ -814,17 +899,36 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
       acc_to_a(pa, st[j], st[j + 1]);
       acc_to_a_residual(pl, pa, st[j], st[j + 1]);
       acc_to_a(sa, dpt[j], dpt[j + 1]);
+      if constexpr (DV == D) {
 #pragma unroll
-      for (int c = 0; c < DW / 8; c += 2) {
-        uint32_t of[4], qf[4];
-        ldsm_x4_t(of, ldsm_rows(Ob, LD, 8 * j, cw + 8 * c, lane));
-        ldsm_x4_t(qf, ldsm_rows(Qb, LD, 8 * j, cw + 8 * c, lane));
-        mma(dv[c], pa, of[0], of[1]);
-        mma(dv[c], pl, of[0], of[1]);
-        mma(dv[c + 1], pa, of[2], of[3]);
-        mma(dv[c + 1], pl, of[2], of[3]);
-        mma(dk[c], sa, qf[0], qf[1]);
-        mma(dk[c + 1], sa, qf[2], qf[3]);
+        for (int c = 0; c < DW / 8; c += 2) {
+          uint32_t of[4], qf[4];
+          ldsm_x4_t(of, ldsm_rows(Ob, LD, 8 * j, cw + 8 * c, lane));
+          ldsm_x4_t(qf, ldsm_rows(Qb, LD, 8 * j, cw + 8 * c, lane));
+          mma(dv[c], pa, of[0], of[1]);
+          mma(dv[c], pl, of[0], of[1]);
+          mma(dv[c + 1], pa, of[2], of[3]);
+          mma(dv[c + 1], pl, of[2], of[3]);
+          mma(dk[c], sa, qf[0], qf[1]);
+          mma(dk[c + 1], sa, qf[2], qf[3]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < DWV / 8; c += 2) {
+          uint32_t of[4];
+          ldsm_x4_t(of, ldsm_rows(Ob, LDV, 8 * j, cwv + 8 * c, lane));
+          mma(dv[c], pa, of[0], of[1]);
+          mma(dv[c], pl, of[0], of[1]);
+          mma(dv[c + 1], pa, of[2], of[3]);
+          mma(dv[c + 1], pl, of[2], of[3]);
+        }
+#pragma unroll
+        for (int c = 0; c < DW / 8; c += 2) {
+          uint32_t qf[4];
+          ldsm_x4_t(qf, ldsm_rows(Qb, LD, 8 * j, cw + 8 * c, lane));
+          mma(dk[c], sa, qf[0], qf[1]);
+          mma(dk[c + 1], sa, qf[2], qf[3]);
+        }
       }
       if (cw == 0) {  // ds^T to shared memory, as the A fragment lays it out
         bf16* row = Ss + (rw + g) * SLD + 8 * j + 2 * t;
@@ -866,19 +970,34 @@ __global__ void __launch_bounds__(Lay<D>::TT) flash_bwd_dkv_tc(const Params P, f
   cp_async_wait<0>();
 
   bf16* dkb = static_cast<bf16*>(P.dk) + head_base(P.nhd, bi, head, H, nkv, D);
-  bf16* dvb = static_cast<bf16*>(P.dv) + head_base(P.nhd, bi, head, H, nkv, D);
+  bf16* dvb = static_cast<bf16*>(P.dv) + head_base(P.nhd, bi, head, H, nkv, DV);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = k0 + rw + g + 8 * half;
     if (r >= nkv) continue;
+    if constexpr (DV == D) {
 #pragma unroll
-    for (int c = 0; c < DW / 8; ++c) {
-      const int col = cw + 8 * c + 2 * t;
-      float x0 = dk[c][2 * half] * scale, x1 = dk[c][2 * half + 1] * scale;
-      if (ROPE) unrotate_pair(x0, x1, P.cos, P.sin, (size_t(bi) * nkv + r) * D + col);
-      *reinterpret_cast<uint32_t*>(dkb + size_t(r) * rs + col) = pack_bf16(x0, x1);
-      *reinterpret_cast<uint32_t*>(dvb + size_t(r) * rs + col) =
-          pack_bf16(dv[c][2 * half], dv[c][2 * half + 1]);
+      for (int c = 0; c < DW / 8; ++c) {
+        const int col = cw + 8 * c + 2 * t;
+        float x0 = dk[c][2 * half] * scale, x1 = dk[c][2 * half + 1] * scale;
+        if (ROPE) unrotate_pair(x0, x1, P.cos, P.sin, (size_t(bi) * nkv + r) * D + col);
+        *reinterpret_cast<uint32_t*>(dkb + size_t(r) * rs + col) = pack_bf16(x0, x1);
+        *reinterpret_cast<uint32_t*>(dvb + size_t(r) * rs + col) =
+            pack_bf16(dv[c][2 * half], dv[c][2 * half + 1]);
+      }
+    } else {  // no RoPE
+#pragma unroll
+      for (int c = 0; c < DW / 8; ++c) {
+        const int col = cw + 8 * c + 2 * t;
+        *reinterpret_cast<uint32_t*>(dkb + size_t(r) * rs + col) =
+            pack_bf16(dk[c][2 * half] * scale, dk[c][2 * half + 1] * scale);
+      }
+#pragma unroll
+      for (int c = 0; c < DWV / 8; ++c) {
+        const int col = cwv + 8 * c + 2 * t;
+        *reinterpret_cast<uint32_t*>(dvb + size_t(r) * rsv + col) =
+            pack_bf16(dv[c][2 * half], dv[c][2 * half + 1]);
+      }
     }
   }
 }
@@ -903,15 +1022,15 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_store(const Params P, const 
   }
 }
 
-template <int D, bool ROPE>
+template <int D, bool ROPE, int DV = D>
 int launch(const Params& P, int b, float* dq_acc, cudaStream_t stream) {
-  const int smem = int(Lay<D>::kBytes);
+  const int smem = int(Lay<D, DV>::kBytes);
   const long long kv_blocks = (long long)b * P.H * ((P.nkv + TB - 1) / TB);
   if (kv_blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  auto dkv = flash_bwd_dkv_tc<D, ROPE>;
+  auto dkv = flash_bwd_dkv_tc<D, ROPE, DV>;
   cudaError_t err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  dkv<<<unsigned(kv_blocks), Lay<D>::TT, smem, stream>>>(P, dq_acc);
+  dkv<<<unsigned(kv_blocks), Lay<D, DV>::TT, smem, stream>>>(P, dq_acc);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   const size_t pairs = size_t(b) * P.H * P.nq * (D / 2);
   const unsigned grid = unsigned(std::min<size_t>((pairs + 255) / 256, 132 * 16));
@@ -919,8 +1038,13 @@ int launch(const Params& P, int b, float* dq_acc, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-int dispatch(int d, const Params& P, int b, float* dq_acc, cudaStream_t stream) {
+int dispatch(int d, int dv, const Params& P, int b, float* dq_acc, cudaStream_t stream) {
   const bool rope = P.cos != nullptr;  // a template flag: no branch in the loads
+  if (dv != d) {  // unequal widths: head-major, no RoPE
+    if (d == 192 && dv == 128 && !rope && !P.nhd)
+      return launch<192, false, 128>(P, b, dq_acc, stream);
+    return int(cudaErrorInvalidValue);
+  }
   switch (d) {
     case 32:
       return rope ? launch<32, true>(P, b, dq_acc, stream) : launch<32, false>(P, b, dq_acc, stream);
@@ -941,9 +1065,11 @@ int dispatch(int d, const Params& P, int b, float* dq_acc, cudaStream_t stream) 
 
 }  // namespace
 
-// q/dout/dq [b,h,nq,d], k/v/dk/dv [b,h,nkv,d] (nhd = 0) or the token-major
-// [b,n,h*d] (nhd = 1), contiguous, bf16 (is_bf16=1; q, k, v, dout and
-// cos/sin 16-byte aligned) or float32; lse and delta float32 [b,h,nq];
+// q/dq [b,h,nq,d], dout [b,h,nq,d_v], k/dk [b,h,nkv,d], v/dv [b,h,nkv,d_v]
+// (nhd = 0) or the token-major [b,n,h*d] (nhd = 1, d_v = d), contiguous,
+// bf16 (is_bf16=1; q, k, v, dout and cos/sin 16-byte aligned) or float32;
+// d = d_v in {32, 64, 128, 256}, or (d, d_v) = (192, 128) head-major without
+// RoPE; lse and delta float32 [b,h,nq];
 // spans int32 [b,m,3] (any m); cos/sin float32 [b,nq,d] or NULL (needs
 // nq == nkv when given); dq_acc and cancel: for bf16 a zeroed float32
 // [b,h,nq,d] scratch and a float32 [b*h*(2*nq+1)] one (`cancel_bounds`'s
@@ -956,7 +1082,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                          const int* spans, int m,
                          const float* cos, const float* sin, void* dq, void* dk, void* dv,
                          float* dq_acc, int* ends, int b, int h, int nq, int nkv, int d,
-                         int q_off, int kv_off, int nhd, float scale, float softcap,
+                         int d_v, int q_off, int kv_off, int nhd, float scale, float softcap,
                          int is_bf16, void* stream) {
   if (m < 0 || nq <= 0 || nkv <= 0 || ends == nullptr) return int(cudaErrorInvalidValue);
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && nq != nkv))
@@ -971,16 +1097,16 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   row_ends<<<unsigned((rows + 255) / 256), 256, 0, s>>>(P, b);
   if (cudaError_t err = cudaGetLastError(); err != cudaSuccess) return int(err);
   if (is_bf16) {
-    if (d != 32 && d != 64 && d != 128 && d != 256) return int(cudaErrorInvalidValue);
+    if (d_v != 32 && d_v != 64 && d_v != 128 && d_v != 256) return int(cudaErrorInvalidValue);
     const size_t bh = size_t(b) * h;
     unsigned* vmax = reinterpret_cast<unsigned*>(cancel + 2 * bh * nq);
     cudaError_t err = cudaMemsetAsync(vmax, 0, bh * sizeof(unsigned), s);
     if (err != cudaSuccess) return int(err);
-    const int per = 2048 / d;  // rows a block of the two
-    tc::v_norm_max<<<unsigned(bh * ((nkv + per - 1) / per)), 256, 0, s>>>(P, d, vmax);
-    tc::cancel_bounds<<<unsigned(bh * ((nq + per - 1) / per)), 256, 0, s>>>(P, d, vmax);
+    const int per = 2048 / d_v;  // rows a block of the two (rows of v and dO: d_v wide)
+    tc::v_norm_max<<<unsigned(bh * ((nkv + per - 1) / per)), 256, 0, s>>>(P, d_v, vmax);
+    tc::cancel_bounds<<<unsigned(bh * ((nq + per - 1) / per)), 256, 0, s>>>(P, d_v, vmax);
     if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-    return tc::dispatch(d, P, b, dq_acc, s);
+    return tc::dispatch(d, d_v, P, b, dq_acc, s);
   }
-  return dispatch_d<float>(d, P, b, s);
+  return dispatch_d<float>(d, d_v, P, b, s);
 }

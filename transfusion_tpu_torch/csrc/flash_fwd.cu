@@ -67,6 +67,13 @@
 //     would move lse by ~1e-3, beyond the card checks' 1e-4. exp is exp2
 //     on the special-function unit.
 //
+// Value width. The kernels take the q . k width D and the value (and
+// output) width DV as template parameters (DV = D unless given; every
+// (d, d) instantiation is the code it was). (D, DV) = (192, 128), the
+// latent attention of DeepSeek-V3-style blocks, is instantiated head-major
+// without RoPE (the caller rotates the 64 RoPE columns): S over D, O over
+// DV, one m-tile a warp as at d 128, Q's fragments in registers.
+//
 // float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernel:
 // one block of 256 threads per (b*h, 64-row q tile), float32 products from
 // shared memory (no tensor cores: TF32 would keep ~3 decimal digits), loops
@@ -97,13 +104,14 @@ namespace fp32 {
 constexpr int RPT = 4;
 constexpr int BQ = 16 * RPT;  // 64 query rows per block
 
-template <typename T, int D, bool NHD, bool ROPE>
+// D: the q . k width; DV: the value and output width (D unless given)
+template <typename T, int D, bool NHD, bool ROPE, int DV = D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ spans, int m, const float* __restrict__ cos,
                  const float* __restrict__ sin, T* __restrict__ out, float* __restrict__ lse,
                  int H, int nq, int nkv, int q_off, int kv_off, float scale, float softcap) {
-  using TileT = Tile<D, RPT>;
+  using TileT = Tile<D, RPT, DV>;
   extern __shared__ float smem[];
   TileT tile(smem);
 
@@ -112,10 +120,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int BH = gridDim.x / ((nq + BQ - 1) / BQ);
   const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
   const int q0 = int(blockIdx.x / BH) * BQ;
-  const size_t rs = row_stride(NHD, H, D);
+  const size_t rs = row_stride(NHD, H, D), rsv = row_stride(NHD, H, DV);
   const T* qb = q + head_base(NHD, bi, head, H, nq, D);
   const T* kb = k + head_base(NHD, bi, head, H, nkv, D);
-  const T* vb = v + head_base(NHD, bi, head, H, nkv, D);
+  const T* vb = v + head_base(NHD, bi, head, H, nkv, DV);
   // q * scale in q's own dtype (the JAX kernel scales before the product)
   const float scale_t = round_to<T>(scale);
   for (int e = tid; e < BQ * D; e += NT) {
@@ -154,17 +162,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int it = 0; it < hi; ++it) {
     const int k0 = it * BK;
     __syncthreads();  // Q is written / the previous tile's readers are done
-    for (int e = tid; e < BK * D; e += NT) {
-      const int r = e / D, c = e - r * D, gk = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (gk < nkv) {
-        const size_t a = (size_t(bi) * nkv + gk) * D;
-        kx = rope_load(kb + size_t(gk) * rs, c, ROPE ? cos + a : nullptr,
-                       ROPE ? sin + a : nullptr);
-        vx = to_f(vb[size_t(gk) * rs + c]);
+    if constexpr (DV == D) {
+      for (int e = tid; e < BK * D; e += NT) {
+        const int r = e / D, c = e - r * D, gk = k0 + r;
+        float kx = 0.f, vx = 0.f;
+        if (gk < nkv) {
+          const size_t a = (size_t(bi) * nkv + gk) * D;
+          kx = rope_load(kb + size_t(gk) * rs, c, ROPE ? cos + a : nullptr,
+                         ROPE ? sin + a : nullptr);
+          vx = to_f(vb[size_t(gk) * rs + c]);
+        }
+        tile.Ks[r * TileT::QS + c] = kx;
+        tile.Vs[r * D + c] = vx;
       }
-      tile.Ks[r * TileT::QS + c] = kx;
-      tile.Vs[r * D + c] = vx;
+    } else {  // K and V rows of different widths (no RoPE: head-major only)
+      for (int e = tid; e < BK * D; e += NT) {
+        const int r = e / D, c = e - r * D, gk = k0 + r;
+        tile.Ks[r * TileT::QS + c] = gk < nkv ? to_f(kb[size_t(gk) * rs + c]) : 0.f;
+      }
+      for (int e = tid; e < BK * DV; e += NT) {
+        const int r = e / DV, c = e - r * DV, gk = k0 + r;
+        tile.Vs[r * DV + c] = gk < nkv ? to_f(vb[size_t(gk) * rsv + c]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -181,28 +200,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     tile.pv(acc, tx, ty);
   }
 
-  T* ob = out + head_base(NHD, bi, head, H, nq, D);
+  T* ob = out + head_base(NHD, bi, head, H, nq, DV);
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int row = q0 + ty * RPT + r;
     if (row >= nq) continue;
     const float ls = fmaxf(l_i[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < TileT::DC; ++c) ob[size_t(row) * rs + tx + 16 * c] = from_f<T>(acc[r][c] / ls);
+    for (int c = 0; c < TileT::DC; ++c) ob[size_t(row) * rsv + tx + 16 * c] = from_f<T>(acc[r][c] / ls);
     if (lse != nullptr && tx == 0) lse[size_t(bh) * nq + row] = m_i[r] + logf(ls);
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch(const float* q, const float* k, const float* v, const int* spans, int m, Rope rope,
            float* out, float* lse, int b, int h, int nq, int nkv, int q_off, int kv_off, int nhd,
            float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = Tile<D, RPT>::kFloats * sizeof(float);
+  const size_t smem = Tile<D, RPT, DV>::kFloats * sizeof(float);
   // layout and RoPE are template flags: the head-major route compiles to
-  // constant strides and loads without a branch
-  auto kern = !nhd ? flash_fwd_kernel<float, D, false, false>
-              : rope.cos != nullptr ? flash_fwd_kernel<float, D, true, true>
-                                    : flash_fwd_kernel<float, D, true, false>;
+  // constant strides and loads without a branch; unequal widths are
+  // head-major only
+  auto kern = flash_fwd_kernel<float, D, false, false, DV>;
+  if constexpr (DV != D) {
+    if (nhd) return int(cudaErrorInvalidValue);
+  } else if (nhd) {
+    kern = rope.cos != nullptr ? flash_fwd_kernel<float, D, true, true>
+                               : flash_fwd_kernel<float, D, true, false>;
+  }
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -213,13 +237,19 @@ int launch(const float* q, const float* k, const float* v, const int* spans, int
   return int(cudaGetLastError());
 }
 
-int dispatch(int d, const void* q, const void* k, const void* v, const int* spans, int m,
-             Rope rope, void* out, float* lse, int b, int h, int nq, int nkv, int q_off,
+int dispatch(int d, int dv, const void* q, const void* k, const void* v, const int* spans,
+             int m, Rope rope, void* out, float* lse, int b, int h, int nq, int nkv, int q_off,
              int kv_off, int nhd, float scale, float softcap, cudaStream_t stream) {
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(out);
+  if (dv != d) {
+    if (d == 192 && dv == 128)
+      return launch<192, 128>(qf, kf, vf, spans, m, rope, of, lse, b, h, nq, nkv, q_off, kv_off,
+                              nhd, scale, softcap, stream);
+    return int(cudaErrorInvalidValue);
+  }
   switch (d) {
     case 32:
       return launch<32>(qf, kf, vf, spans, m, rope, of, lse, b, h, nq, nkv, q_off, kv_off, nhd,
@@ -252,18 +282,23 @@ using bf16 = __nv_bfloat16;
 constexpr int BKV = 64;     // kv rows of a tile
 constexpr int TT = 128;     // threads: 4 warps
 
-template <int D>
+// D: the q . k width; DV: the value and output width (D unless given)
+template <int D, int DV = D>
 struct Lay {
   // m-tiles of 16 q rows a warp: two up to d 64 (FlashAttention-2's 32
   // rows a warp: each K / V fragment read from shared memory feeds two
   // products), one above (the output accumulator would not fit)
-  static constexpr int MT = D <= 64 ? 2 : 1;
+  static constexpr int MT = D <= 64 && DV <= 64 ? 2 : 1;
   static constexpr int BQ = 64 * MT;  // q rows of a block
-  static constexpr int LD = D + 8;    // padded bf16 row stride of a tile
-  static constexpr int QTILE = BQ * LD, TILE = BKV * LD;
-  static constexpr bool QREG = D <= 128;  // Q's A fragments held in registers
+  static constexpr int LD = D + 8;    // padded bf16 row stride of a Q or K tile
+  static constexpr int LDV = DV + 8;  // and of a V tile
+  static constexpr int QTILE = BQ * LD, TILE = BKV * LD, TILEV = BKV * LDV;
+  // Q's A fragments held in registers (at q . k 192 beside v 128 they and
+  // the output accumulator take 112 registers a thread, as d 128's 96)
+  static constexpr bool QREG = D <= 192;
   // the Q tile, 2 x K and 2 x V tiles
-  static constexpr size_t kBytes = (size_t(QTILE) + 4 * size_t(TILE)) * sizeof(bf16);
+  static constexpr size_t kBytes =
+      (size_t(QTILE) + 2 * size_t(TILE) + 2 * size_t(TILEV)) * sizeof(bf16);
 };
 
 struct Args {
@@ -293,10 +328,11 @@ __device__ __forceinline__ void scale_rows(bf16* tile, float mul) {
   }
 }
 
-template <int D, bool NHD, bool ROPE>
+template <int D, bool NHD, bool ROPE, int DV = D>
 __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
-  using L = Lay<D>;
-  constexpr int LD = L::LD, TILE = L::TILE, MT = L::MT, BQ = L::BQ;
+  using L = Lay<D, DV>;
+  constexpr int LD = L::LD, LDV = L::LDV, TILE = L::TILE, TILEV = L::TILEV, MT = L::MT,
+                BQ = L::BQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + L::QTILE;  // two buffers
@@ -309,10 +345,10 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
   const int BH = gridDim.x / n_q_tiles;
   const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
   const int q0 = (n_q_tiles - 1 - int(blockIdx.x / BH)) * BQ;  // last q tiles first
-  const size_t rs = row_stride(NHD, H, D);
+  const size_t rs = row_stride(NHD, H, D), rsv = row_stride(NHD, H, DV);
   const bf16* qb = A.q + head_base(NHD, bi, head, H, nq, D);
   const bf16* kb = A.k + head_base(NHD, bi, head, H, nkv, D);
-  const bf16* vb = A.v + head_base(NHD, bi, head, H, nkv, D);
+  const bf16* vb = A.v + head_base(NHD, bi, head, H, nkv, DV);
   const float scale_t = __bfloat162float(__float2bfloat16(A.scale));
 
   auto load_kv = [&](int it, int buf) {
@@ -322,7 +358,7 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
                                            1.f);
     else
       copy_rows_async<D, LD, BKV, TT>(Ks + buf * TILE, kb, rs, k0, nkv);
-    copy_rows_async<D, LD, BKV, TT>(Vs + buf * TILE, vb, rs, k0, nkv);
+    copy_rows_async<DV, LDV, BKV, TT>(Vs + buf * TILEV, vb, rsv, k0, nkv);
   };
   // the first K / V tile and Q (raw without RoPE) in flight while the
   // spans are read: short sequences are bound by this latency
@@ -357,7 +393,7 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
         ldsm_x4(qa[mt][kk], ldsm_rows(Qs, LD, r0 + 16 * mt, 16 * kk, lane));
   }
 
-  float o[MT][D / 8][4] = {};  // m-tile rows g, g + 8; columns 8c + 2t, + 1
+  float o[MT][DV / 8][4] = {};  // m-tile rows g, g + 8; columns 8c + 2t, + 1
   float mrow[MT][2], lrow[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -375,7 +411,7 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
     const int k0 = it * BKV;
     if (k0 < end_last && q0 + r0 < nq) {  // warp-uniform: a row of the warp sees it
       const bf16* Kb = Ks + buf * TILE;
-      const bf16* Vb = Vs + buf * TILE;
+      const bf16* Vb = Vs + buf * TILEV;
       // S = (Q * scale) K^T: rows g, g + 8 of each m-tile; columns 8j + 2t, + 1
       float s[MT][8][4] = {};
 #pragma unroll
@@ -445,7 +481,7 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) lrow[mt][h2] = lrow[mt][h2] * alpha[h2] + psum[h2];
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
+        for (int c = 0; c < DV / 8; ++c) {
           o[mt][c][0] *= alpha[0];
           o[mt][c][1] *= alpha[0];
           o[mt][c][2] *= alpha[1];
@@ -459,9 +495,9 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) acc_to_a(pa[mt], s[mt][j], s[mt][j + 1]);
 #pragma unroll
-        for (int c = 0; c < D / 8; c += 2) {
+        for (int c = 0; c < DV / 8; c += 2) {
           uint32_t vf[4];
-          ldsm_x4_t(vf, ldsm_rows(Vb, LD, 8 * j, 8 * c, lane));
+          ldsm_x4_t(vf, ldsm_rows(Vb, LDV, 8 * j, 8 * c, lane));
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             mma(o[mt][c], pa[mt], vf[0], vf[1]);
@@ -475,7 +511,7 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
   }
   cp_async_wait<0>();
 
-  bf16* ob = A.out + head_base(NHD, bi, head, H, nq, D);
+  bf16* ob = A.out + head_base(NHD, bi, head, H, nq, DV);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -486,22 +522,22 @@ __global__ void __launch_bounds__(TT) flash_fwd_tc(const Args A) {
       const int row = q0 + r0 + 16 * mt + g + 8 * h2;
       if (row >= nq) continue;
       const float ls = fmaxf(l, 1e-30f);
-      bf16* dst = ob + size_t(row) * rs + 2 * t;
+      bf16* dst = ob + size_t(row) * rsv + 2 * t;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
+      for (int c = 0; c < DV / 8; ++c)
         *reinterpret_cast<uint32_t*>(dst + 8 * c) =
             pack_bf16(o[mt][c][2 * h2] / ls, o[mt][c][2 * h2 + 1] / ls);
       if (A.lse != nullptr && t == 0) A.lse[size_t(bh) * nq + row] = mrow[mt][h2] + logf(ls);
     }
 }
 
-template <int D, bool NHD, bool ROPE>
+template <int D, bool NHD, bool ROPE, int DV = D>
 int launch(const Args& A, int b, cudaStream_t stream) {
-  const int smem = int(Lay<D>::kBytes);
-  constexpr int BQ = Lay<D>::BQ;
+  const int smem = int(Lay<D, DV>::kBytes);
+  constexpr int BQ = Lay<D, DV>::BQ;
   const long long blocks = (long long)b * A.H * ((A.nq + BQ - 1) / BQ);
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  auto kern = flash_fwd_tc<D, NHD, ROPE>;
+  auto kern = flash_fwd_tc<D, NHD, ROPE, DV>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
   kern<<<unsigned(blocks), TT, smem, stream>>>(A);
@@ -517,7 +553,11 @@ int launch_layout(const Args& A, int b, int nhd, cudaStream_t stream) {
                           : launch<D, true, false>(A, b, stream);
 }
 
-int dispatch(int d, const Args& A, int b, int nhd, cudaStream_t stream) {
+int dispatch(int d, int dv, const Args& A, int b, int nhd, cudaStream_t stream) {
+  if (dv != d) {  // unequal widths: head-major, no RoPE
+    if (d == 192 && dv == 128 && !nhd) return launch<192, false, false, 128>(A, b, stream);
+    return int(cudaErrorInvalidValue);
+  }
   switch (d) {
     case 32:
       return launch_layout<32>(A, b, nhd, stream);
@@ -536,15 +576,16 @@ int dispatch(int d, const Args& A, int b, int nhd, cudaStream_t stream) {
 
 }  // namespace
 
-// q [b,h,nq,d], k/v [b,h,nkv,d] (nhd = 0) or q [b,nq,h*d], k/v [b,nkv,h*d]
-// (nhd = 1), contiguous, bf16 (is_bf16=1; q, k, v and cos/sin 16-byte
-// aligned) or float32; d in {32, 64, 128, 256}; spans int32 [b,m,3] (any
-// m); cos/sin float32 [b,nq,d] or NULL (no RoPE; only with nhd = 1,
-// where nq == nkv); out like q; lse float32 [b,h,nq] or NULL.
+// q [b,h,nq,d], k [b,h,nkv,d], v [b,h,nkv,d_v] (nhd = 0) or q [b,nq,h*d],
+// k/v [b,nkv,h*d] (nhd = 1), contiguous, bf16 (is_bf16=1; q, k, v and
+// cos/sin 16-byte aligned) or float32; d = d_v in {32, 64, 128, 256}, or
+// (d, d_v) = (192, 128) head-major; spans int32 [b,m,3] (any m); cos/sin
+// float32 [b,nq,d] or NULL (no RoPE; only with nhd = 1, where nq == nkv);
+// out like q with d_v columns; lse float32 [b,h,nq] or NULL.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* spans, int m,
                          const float* cos, const float* sin, void* out, float* lse, int b,
-                         int h, int nq, int nkv, int d, int q_off, int kv_off, int nhd,
+                         int h, int nq, int nkv, int d, int d_v, int q_off, int kv_off, int nhd,
                          float scale, float softcap, int is_bf16, void* stream) {
   if (m < 0 || nq <= 0 || nkv <= 0) return int(cudaErrorInvalidValue);
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && (nq != nkv || !nhd)))
@@ -555,8 +596,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int*
     const tc::Args A{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                      static_cast<const bf16*>(v), spans, cos, sin, static_cast<bf16*>(out), lse,
                      m, h, nq, nkv, q_off, kv_off, scale, softcap};
-    return tc::dispatch(d, A, b, nhd, s);
+    return tc::dispatch(d, d_v, A, b, nhd, s);
   }
-  return fp32::dispatch(d, q, k, v, spans, m, Rope{cos, sin}, out, lse, b, h, nq, nkv, q_off,
+  return fp32::dispatch(d, d_v, q, k, v, spans, m, Rope{cos, sin}, out, lse, b, h, nq, nkv, q_off,
                        kv_off, nhd, scale, softcap, s);
 }

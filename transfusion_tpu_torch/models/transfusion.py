@@ -517,7 +517,13 @@ class Transfusion:
                        self.core.pos_emb_mlps):
             module.float()
         # so do the hyper-connections' weights (the JAX module has no dtype)
+        # and a moonlight stack's routers and selection biases (its router
+        # runs in float32, as the modeling code's)
         for block in self.core.transformer.blocks:
+            if self.core.transformer.block == "moonlight":
+                if hasattr(block.mlp, "gate"):
+                    block.mlp.gate.float()
+                continue
             block.hc_attn.float()
             block.hc_ff.float()
         self._param_dtypes = {k: p.dtype for k, p in self.core.named_parameters()}

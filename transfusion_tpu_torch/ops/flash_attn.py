@@ -38,6 +38,10 @@ from transfusion_tpu_torch.ops.norms import NEG_INF
 from transfusion_tpu_torch.ops.spans import span_allowed
 
 HEAD_DIMS = (32, 64, 128, 256)
+# (q k width, value width) pairs the kernels take beside the equal widths of
+# HEAD_DIMS, head-major only: (192, 128) is DeepSeek-V3-style latent
+# attention (128 dims without RoPE and 64 with it beside 128-dim values)
+HEAD_DIM_PAIRS = ((192, 128),)
 # The JAX route's envelopes (pallas_attn_kernel.py:1178-1214). The TPU picks
 # its kernel by what fits in VMEM; the CUDA kernels stream tiles from device
 # memory and take every shape up to the overall cap, so here the envelopes
@@ -49,19 +53,25 @@ _MAX_N_TIMES_D_RESIDENT = 4096 * 64
 _MAX_N_TIMES_D_BWD = 8192 * 64
 _MAX_N_TIMES_D = 131072 * 64
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# flash_fwd(q, k, v, spans, m, cos, sin, out, lse, b, h, nq, nkv, d, q_off,
-#           kv_off, nhd, scale, softcap, is_bf16, stream)
-_FWD_ARGTYPES = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 8 + [_F] * 2 + [_I, _P]
+# flash_fwd(q, k, v, spans, m, cos, sin, out, lse, b, h, nq, nkv, d, d_v,
+#           q_off, kv_off, nhd, scale, softcap, is_bf16, stream)
+_FWD_ARGTYPES = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 9 + [_F] * 2 + [_I, _P]
 # flash_bwd(q, k, v, dout, lse, delta, cancel, spans, m, cos, sin, dq, dk, dv,
-#           dq_acc, ends, b, h, nq, nkv, d, q_off, kv_off, nhd, scale, softcap,
-#           is_bf16, stream)
-_BWD_ARGTYPES = [_P] * 8 + [_I] + [_P] * 7 + [_I] * 8 + [_F] * 2 + [_I, _P]
+#           dq_acc, ends, b, h, nq, nkv, d, d_v, q_off, kv_off, nhd, scale,
+#           softcap, is_bf16, stream)
+_BWD_ARGTYPES = [_P] * 8 + [_I] + [_P] * 7 + [_I] * 9 + [_F] * 2 + [_I, _P]
 
 
-def supported(n: int, d: int) -> bool:
+def widths_supported(d: int, dv: int) -> bool:
+    """The kernels take q k width d beside value width dv (head-major)."""
+    return (d == dv and d in HEAD_DIMS) or (d, dv) in HEAD_DIM_PAIRS
+
+
+def supported(n: int, d: int, dv: int | None = None) -> bool:
     """`transfusion_flash_attention` takes the kernel for these shapes and
-    the dense path otherwise (pallas_attn_kernel.py:1224)."""
-    return n * d <= _MAX_N_TIMES_D and d in (32, 64, 128, 256)
+    the dense path otherwise (pallas_attn_kernel.py:1224); dv: the value
+    width when it differs from the q k width d."""
+    return n * d <= _MAX_N_TIMES_D and widths_supported(d, d if dv is None else dv)
 
 
 def _use_batched(h: int, nq: int, nkv: int, d: int, *, bwd: bool) -> bool:
@@ -91,8 +101,9 @@ def tpu_row(h: int, nq: int, nkv: int, d: int, *, bwd: bool) -> int:
 
 def flash_attention_plain(q, k, v, spans=None, softcap=50.0, q_offset=0, kv_offset=0,
                           block_q=None):
-    """Dense PyTorch version of the forward kernel's arithmetic. Returns
-    (out [b,h,nq,d] in q's dtype, lse float32 [b,h,nq]). block_q: compute
+    """Dense PyTorch version of the forward kernel's arithmetic; v's width
+    may differ from q's and k's. Returns (out [b,h,nq,dv] in q's dtype, lse
+    float32 [b,h,nq]). block_q: compute
     block_q query rows at a time (the same arithmetic; the score matrix of
     a long sequence does not fit in memory whole)."""
     if block_q is not None and block_q < q.shape[2]:
@@ -121,7 +132,8 @@ def flash_attention_plain(q, k, v, spans=None, softcap=50.0, q_offset=0, kv_offs
 def backward_plain_f32(q, k, v, do, lse, delta, spans=None, softcap=50.0, q_offset=0,
                        kv_offset=0, block_q=None, round_operands=None):
     """The backward kernels' arithmetic, written out (not autograd through
-    the forward), in float32: p recomputed from lse under `where(allowed)`,
+    the forward), in float32, at any value width (dv, like v's, may differ
+    from dq's and dk's): p recomputed from lse under `where(allowed)`,
     ds = p (dp - delta) (1 - (s/cap)^2), q scaled in float32 and dq scaled
     again. Returns float32 (dq, dk, dv). block_q: block_q query rows at a
     time, dk and dv summed over the blocks in float32. round_operands (a
@@ -184,12 +196,15 @@ def flash_attention_backward_plain(q, k, v, do, lse, delta, spans=None, softcap=
 # ---------------------------------------------------------------------------
 
 
-def _check(what, q, k, v, b, h, nq, nkv, d, q_off, kv_off, rest=()):
-    """Refuse what the kernels cannot take. They index device memory with
-    64-bit offsets (any element count, any b * h, any span count), but take
-    lengths and global positions as 32-bit ints."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what} kernel: head dim {d} not in {HEAD_DIMS}")
+def _check(what, q, k, v, b, h, nq, nkv, d, q_off, kv_off, rest=(), d_v=None):
+    """Refuse what the kernels cannot take (d_v: the value width, d unless
+    given). They index device memory with 64-bit offsets (any element
+    count, any b * h, any span count), but take lengths and global
+    positions as 32-bit ints."""
+    d_v = d if d_v is None else d_v
+    if not widths_supported(d, d_v):
+        raise ValueError(f"{what} kernel: head dims (q k {d}, v {d_v}): equal and in "
+                         f"{HEAD_DIMS}, or one of {HEAD_DIM_PAIRS}")
     if min(q_off, kv_off) < -(2**31) or max(q_off + nq, kv_off + nkv) > 2**31:
         raise ValueError(f"{what} kernel: positions [{q_off}, {q_off + nq}) / "
                          f"[{kv_off}, {kv_off + nkv}) do not fit in int32")
@@ -226,34 +241,36 @@ def _rope_args(cos, sin, b, n, d, device):
 def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=None,
                cos=None, sin=None):
     """Launch csrc/flash_fwd.cu: for bf16 the tensor-core kernel, for
-    float32 the FMA kernel. heads=None: head-major q [b,h,nq,d], k/v
-    [b,h,nkv,d]; heads=h: token-major [b,n,h*d] with optional RoPE angles
-    cos/sin [b,n,d]. Returns (out like q, lse float32 [b,h,nq] | None).
-    Callers count the launch."""
+    float32 the FMA kernel. heads=None: head-major q [b,h,nq,d], k
+    [b,h,nkv,d], v [b,h,nkv,dv] (dv = d, or a pair of HEAD_DIM_PAIRS);
+    heads=h: token-major [b,n,h*d] with optional RoPE angles cos/sin
+    [b,n,d]. Returns (out [.., dv] like v's width in q's layout, lse
+    float32 [b,h,nq] | None). Callers count the launch."""
     nhd = heads is not None
     if nhd:
         b, nq, hd = q.shape
         h, d, nkv = heads, hd // heads, k.shape[1]
-        shape_k = (b, nkv, hd)
+        d_v = d
+        shape_k = shape_v = (b, nkv, hd)
     else:
         b, h, nq, d = q.shape
-        nkv = k.shape[2]
-        shape_k = (b, h, nkv, d)
+        nkv, d_v = k.shape[2], v.shape[-1]
+        shape_k, shape_v = (b, h, nkv, d), (b, h, nkv, d_v)
     what = "flash_attention_nhd" if nhd else "flash_attention"
-    _check(what, q, k, v, b, h, nq, nkv, d, int(q_offset), int(kv_offset))
-    for name, t in (("k", k), ("v", v)):
-        if tuple(t.shape) != shape_k:
+    _check(what, q, k, v, b, h, nq, nkv, d, int(q_offset), int(kv_offset), d_v=d_v)
+    for name, t, shape in (("k", k, shape_k), ("v", v, shape_v)):
+        if tuple(t.shape) != shape:
             raise ValueError(f"{what} kernel: {name} shape {tuple(t.shape)}")
     q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     spans_t = _spans_arg(what, spans, b, q.device)
     cos, sin, cos_p, sin_p = _rope_args(cos, sin, b, nq, d, q.device)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q) if d_v == d else q.new_empty((b, h, nq, d_v))
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if want_lse else None
     fn = _build.load("flash_fwd", _FWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), spans_t.data_ptr(), spans_t.shape[1],
         cos_p, sin_p, out.data_ptr(), lse.data_ptr() if lse is not None else None,
-        b, h, nq, nkv, d, int(q_offset), int(kv_offset), int(nhd),
+        b, h, nq, nkv, d, d_v, int(q_offset), int(kv_offset), int(nhd),
         float(d**-0.5), float(softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -275,12 +292,13 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
     if nhd:
         b, nq, hd = q.shape
         h, d, nkv = heads, hd // heads, k.shape[1]
+        d_v = d
     else:
         b, h, nq, d = q.shape
-        nkv = k.shape[2]
+        nkv, d_v = k.shape[2], v.shape[-1]
     what = "flash_attention_nhd backward" if nhd else "flash_attention backward"
     _check(what, q, k, v, b, h, nq, nkv, d, int(q_offset), int(kv_offset),
-           rest=(("dout", do),))
+           rest=(("dout", do),), d_v=d_v)
     q, k, v, do = (_aligned(t.contiguous()) for t in (q, k, v, do))
     lse = lse.to(torch.float32).contiguous()
     delta = delta.to(torch.float32).contiguous()
@@ -301,7 +319,7 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
         spans_t.shape[1], cos_p, sin_p,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if dq_acc is None else dq_acc.data_ptr(), ends.data_ptr(),
-        b, h, nq, nkv, d, int(q_offset), int(kv_offset), int(nhd),
+        b, h, nq, nkv, d, d_v, int(q_offset), int(kv_offset), int(nhd),
         float(d**-0.5), float(softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -376,7 +394,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, spans=None, causal=False, softcap=50.0,
                     q_offset=None, kv_offset=None, return_lse=False):
-    """q [b,h,nq,d], k/v [b,h,nkv,d]; spans Int[b,m,3] | None. Causality is
+    """q [b,h,nq,d], k [b,h,nkv,d], v [b,h,nkv,dv] (dv = d, or a pair of
+    HEAD_DIM_PAIRS on the card; any on the CPU); spans Int[b,m,3] | None;
+    softcap 0 is none. Causality is
     always on (as in the TPU kernels); `causal` only states that the caller
     wants it when no spans are given. q_offset/kv_offset (ints) are the
     global positions of q row 0 / kv column 0. return_lse=True also returns

@@ -27,6 +27,13 @@
                                       .plan (the chunk length), .decode (the
                                       chunk's launches), .fetch (the host
                                       blocked on the chunk), .retire
+      moonlight layers                transfusion.attn.mla (the latent
+      (`models/moonlight.py`)         projections and the heads' assembly);
+                                      transfusion.moe.route (router, top-k,
+                                      weights, the sort and group offsets),
+                                      .experts (the grouped products),
+                                      .combine, .shared; in the forward and
+                                      again in a remat's recompute
 
     A training step opens at most 8 spans, plus 3 for each microbatch after
     the first (4 on a mesh); a tick at most 6, plus 1 a prefill group.

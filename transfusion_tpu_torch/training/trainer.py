@@ -6,8 +6,9 @@ The optimizer is `chain(clip_by_global_norm(grad_clip_norm), optimizer)`
 (`training/optim.py`; `optimizer` defaults to `adam(learning_rate)`). With
 the default optimizer and a constant learning rate the step takes the fused
 clip + Adam + EMA pass (`training/fused_update.py`; `fused_update=`
-overrides), else `update` -> `apply_updates` -> `ema_update`; grad_norm is
-the global norm of the raw gradients either way.
+overrides; `donate_state=True` lets it write the new state over the old),
+else `update` -> `apply_updates` -> `ema_update`; grad_norm is the global
+norm of the raw gradients either way.
 
 The state holds float32 master weights, the optimizer's state and the EMA
 copy, keyed by the core's parameter names. Each step casts the masters to
@@ -161,7 +162,12 @@ class Trainer:
                  pipeline_microbatches: Optional[int] = None,
                  pipeline_schedule: str = "gpipe",
                  grad_accumulation: Optional[int] = None,
-                 fused_update: Optional[bool] = None):
+                 fused_update: Optional[bool] = None, donate_state: bool = False):
+        """`donate_state`: the fused update writes the new state over the
+        state it is given, as a jitted JAX step donates its buffers: a
+        model whose float32 masters, Adam moments and EMA fill most of the
+        card needs no second copy of them. The state passed to
+        `train_step` is then the returned one."""
         self.model = model
         self.mesh = mesh
         self.pipeline_microbatches = pipeline_microbatches
@@ -177,6 +183,9 @@ class Trainer:
             fused_update = optimizer is None and isinstance(learning_rate, (int, float))
         if fused_update and optimizer is not None:
             raise ValueError("fused_update runs clip + Adam only; it takes no optimizer")
+        if donate_state and not fused_update:
+            raise ValueError("donate_state takes the fused update (clip + Adam, no optimizer=)")
+        self.donate_state = donate_state
         self._axes = self._specs = self._layout = None
         if mesh is not None:
             self._setup_mesh(mesh)
@@ -389,7 +398,7 @@ class Trainer:
             params, adam, ema_params, grad_norm = fused_clip_adam_ema(
                 grads, state.params, adam, state.ema.params, state.ema.step,
                 learning_rate=self.learning_rate, grad_clip_norm=self.grad_clip_norm,
-                **{f"ema_{k}": v for k, v in self.ema_cfg.items()},
+                **{f"ema_{k}": v for k, v in self.ema_cfg.items()}, donate=self.donate_state,
             )
             opt_state = (state.opt_state[0], adam) if clipped else adam
             ema = EmaState(params=ema_params, step=state.ema.step + 1)
@@ -524,9 +533,10 @@ class Trainer:
         return self.checkpoint_dir
 
     def save(self, state: TrainState) -> str:
-        """Write `state` to checkpoint_dir/step_<step>.pt; returns the path.
-        On a mesh every rank calls it: the shards are gathered whole and
-        rank 0 writes them."""
+        """Write `state` to checkpoint_dir/step_<step>.pt, with the core's
+        persistent buffers (state the optimizer does not update, such as a
+        router's selection bias); returns the path. On a mesh every rank
+        calls it: the shards are gathered whole and rank 0 writes them."""
         path = os.path.join(self._dir(), f"step_{state.step}.pt")
         if self._axes is not None:
             state = self._unshard(state)
@@ -534,9 +544,12 @@ class Trainer:
                 dist.barrier()
                 return path
         os.makedirs(self._dir(), exist_ok=True)
+        params = dict(self.model.core.named_parameters())
         torch.save({
             "params": state.params, "opt_state": state.opt_state, "ema": state.ema.params,
             "ema_step": state.ema.step, "step": state.step,
+            "buffers": {k: v for k, v in self.model.core.state_dict().items()
+                        if k not in params},
         }, path)
         if self._axes is not None:
             dist.barrier()
@@ -544,7 +557,8 @@ class Trainer:
 
     def restore(self, step: Optional[int] = None) -> Optional[TrainState]:
         """The state saved at `step` (default: the latest), on the model's
-        device; None when there is no checkpoint."""
+        device, and the saved buffers copied into the core; None when there
+        is no checkpoint."""
         found = [int(m[1]) for f in (os.listdir(self._dir()) if os.path.isdir(self._dir()) else ())
                  if (m := re.fullmatch(r"step_(\d+)\.pt", f))]
         if step is None and not found:
@@ -552,6 +566,10 @@ class Trainer:
         step = max(found) if step is None else step
         path = os.path.join(self._dir(), f"step_{step}.pt")
         ck = torch.load(path, map_location=self.model.device, weights_only=True)
+        with torch.no_grad():
+            for name, buf in self.model.core.named_buffers():
+                if name in ck.get("buffers", {}):
+                    buf.copy_(ck["buffers"][name])
         state = TrainState(params=ck["params"], opt_state=ck["opt_state"],
                            ema=EmaState(params=ck["ema"], step=ck["ema_step"]), step=ck["step"])
         return state if self._axes is None else self._shard(state)
