@@ -1375,6 +1375,8 @@ def counted(mods, fn):
         fn_.launches = 0
         if hasattr(fn_, "launches_by_row"):
             fn_.launches_by_row = dict.fromkeys(fn_.launches_by_row, 0)
+        if hasattr(fn_, "launches_by_design"):
+            fn_.launches_by_design = dict.fromkeys(fn_.launches_by_design, 0)
     with replayed_launches(mods):
         out = fn()
     torch.cuda.synchronize()
@@ -3126,12 +3128,17 @@ def phase_latent_pair(torch, Transfusion, Trainer, mods):
             and counts["flash_bwd"] == depth * LATENT_STEPS,
             f"latent attention step: launches {counts}, want {2 * depth} forward and {depth} "
             "backward a step")
+    by_design = dict(mods["flash"].flash_attention_backward.launches_by_design)
+    require(by_design["wgmma"] == counts["flash_bwd"],
+            f"latent attention step: backward launches by design {by_design}, want every one "
+            "on the warpgroup kernel")
     log(json.dumps({"training": "moonlight 2 layers, 8 x 4096, remat full",
                     "steps": LATENT_STEPS, "ms_per_step": dt / LATENT_STEPS * 1e3,
                     "tokens_per_step": int(packed.total_tokens), "losses": losses,
                     "launches": counts, "by_row": {
                         "flash_fwd": mods["flash"].flash_attention.launches_by_row,
                         "flash_bwd": mods["flash"].flash_attention_backward.launches_by_row},
+                    "flash_bwd_by_design": by_design,
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
     return {"flash_fwd": counts["flash_fwd"], "flash_bwd": counts["flash_bwd"]}
 
@@ -3227,12 +3234,16 @@ def phase_long_training(torch, Transfusion, Trainer, mods):
             and counts["flash_bwd_streamed"] == counts["flash_bwd"] == want_b,
             f"{name}: launches {counts}, want {want_f} streamed forwards and {want_b} "
             "streamed backwards and no other")
+    by_design = dict(mods["flash"].flash_attention_backward.launches_by_design)
+    require(by_design["wgmma"] == want_b,
+            f"{name}: backward launches by design {by_design}, want every one on the warpgroup "
+            "kernel")
     log(json.dumps({
         "training": name, "params": n_params, "steps": LONG_STEPS, "seconds": dt,
         "ms_per_step": dt / LONG_STEPS * 1e3, "packed_tokens_per_s": tokens * LONG_STEPS / dt,
         "tokens_per_step": tokens, "positions_per_step": 2 * (LONG_N - 1),
         "peak_memory_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
-        "launches": counts,
+        "launches": counts, "flash_bwd_by_design": by_design,
     }))
     rel = abs(dots_loss - losses[0]) / abs(losses[0])
     norm_rel = abs(dots_norm - norms[0]) / norms[0]

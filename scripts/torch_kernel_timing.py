@@ -27,6 +27,8 @@ seeded bf16 inputs, at the main-path shapes of the kernel table's rows:
            no main path reaches it);
     row 8: `flash_attention_backward`, b8 h8 n1024 d64, 4 spans (run (b));
     row 9: `flash_attention_backward` at row 3's shape;
+    (rows 7-9 with their bound and, where the checkout counts it, the
+    design of the dK/dV kernel that ran: `launches_by_design`);
   cached decode (row 4, `decode_attention`, d 64, bf16 q; lens from the
   serving runs, valid slots a prefix):
     text: b8 h8 nq1 cap1152, the bench model's ragged prompts + 64 tokens;
@@ -166,6 +168,17 @@ def ptxas_report():
     return rows
 
 
+def bounds_ms(b, h, n, d, dv, span_list):
+    """(forward, backward) bounds of a head-major call: the larger of its
+    FLOPs over 989 TFLOP/s and its bytes over 3.35 TB/s."""
+    pairs = b * (n * (n + 1) // 2 + sum(ln * (ln - 1) // 2 for _, ln in span_list or ()))
+    pos_bytes = b * n * h * (2 * (d + d + dv + dv) + 4)
+    fwd = max(2.0 * h * (d + dv) * pairs / 989e12, pos_bytes / 3.35e12) * 1e3
+    bwd = max(2.0 * h * (3 * d + 2 * dv) * pairs / 989e12,
+              (2 * pos_bytes - b * n * h * 4) / 3.35e12) * 1e3
+    return fwd, bwd
+
+
 def time_backward(torch, out):
     from transfusion_tpu_torch.ops import flash_attn, flash_attn_nhd
 
@@ -183,7 +196,12 @@ def time_backward(torch, out):
 
             def run():
                 flash_attn.flash_attention_backward(q, k, v, o, lse, do, spans, 50.0)
+        designs = getattr(flash_attn.flash_attention_backward, "launches_by_design", {})
+        before = dict(designs)
         out[name] = mean_ms(torch, run, iters)
+        if not nhd:  # the bound, and the design of the dK/dV kernel that ran (where counted)
+            out[name + " bound_ms"] = bounds_ms(b, h, n, d, d, span_list)[1]
+            out[name + " design"] = [k for k, c in designs.items() if c != before[k]]
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
 
@@ -219,11 +237,7 @@ def time_pair(torch, out):
         (v, do), _, _, _ = inputs(torch, b, h, n, span_list, False, 2, 128)
         o, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True, softcap=0.0,
                                             return_lse=True)
-        pairs = b * (n * (n + 1) // 2 + sum(ln * (ln - 1) // 2 for _, ln in span_list or ()))
-        pos_bytes = b * n * h * (2 * (192 + 192 + 128 + 128) + 4)
-        fwd_bound = max(2.0 * h * (192 + 128) * pairs / 989e12, pos_bytes / 3.35e12) * 1e3
-        bwd_bound = max(2.0 * h * (3 * 192 + 2 * 128) * pairs / 989e12,
-                        (2 * pos_bytes - b * n * h * 4) / 3.35e12) * 1e3
+        fwd_bound, bwd_bound = bounds_ms(b, h, n, 192, 128, span_list)
         out[name + " fwd"] = [mean_ms(torch, lambda: flash_attn.flash_attention(
             q, k, v, spans=spans, causal=True, softcap=0.0), iters), fwd_bound]
         out[name + " bwd"] = [mean_ms(torch, lambda: flash_attn.flash_attention_backward(

@@ -305,6 +305,79 @@ def test_pair_backward_with_collapsed_values_matches_plain(cuda_device):
     assert_grads_close(got, want, 1e-2)
 
 
+def backward_case(q, k, v, do, spans, softcap, q_off=0, kv_off=0, block_q=None):
+    """(kernel's (dq, dk, dv), plain version's, launches by design during
+    the kernel's call)."""
+    out, lse = flash_attn.flash_attention(q, k, v, spans=spans, causal=True, softcap=softcap,
+                                          q_offset=q_off, kv_offset=kv_off, return_lse=True)
+    before = dict(flash_attn.flash_attention_backward.launches_by_design)
+    got = flash_attn.flash_attention_backward(q, k, v, out, lse, do, spans, softcap, q_off,
+                                              kv_off)
+    after = flash_attn.flash_attention_backward.launches_by_design
+    designs = {k_: after[k_] - before[k_] for k_ in after}
+    delta = (do.float() * out.float()).sum(-1)
+    want = flash_attn.flash_attention_backward_plain(q, k, v, do, lse, delta, spans, softcap,
+                                                     q_off, kv_off, block_q)
+    torch.cuda.synchronize()
+    return got, want, designs
+
+
+SPANS20_16K = np.asarray([[[0, 600 + 798 * i, 196] for i in range(20)]], np.int32)
+
+
+@pytest.mark.parametrize("case", [
+    "d64-4k-spans", "d64-16k-row", "d64-ragged-offsets", "d64-dead-rows", "d64-collapsed",
+    "pair-4k-spans", "pair-ragged-offsets-softcap", "pair-collapsed"])
+def test_warpgroup_backward_matches_plain(cuda_device, case):
+    """The warpgroup (wgmma + TMA) dK/dV kernel, which takes the head-major,
+    RoPE-free bf16 calls at (d, d_v) = (64, 64) and (192, 128), against the
+    plain version: the training cells' shapes (the 4k cell's spans, a row of
+    16384 with 20 spans, the pair at 4096), n not a multiple of a tile with
+    q / kv offsets and softcap 0 or 50, rows that see no column (dq exactly
+    0), and values collapsed to one vector (the cancellation path); each
+    gradient within 1e-2 of its largest element, and the call counted under
+    `launches_by_design["wgmma"]`."""
+    d, dv = (192, 128) if case.startswith("pair") else (64, 64)
+    b, h, n, spans_np, cap, q_off, kv_off, block_q = 2, 2, 1000, SPANS, 50.0, 64, 16, None
+    if case.endswith("4k-spans"):
+        n, spans_np, block_q = 4096, SPANS_4K, 1024
+        cap = 0.0 if d == 192 else 50.0
+        q_off = kv_off = 0
+    elif case == "d64-16k-row":
+        b, n, spans_np, block_q, q_off, kv_off = 1, 16384, SPANS20_16K, 1024, 0, 0
+    elif case == "d64-dead-rows":
+        n, q_off, kv_off = 300, 0, 48
+    elif case == "pair-ragged-offsets-softcap":
+        n = 700
+    q, k = (randn(b, h, n, d, seed=s, dtype=torch.bfloat16) for s in range(2))
+    v, do = (randn(b, h, n, dv, seed=s, dtype=torch.bfloat16) for s in range(2, 4))
+    if case.endswith("collapsed"):  # one vector plus 2^-5 of noise: dp - delta cancels
+        base = randn(1, 1, 1, dv, seed=2) + 1.0
+        v = (base + 2.0**-5 * randn(b, h, n, dv, seed=3)).to(torch.bfloat16)
+        spans_np, cap, q_off, kv_off = None, 0.0, 0, 0
+    spans = None if spans_np is None else torch.tensor(spans_np[:b], device=cuda_device)
+    got, want, designs = backward_case(q, k, v, do, spans, cap, q_off, kv_off, block_q)
+    assert designs == {"fma": 0, "mma": 0, "wgmma": 1}
+    assert_grads_close(got, want, 1e-2)
+    if case == "d64-dead-rows":  # rows that see no column: dq exactly 0
+        rows = torch.arange(n, device=cuda_device)
+        dead = (~flash_attn.span_allowed(rows, rows + kv_off, spans)).all(-1)  # [b, n]
+        assert dead[:, :3].all()
+        assert (got[0].permute(0, 2, 1, 3)[dead] == 0).all()
+
+
+@pytest.mark.parametrize("d", [32, 128, 256])
+def test_other_bf16_backward_calls_keep_the_mma_kernel(cuda_device, d):
+    """Head dims 32, 128 and 256 stay on the mma.sync kernel (design
+    "mma"), and float32 on the FMA kernels ("fma")."""
+    q, k, v, do = (randn(1, 2, 200, d, seed=s, dtype=torch.bfloat16) for s in range(4))
+    got, want, designs = backward_case(q, k, v, do, None, 50.0)
+    assert designs == {"fma": 0, "mma": 1, "wgmma": 0}
+    assert_grads_close(got, want, 1e-2)
+    got, want, designs = backward_case(*(t.float() for t in (q, k, v, do)), None, 50.0)
+    assert designs == {"fma": 1, "mma": 0, "wgmma": 0}
+
+
 def test_flash_kernels_refuse_other_unequal_widths(cuda_device):
     q = randn(1, 2, 64, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):

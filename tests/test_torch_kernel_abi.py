@@ -62,3 +62,13 @@ def test_flash_entry_points_take_the_value_width_after_the_head_dim(name, argtyp
     assert names[i + 1] == "d_v"
     assert argtypes[i] == argtypes[i + 1] == ctypes.c_int
     assert names[i - 2:i] == ["nq", "nkv"] and names[i + 2] == "q_off"
+
+
+def test_flash_bwd_writes_its_design_through_the_last_pointer_before_the_stream():
+    """`flash_bwd` takes `int* design` (where it writes the dK/dV kernel's
+    design, `flash_attn.BWD_DESIGNS`) right after `is_bf16` and before the
+    stream, where `launch_bwd` passes the address of a c_int."""
+    names = c_parameter_names("flash_bwd")
+    assert names[-3:] == ["is_bf16", "design", "stream"]
+    assert flash_attn._BWD_ARGTYPES[-3:] == [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    assert flash_attn.BWD_DESIGNS == ("fma", "mma", "wgmma")

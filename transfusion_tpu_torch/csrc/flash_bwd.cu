@@ -35,7 +35,53 @@
 // the products run on the tensor cores, the per-pair float32 work (tanh,
 // exp, the chain rule, the mask) costs about as much as the products.
 //
-// bf16 (every training path): tensor cores, in namespace `tc` below.
+// bf16, the head-major RoPE-free calls at (d, d_v) = (64, 64) and (192,
+// 128) (the training cells: every layer of n 4096 and 16384 takes the
+// head-major route): a Hopper warpgroup design, namespace `wg` below.
+//   * A block of three warpgroups per (b*h, kv tile): one producer warp
+//     (setmaxnreg 24) brings K and V once, then each q tile's Q and dO by
+//     TMA (128-byte swizzled boxes of 64 columns, rows past n zero-filled)
+//     and its rows' lse, (delta, bound) and visible ends, through a ring of
+//     2 stages of mbarriers; two consumer warpgroups (setmaxnreg 240) run
+//     wgmma m64nNk16 on the tiles that have arrived.
+//   * d 64: a block holds 128 kv rows, 64 a consumer, whose K and V rows
+//     sit in registers as the A operand of s^T = K Q^T and dp^T = V dO^T
+//     (B read from the swizzled tile); q . k 192 / v 128: both consumers
+//     share a 64-row kv tile, each computing s^T and dp^T, and split the
+//     64-column blocks of dK, dV and dQ (0 and 2 / 1 of d, 0 / 1 of d_v),
+//     so that no sum spills (`-Xptxas -v`: 168 registers at launch, no
+//     spill at either width).
+//   * Then the tc kernel's per-pair float32 step on the accumulator
+//     fragments (same layout as mma.sync's C fragments): the shared exact
+//     tanh, exp2 of (s - lse) log2 e (flushed to 0 below 2^-126), the mask
+//     by visible end on partial tiles only, p as a bf16 pair hi + lo into
+//     dV += p^T dO (register A, dO read MN-major), ds = p (dp - delta) (1 -
+//     (s / cap)^2) (p times the chain formed first) into dK += ds^T Q. The
+//     cancellation rule as below, each lane walking a mask of its own
+//     cancelling pairs, dp summed by `dot_fma` through the swizzle. Issued
+//     in order s^T, dp^T; p while dp^T runs; dV; ds while dV runs; dK.
+//   * dQ: ds^T to shared memory once (swizzled), dQ = ds K by wgmma with
+//     both operands MN-major (d 64: each consumer 32 of the columns over
+//     all 128 kv rows; the pair: its blocks), added into dq_acc with
+//     8-byte atomics; `flash_bwd_dq_store` scales and stores it.
+//   * The grid is one-dimensional in groups of 16 heads: within a group kv
+//     tile 0 of each head first (the longest walk under causality), then
+//     tile 1, ..., so that the blocks in flight share a few heads' q, dO and
+//     dq rows in L2 (at b8 h16 n4096 the dq scratch is 403 MB; all heads at
+//     once took the pair's call from 10.0 to 20.0 ms on the H100).
+//   * What bounds it: the per-pair float32 work, not the products. At d 64
+//     with the softcap on, b1 h16 n16384 runs 6.8 ms against 1.39 ms of
+//     products at the bf16 peak; without that float32 work (timing only)
+//     3.7 ms. Two consumer warpgroups leave two warps a scheduler to hide
+//     its latency; issuing the next tile's s^T early made ptxas serialize
+//     every wgmma (a product's sums read across loop iterations), and
+//     taking a tile in two halves of 32 q rows was slower.
+//
+// bf16, the rest (d 32, 128 and 256, RoPE, the token-major layout): the
+// mma.sync design, namespace `tc` below. The warpgroup kernel takes neither
+// RoPE's rotation of q and k on load nor the token-major rows (TMA boxes of
+// one head's contiguous rows); d 32, 128 and 256 are not instantiated for
+// it (no training cell runs them; d 128 would take the pair's column split).
 //   * One block per (b*h, 64-row kv tile) holds K and V and walks the
 //     64-row q tiles that can see it: the keys a row sees form a prefix
 //     whose end grows with the row (attn_tile `visible_ends`), so these are
@@ -82,14 +128,12 @@
 //     one-dimensional, (b*h) fastest: kv tile 0 of every head, the longest
 //     walk under causality, starts first.
 //
-// Value width. Each kernel takes the q . k width D and the value width DV
-// as template parameters (DV = D unless given; every (d, d) instantiation
-// is the code it was). (D, DV) = (192, 128), the latent attention of
-// DeepSeek-V3-style blocks (128 dims without RoPE and 64 with it beside
-// 128-dim values), is instantiated head-major without RoPE: s^T and dK, dQ
-// run over D columns, dp^T and dV over DV; the tensor-core kernel takes
-// one warp per 64 value columns (2 warps a 16-row slice, 96 columns of dK
-// and dQ each). Padding such a head to d 256 would waste a third of the
+// Value width. The FMA kernels take the q . k width D and the value width
+// DV as template parameters (DV = D unless given). (D, DV) = (192, 128), the
+// latent attention of DeepSeek-V3-style blocks (128 dims without RoPE and 64
+// with it beside 128-dim values), is instantiated head-major without RoPE
+// (the warpgroup kernel for bf16): s^T and dK, dQ run over D columns, dp^T
+// and dV over DV. Padding such a head to d 256 would waste a third of the
 // q k^T products and half of the value products.
 //
 // float32 (the card-vs-CPU checks at 1e-4): the first version's FMA kernels:
@@ -110,11 +154,14 @@
 // un-rotated with the negated sin before the store (`:1408-1410`): the
 // partner column 2j^1 lives in the neighbouring lane, one shuffle away.
 
+#include <dlfcn.h>
+
 #include <algorithm>
 #include <type_traits>
 
 #include "attn_tile.cuh"
 #include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 using namespace attn_tile;
 
@@ -538,26 +585,24 @@ using bf16 = __nv_bfloat16;
 
 constexpr int TB = 64;  // q rows and kv rows per tile
 
-// D: the q . k width; DV: the value width (D unless given)
-template <int D, int DV = D>
+// D: the head width (q, k, v)
+template <int D>
 struct Lay {
   static constexpr int LD = D + 8;    // padded bf16 row stride of a [64][D] tile
-  static constexpr int LDV = DV + 8;  // and of a [64][DV] tile (V, dO)
-  static constexpr int TILE = TB * LD, TILEV = TB * LDV;
+  static constexpr int TILE = TB * LD;
   static constexpr int SLD = TB + 8;  // row stride of the ds^T tile
   // warps per 16 kv rows: each computes those rows' s^T and dp^T and owns
-  // DW = D / DS columns of dK and dQ and DWV = DV / DS of dV. From d 128
-  // one such warp per 64 value columns keeps its sums beside the score
-  // fragments in registers (d 128: 2 warps, no spills; d 256: 4 warps, 512
-  // threads, at most 128 registers a thread; q . k 192 beside v 128: 2
-  // warps, each 96 columns of dK and dQ and 64 of dV).
-  static constexpr int DS = DV > 64 ? DV / 64 : 1;
-  static constexpr int DW = D / DS, DWV = DV / DS;
+  // DW = D / DS columns of dK, dV and dQ. From d 128 one such warp per 64
+  // columns keeps its sums beside the score fragments in registers (d 128:
+  // 2 warps, no spills; d 256: 4 warps, 512 threads, at most 128 registers
+  // a thread).
+  static constexpr int DS = D > 64 ? D / 64 : 1;
+  static constexpr int DW = D / DS;
   static constexpr int TT = 32 * 4 * DS;  // threads of a block
   // K, V, 2 x Q and 2 x dO tiles, the ds^T tile, 2 x 64 lse, 2 x 64
   // (delta, its bound) and 2 x 64 visible ends
   static constexpr size_t kBytes =
-      (3 * size_t(TILE) + 3 * size_t(TILEV) + size_t(TB) * SLD) * sizeof(bf16) +
+      (6 * size_t(TILE) + size_t(TB) * SLD) * sizeof(bf16) +
       6 * TB * sizeof(float) + 2 * TB * sizeof(int);
 };
 
@@ -611,21 +656,26 @@ __device__ __forceinline__ float grad_pair(float x, float& dp, bool ok, float ls
 // x . y over D bf16 values (16-byte aligned rows), as sequential float32
 // FMAs from element 0; eight elements a load, the loop kept rolled (it is
 // inlined at every pair of a fragment)
+// acc + x . y over the 8 bf16 values of two 16-byte chunks, as sequential
+// float32 FMAs
+__device__ __forceinline__ float fma8(float acc, uint4 a, uint4 b) {
+  const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {  // the low half is the earlier element
+    acc = fmaf(__uint_as_float(aw[e] << 16), __uint_as_float(bw[e] << 16), acc);
+    acc = fmaf(__uint_as_float(aw[e] & 0xffff0000u), __uint_as_float(bw[e] & 0xffff0000u),
+               acc);
+  }
+  return acc;
+}
+
 template <int D>
 __device__ __forceinline__ float dot_fma(const bf16* x, const bf16* y) {
   float acc = 0.f;
 #pragma unroll 1
-  for (int d = 0; d < D; d += 8) {
-    const uint4 a = *reinterpret_cast<const uint4*>(x + d);
-    const uint4 b = *reinterpret_cast<const uint4*>(y + d);
-    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {  // the low half is the earlier element
-      acc = fmaf(__uint_as_float(aw[e] << 16), __uint_as_float(bw[e] << 16), acc);
-      acc = fmaf(__uint_as_float(aw[e] & 0xffff0000u), __uint_as_float(bw[e] & 0xffff0000u),
-                 acc);
-    }
-  }
+  for (int d = 0; d < D; d += 8)
+    acc = fma8(acc, *reinterpret_cast<const uint4*>(x + d),
+               *reinterpret_cast<const uint4*>(y + d));
   return acc;
 }
 
@@ -692,36 +742,34 @@ __global__ void __launch_bounds__(256) cancel_bounds(const Params P, int D,
 
 // dK and dV of one (b*h, kv tile), and dQ += ds K of each of its q tiles
 // into dq_acc.
-template <int D, bool ROPE, int DV = D>
-__global__ void __launch_bounds__(Lay<D, DV>::TT)
+template <int D, bool ROPE>
+__global__ void __launch_bounds__(Lay<D>::TT)
     flash_bwd_dkv_tc(const Params P, float* dq_acc) {
-  using L = Lay<D, DV>;
-  constexpr int LD = L::LD, LDV = L::LDV, TILE = L::TILE, TILEV = L::TILEV, SLD = L::SLD,
-                DW = L::DW, DWV = L::DWV;
+  using L = Lay<D>;
+  constexpr int LD = L::LD, TILE = L::TILE, SLD = L::SLD, DW = L::DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + TILE;
-  bf16* Qs = Vs + TILEV;      // two buffers
+  bf16* Qs = Vs + TILE;       // two buffers
   bf16* Os = Qs + 2 * TILE;   // two buffers of dO
-  bf16* Ss = Os + 2 * TILEV;  // ds^T [kv][q]
+  bf16* Ss = Os + 2 * TILE;   // ds^T [kv][q]
   float* ls = reinterpret_cast<float*>(Ss + TB * SLD);  // two buffers of lse
   float2* dls = reinterpret_cast<float2*>(ls + 2 * TB);  // two buffers of (delta, bound)
   int* es = reinterpret_cast<int*>(dls + 2 * TB);        // two buffers of visible ends
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   // this warp's 16 rows of the tile (kv rows of s^T, dK, dV; q rows of dQ)
-  // and the first of the DW columns of dK and dQ, and of the DWV of dV, it
-  // owns
-  const int rw = 16 * (w & 3), cw = (w >> 2) * DW, cwv = (w >> 2) * DWV;
+  // and the first of the DW columns of dK, dV and dQ it owns
+  const int rw = 16 * (w & 3), cw = (w >> 2) * DW;
   const int H = P.H, nq = P.nq, nkv = P.nkv;
   const int BH = gridDim.x / ((nkv + TB - 1) / TB);
   const int bh = blockIdx.x % BH, bi = bh / H, head = bh - bi * H;
   const int k0 = (blockIdx.x / BH) * TB, kg = k0 + P.kv_off;
-  const size_t rs = row_stride(P.nhd, H, D), rsv = row_stride(P.nhd, H, DV);
+  const size_t rs = row_stride(P.nhd, H, D);
   const bf16* qb = static_cast<const bf16*>(P.q) + head_base(P.nhd, bi, head, H, nq, D);
-  const bf16* ob = static_cast<const bf16*>(P.dout) + head_base(P.nhd, bi, head, H, nq, DV);
+  const bf16* ob = static_cast<const bf16*>(P.dout) + head_base(P.nhd, bi, head, H, nq, D);
   const bf16* kb = static_cast<const bf16*>(P.k) + head_base(P.nhd, bi, head, H, nkv, D);
-  const bf16* vb = static_cast<const bf16*>(P.v) + head_base(P.nhd, bi, head, H, nkv, DV);
+  const bf16* vb = static_cast<const bf16*>(P.v) + head_base(P.nhd, bi, head, H, nkv, D);
   const float* lse = P.lse + size_t(bh) * nq;
   const float2* delta = P.cancel + size_t(bh) * nq;
   const float scale = P.scale, cap = P.softcap, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
@@ -732,7 +780,7 @@ __global__ void __launch_bounds__(Lay<D, DV>::TT)
     copy_rows_regs<D, LD, TB, L::TT, true>(Ks, kb, rs, k0, nkv, P.cos, P.sin, bi, 1.f);
   else
     copy_rows_async<D, LD, TB, L::TT>(Ks, kb, rs, k0, nkv);
-  copy_rows_async<DV, LDV, TB, L::TT>(Vs, vb, rsv, k0, nkv);
+  copy_rows_async<D, LD, TB, L::TT>(Vs, vb, rs, k0, nkv);
 
   // the q tiles from the one holding the first row that sees kv column kg
   // on: each has a visible pair (the ends grow with the row)
@@ -746,12 +794,12 @@ __global__ void __launch_bounds__(Lay<D, DV>::TT)
                                              1.f);
     else
       copy_rows_async<D, LD, TB, L::TT>(Qs + buf * TILE, qb, rs, q0, nq);
-    copy_rows_async<DV, LDV, TB, L::TT>(Os + buf * TILEV, ob, rsv, q0, nq);
+    copy_rows_async<D, LD, TB, L::TT>(Os + buf * TILE, ob, rs, q0, nq);
     async_row_stats<L::TT>(ls + buf * TB, dls + buf * TB, es + buf * TB, lse, delta, ends, q0,
                            nq);
   };
 
-  float dk[DW / 8][4] = {}, dv[DWV / 8][4] = {};
+  float dk[DW / 8][4] = {}, dv[DW / 8][4] = {};
   int buf = 0;
   if (lo < n_q_tiles) load_q(lo, 0);
   cp_async_commit();  // K, V and the first Q / dO tile
@@ -763,7 +811,7 @@ __global__ void __launch_bounds__(Lay<D, DV>::TT)
 
     const int q0 = iq * TB;
     const bf16* Qb = Qs + buf * TILE;
-    const bf16* Ob = Os + buf * TILEV;
+    const bf16* Ob = Os + buf * TILE;
     const float* lb = ls + buf * TB;
     const float2* db = dls + buf * TB;  // (delta, its bound)
     const int* eb = es + buf * TB;  // 0 past nq
@@ -772,47 +820,20 @@ __global__ void __launch_bounds__(Lay<D, DV>::TT)
 
     // transposed scores: rows are kv rows rw + (g, g + 8), columns q rows
     float st[8][4] = {}, dpt[8][4] = {};
-    if constexpr (DV == D) {
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t ka[4], va[4];
-        ldsm_x4(ka, ldsm_rows(Ks, LD, rw, kk, lane));
-        ldsm_x4(va, ldsm_rows(Vs, LD, rw, kk, lane));
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, ldsm_rows(Ks, LD, rw, kk, lane));
+      ldsm_x4(va, ldsm_rows(Vs, LD, rw, kk, lane));
 #pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          uint32_t qf[4], of[4];
-          ldsm_x4(qf, ldsm_cols(Qb, LD, 8 * j, kk, lane));
-          ldsm_x4(of, ldsm_cols(Ob, LD, 8 * j, kk, lane));
-          mma(st[j], ka, qf[0], qf[1]);
-          mma(st[j + 1], ka, qf[2], qf[3]);
-          mma(dpt[j], va, of[0], of[1]);
-          mma(dpt[j + 1], va, of[2], of[3]);
-        }
-      }
-    } else {  // s^T over the D columns of K and Q, dp^T over the DV of V and dO
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t ka[4];
-        ldsm_x4(ka, ldsm_rows(Ks, LD, rw, kk, lane));
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          uint32_t qf[4];
-          ldsm_x4(qf, ldsm_cols(Qb, LD, 8 * j, kk, lane));
-          mma(st[j], ka, qf[0], qf[1]);
-          mma(st[j + 1], ka, qf[2], qf[3]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < DV; kk += 16) {
-        uint32_t va[4];
-        ldsm_x4(va, ldsm_rows(Vs, LDV, rw, kk, lane));
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          uint32_t of[4];
-          ldsm_x4(of, ldsm_cols(Ob, LDV, 8 * j, kk, lane));
-          mma(dpt[j], va, of[0], of[1]);
-          mma(dpt[j + 1], va, of[2], of[3]);
-        }
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t qf[4], of[4];
+        ldsm_x4(qf, ldsm_cols(Qb, LD, 8 * j, kk, lane));
+        ldsm_x4(of, ldsm_cols(Ob, LD, 8 * j, kk, lane));
+        mma(st[j], ka, qf[0], qf[1]);
+        mma(st[j + 1], ka, qf[2], qf[3]);
+        mma(dpt[j], va, of[0], of[1]);
+        mma(dpt[j + 1], va, of[2], of[3]);
       }
     }
     // Where dp - delta cancels to within the row's bound (a row that sees
@@ -825,46 +846,19 @@ __global__ void __launch_bounds__(Lay<D, DV>::TT)
       const int qi = 8 * j + 2 * t + (c & 1);
       return fabsf(dpt[j][c] - db[qi].x) < db[qi].y;
     };
-    if constexpr (DV == D) {
-      bool any_cancel = false;
+    bool any_cancel = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) any_cancel |= cancels(j, c);
+    if (__any_sync(0xffffffffu, any_cancel)) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) any_cancel |= cancels(j, c);
-      if (__any_sync(0xffffffffu, any_cancel)) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (cancels(j, c))
-              dpt[j][c] = dot_fma<DV>(Ob + (8 * j + 2 * t + (c & 1)) * LDV,
-                                      Vs + (rw + g + 8 * (c >> 1)) * LDV);
-      }
-    } else {
-      // Latent attention's values collapse toward one vector early in
-      // training, and then most warp tiles hold a cancelling pair in most
-      // of their 32 fragment slots: walked slot by slot, a tile costs a
-      // sequential product for every slot that any lane needs. Here each
-      // lane walks a mask of its own pairs, so a tile costs the most that
-      // one lane holds; each dp is the same sequential product as above.
-      unsigned mine = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) mine |= unsigned(cancels(j, c)) << (4 * j + c);
-      while (__any_sync(0xffffffffu, mine != 0u)) {
-        if (mine != 0u) {
-          const int s = __ffs(mine) - 1, j = s >> 2, c = s & 3;
-          mine &= mine - 1u;
-          const float x = dot_fma<DV>(Ob + (8 * j + 2 * t + (c & 1)) * LDV,
-                                      Vs + (rw + g + 8 * (c >> 1)) * LDV);
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc)
-              if (4 * jj + cc == s) dpt[jj][cc] = x;
-        }
-      }
+        for (int c = 0; c < 4; ++c)
+          if (cancels(j, c))
+            dpt[j][c] = dot_fma<D>(Ob + (8 * j + 2 * t + (c & 1)) * LD,
+                                   Vs + (rw + g + 8 * (c >> 1)) * LD);
     }
     // the capped logits: scale on the float32 sums, the shared exact tanh
 #pragma unroll
@@ -899,36 +893,17 @@ __global__ void __launch_bounds__(Lay<D, DV>::TT)
       acc_to_a(pa, st[j], st[j + 1]);
       acc_to_a_residual(pl, pa, st[j], st[j + 1]);
       acc_to_a(sa, dpt[j], dpt[j + 1]);
-      if constexpr (DV == D) {
 #pragma unroll
-        for (int c = 0; c < DW / 8; c += 2) {
-          uint32_t of[4], qf[4];
-          ldsm_x4_t(of, ldsm_rows(Ob, LD, 8 * j, cw + 8 * c, lane));
-          ldsm_x4_t(qf, ldsm_rows(Qb, LD, 8 * j, cw + 8 * c, lane));
-          mma(dv[c], pa, of[0], of[1]);
-          mma(dv[c], pl, of[0], of[1]);
-          mma(dv[c + 1], pa, of[2], of[3]);
-          mma(dv[c + 1], pl, of[2], of[3]);
-          mma(dk[c], sa, qf[0], qf[1]);
-          mma(dk[c + 1], sa, qf[2], qf[3]);
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < DWV / 8; c += 2) {
-          uint32_t of[4];
-          ldsm_x4_t(of, ldsm_rows(Ob, LDV, 8 * j, cwv + 8 * c, lane));
-          mma(dv[c], pa, of[0], of[1]);
-          mma(dv[c], pl, of[0], of[1]);
-          mma(dv[c + 1], pa, of[2], of[3]);
-          mma(dv[c + 1], pl, of[2], of[3]);
-        }
-#pragma unroll
-        for (int c = 0; c < DW / 8; c += 2) {
-          uint32_t qf[4];
-          ldsm_x4_t(qf, ldsm_rows(Qb, LD, 8 * j, cw + 8 * c, lane));
-          mma(dk[c], sa, qf[0], qf[1]);
-          mma(dk[c + 1], sa, qf[2], qf[3]);
-        }
+      for (int c = 0; c < DW / 8; c += 2) {
+        uint32_t of[4], qf[4];
+        ldsm_x4_t(of, ldsm_rows(Ob, LD, 8 * j, cw + 8 * c, lane));
+        ldsm_x4_t(qf, ldsm_rows(Qb, LD, 8 * j, cw + 8 * c, lane));
+        mma(dv[c], pa, of[0], of[1]);
+        mma(dv[c], pl, of[0], of[1]);
+        mma(dv[c + 1], pa, of[2], of[3]);
+        mma(dv[c + 1], pl, of[2], of[3]);
+        mma(dk[c], sa, qf[0], qf[1]);
+        mma(dk[c + 1], sa, qf[2], qf[3]);
       }
       if (cw == 0) {  // ds^T to shared memory, as the A fragment lays it out
         bf16* row = Ss + (rw + g) * SLD + 8 * j + 2 * t;
@@ -970,34 +945,19 @@ __global__ void __launch_bounds__(Lay<D, DV>::TT)
   cp_async_wait<0>();
 
   bf16* dkb = static_cast<bf16*>(P.dk) + head_base(P.nhd, bi, head, H, nkv, D);
-  bf16* dvb = static_cast<bf16*>(P.dv) + head_base(P.nhd, bi, head, H, nkv, DV);
+  bf16* dvb = static_cast<bf16*>(P.dv) + head_base(P.nhd, bi, head, H, nkv, D);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = k0 + rw + g + 8 * half;
     if (r >= nkv) continue;
-    if constexpr (DV == D) {
 #pragma unroll
-      for (int c = 0; c < DW / 8; ++c) {
-        const int col = cw + 8 * c + 2 * t;
-        float x0 = dk[c][2 * half] * scale, x1 = dk[c][2 * half + 1] * scale;
-        if (ROPE) unrotate_pair(x0, x1, P.cos, P.sin, (size_t(bi) * nkv + r) * D + col);
-        *reinterpret_cast<uint32_t*>(dkb + size_t(r) * rs + col) = pack_bf16(x0, x1);
-        *reinterpret_cast<uint32_t*>(dvb + size_t(r) * rs + col) =
-            pack_bf16(dv[c][2 * half], dv[c][2 * half + 1]);
-      }
-    } else {  // no RoPE
-#pragma unroll
-      for (int c = 0; c < DW / 8; ++c) {
-        const int col = cw + 8 * c + 2 * t;
-        *reinterpret_cast<uint32_t*>(dkb + size_t(r) * rs + col) =
-            pack_bf16(dk[c][2 * half] * scale, dk[c][2 * half + 1] * scale);
-      }
-#pragma unroll
-      for (int c = 0; c < DWV / 8; ++c) {
-        const int col = cwv + 8 * c + 2 * t;
-        *reinterpret_cast<uint32_t*>(dvb + size_t(r) * rsv + col) =
-            pack_bf16(dv[c][2 * half], dv[c][2 * half + 1]);
-      }
+    for (int c = 0; c < DW / 8; ++c) {
+      const int col = cw + 8 * c + 2 * t;
+      float x0 = dk[c][2 * half] * scale, x1 = dk[c][2 * half + 1] * scale;
+      if (ROPE) unrotate_pair(x0, x1, P.cos, P.sin, (size_t(bi) * nkv + r) * D + col);
+      *reinterpret_cast<uint32_t*>(dkb + size_t(r) * rs + col) = pack_bf16(x0, x1);
+      *reinterpret_cast<uint32_t*>(dvb + size_t(r) * rs + col) =
+          pack_bf16(dv[c][2 * half], dv[c][2 * half + 1]);
     }
   }
 }
@@ -1022,15 +982,15 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_store(const Params P, const 
   }
 }
 
-template <int D, bool ROPE, int DV = D>
+template <int D, bool ROPE>
 int launch(const Params& P, int b, float* dq_acc, cudaStream_t stream) {
-  const int smem = int(Lay<D, DV>::kBytes);
+  const int smem = int(Lay<D>::kBytes);
   const long long kv_blocks = (long long)b * P.H * ((P.nkv + TB - 1) / TB);
   if (kv_blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  auto dkv = flash_bwd_dkv_tc<D, ROPE, DV>;
+  auto dkv = flash_bwd_dkv_tc<D, ROPE>;
   cudaError_t err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  dkv<<<unsigned(kv_blocks), Lay<D, DV>::TT, smem, stream>>>(P, dq_acc);
+  dkv<<<unsigned(kv_blocks), Lay<D>::TT, smem, stream>>>(P, dq_acc);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   const size_t pairs = size_t(b) * P.H * P.nq * (D / 2);
   const unsigned grid = unsigned(std::min<size_t>((pairs + 255) / 256, 132 * 16));
@@ -1038,13 +998,527 @@ int launch(const Params& P, int b, float* dq_acc, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-int dispatch(int d, int dv, const Params& P, int b, float* dq_acc, cudaStream_t stream) {
-  const bool rope = P.cos != nullptr;  // a template flag: no branch in the loads
-  if (dv != d) {  // unequal widths: head-major, no RoPE
-    if (d == 192 && dv == 128 && !rope && !P.nhd)
-      return launch<192, false, 128>(P, b, dq_acc, stream);
-    return int(cudaErrorInvalidValue);
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// bf16, head-major, no RoPE, (d, d_v) = (64, 64) or (192, 128): warpgroups
+// (see the note at the top)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace mma_tile;
+using namespace wgmma_tile;
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;      // q rows of a tile
+constexpr int STAGES = 2;   // Q / dO tiles in flight
+constexpr int NTH = 384;    // the producer warpgroup, then two consumer warpgroups
+// registers a thread after setmaxnreg: the block is launched with 168 a
+// thread (65536 / 384, rounded down to 8), and the consumers' increase
+// must come out of what the producer gives back, or they wait for ever
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS == NTH * 168,
+              "setmaxnreg: the warpgroups' registers must add up to the launch's");
+
+template <int D, int DV>
+struct Cfg {
+  // SPLIT (value width 128): the two consumer warpgroups share one 64-row
+  // kv tile, each computing its s^T and dp^T, and split the 64-column blocks
+  // of dK, dV and dQ (blocks cw, cw + 2, .. of d; block cw of d_v), so that
+  // their sums fit beside the scores. Else (d 64) each owns 64 of the
+  // block's 128 kv rows with all their columns, and half of dQ's columns,
+  // and holds its K and V rows in registers as the A operand of s^T and
+  // dp^T (RS).
+  static constexpr bool SPLIT = DV > 64, RS = !SPLIT;
+  static constexpr int BN = SPLIT ? 64 : 128;        // kv rows of a block
+  static constexpr int NB = D / 64, NBV = DV / 64;   // 64-column blocks of q, k and of v, dO
+  static constexpr int QBLK = BQ * 128, KBLK = BN * 128;  // bytes of one block of a tile
+  static constexpr int STAGE = (NB + NBV) * QBLK;    // a stage's Q and dO tiles
+  // ds^T [kv][q] as bf16, for dQ: SPLIT, one [64][64] buffer a warpgroup;
+  // else two [128][64] (by the q tile's parity) that hold both
+  // warpgroups' rows
+  static constexpr int DSB = SPLIT ? 64 * 128 : 128 * 128;
+  static constexpr int K_OFF = 0, V_OFF = NB * KBLK, Q_OFF = V_OFF + NBV * KBLK;
+  static constexpr int DS_OFF = Q_OFF + STAGES * STAGE;
+  // a stage's row statistics: lse [64], (delta, bound) [64], visible ends [64]
+  static constexpr int ST_OFF = DS_OFF + 2 * DSB, ST_BYTES = BQ * 16;
+  static constexpr int BAR_OFF = ST_OFF + STAGES * ST_BYTES;  // full[STAGES], empty[STAGES], kv
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8;
+  // consumer warpgroup cw's 64-column blocks of dK (SPLIT: and of dQ): how
+  // many, and the i-th
+  __host__ __device__ static constexpr int nkb(int cw) {
+    return SPLIT ? (NB - cw + 1) / 2 : NB;
   }
+  __host__ __device__ static constexpr int kb(int cw, int i) { return SPLIT ? cw + 2 * i : i; }
+};
+
+struct Maps {
+  CUtensorMap q, dout, k, v;  // [b*h][n][width] bf16, boxes of [rows][64]
+};
+
+// x . y over W bf16 values of row ra of swizzled tile a and row rb of
+// swizzled tile b (64-column blocks a_blk / b_blk bytes apart), as
+// sequential float32 FMAs from element 0: tc `dot_fma` read through the
+// swizzle
+template <int W>
+__device__ __forceinline__ float dot_fma_swz(const unsigned char* a, int a_blk, int ra,
+                                             const unsigned char* b, int b_blk, int rb) {
+  float acc = 0.f;
+#pragma unroll 1
+  for (int d = 0; d < W; d += 8) {
+    const int blk = d >> 6, ch = (d >> 3) & 7;
+    acc = tc::fma8(acc, *reinterpret_cast<const uint4*>(a + blk * a_blk + swz(ra, ch)),
+                   *reinterpret_cast<const uint4*>(b + blk * b_blk + swz(rb, ch)));
+  }
+  return acc;
+}
+
+// The producer warp: K and V of the block once, then for each q tile its
+// Q and dO tiles (TMA) and its rows' lse, (delta, bound) and visible ends
+// into the next free stage; the statistics of the tile after are read from
+// device memory while it waits for a stage.
+template <int D, int DV>
+__device__ __forceinline__ void produce(const Maps& M, const Params& P, unsigned char* sm,
+                                        int bh, int bi, int k0, int lo) {
+  using C = Cfg<D, DV>;
+  const int lane = threadIdx.x;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_bar = empty + STAGES;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(kv_bar, (C::NB + C::NBV) * C::KBLK);
+#pragma unroll
+    for (int cb = 0; cb < C::NB; ++cb)
+      tma_load_3d(sm + C::K_OFF + cb * C::KBLK, &M.k, kv_bar, 64 * cb, k0, bh);
+#pragma unroll
+    for (int cb = 0; cb < C::NBV; ++cb)
+      tma_load_3d(sm + C::V_OFF + cb * C::KBLK, &M.v, kv_bar, 64 * cb, k0, bh);
+  }
+  const int nq = P.nq, n_q_tiles = (nq + BQ - 1) / BQ;
+  const float* lse = P.lse + size_t(bh) * nq;
+  const float2* cancel = P.cancel + size_t(bh) * nq;
+  const int* ends = P.ends + size_t(bi) * nq;
+  // rows lane and lane + 32 of a tile; 0 past nq
+  float l[2];
+  float2 dl[2];
+  int e[2];
+  auto read = [&](int iq) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gq = iq * BQ + lane + 32 * h;
+      const bool in = gq < nq;
+      l[h] = in ? lse[gq] : 0.f;
+      dl[h] = in ? cancel[gq] : make_float2(0.f, 0.f);
+      e[h] = in ? ends[gq] : 0;
+    }
+  };
+  if (lo < n_q_tiles) read(lo);
+  for (int it = 0, iq = lo; iq < n_q_tiles; ++it, ++iq) {
+    const int s = it % STAGES, q0 = iq * BQ;
+    mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+    unsigned char* stats = sm + C::ST_OFF + s * C::ST_BYTES;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      reinterpret_cast<float*>(stats)[lane + 32 * h] = l[h];
+      reinterpret_cast<float2*>(stats + BQ * 4)[lane + 32 * h] = dl[h];
+      reinterpret_cast<int*>(stats + BQ * 12)[lane + 32 * h] = e[h];
+    }
+    if (lane == 0) {  // rows past nq come zero-filled
+      unsigned char* Qb = sm + C::Q_OFF + s * C::STAGE;
+      mbar_arrive_expect_tx(&full[s], C::STAGE);
+#pragma unroll
+      for (int cb = 0; cb < C::NB; ++cb)
+        tma_load_3d(Qb + cb * C::QBLK, &M.q, &full[s], 64 * cb, q0, bh);
+#pragma unroll
+      for (int cb = 0; cb < C::NBV; ++cb)
+        tma_load_3d(Qb + (C::NB + cb) * C::QBLK, &M.dout, &full[s], 64 * cb, q0, bh);
+    } else {
+      mbar_arrive(&full[s]);
+    }
+    if (iq + 1 < n_q_tiles) read(iq + 1);
+  }
+}
+
+// Consumer warpgroup CW: its 64 kv rows' dK and dV over the q tiles, and
+// its share of each q tile's dQ added into dq_acc. A tile's products are
+// issued as their operands are ready, so that the float32 work overlaps
+// the tensor cores: s^T, then dp^T; p while dp^T runs; dV += p^T dO, then
+// ds while dV runs; dK += ds^T Q; dQ = ds K. CAP: a softcap.
+template <int D, int DV, int CW, bool CAP>
+__device__ __forceinline__ void consume(const Params& P, float* dq_acc, unsigned char* sm,
+                                        int bh, int k0, int lo) {
+  using C = Cfg<D, DV>;
+  constexpr int NK = C::nkb(CW);          // its blocks of dK
+  constexpr int VB = C::SPLIT ? CW : 0;   // its block of dV
+  const int ct = threadIdx.x - 128 * (CW + 1);
+  const int lane = ct & 31, g = lane >> 2, t = lane & 3, rw = 16 * (ct >> 5);
+  const int kr = C::SPLIT ? 0 : 64 * CW;  // its first kv row in the block
+  const int nq = P.nq, nkv = P.nkv, k0w = k0 + kr, n_q_tiles = (nq + BQ - 1) / BQ;
+  const float scale = P.scale, cap = P.softcap, inv_cap = CAP ? 1.f / cap : 0.f;
+  const unsigned char* Ks = sm + C::K_OFF;
+  const unsigned char* Vs = sm + C::V_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_bar = empty + STAGES;
+  // K-major descriptors of this warpgroup's rows of K and V (A of s^T, dp^T)
+  const uint64_t kd = desc(Ks + kr * 128, 16, 1024), vd = desc(Vs + kr * 128, 16, 1024);
+
+  float dk[NK][8][4] = {}, dv[8][4] = {};
+  mbar_wait(kv_bar, 0);
+  // RS: this warpgroup's rows of K and V as the register A operand, loaded
+  // once
+  uint32_t kf[4][4], vf[4][4];
+  if constexpr (C::RS) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int off = swz(kr + rw + (lane & 15), 2 * kk + (lane >> 4));
+      ldsm_x4(kf[kk], Ks + off);
+      ldsm_x4(vf[kk], Vs + off);
+    }
+  }
+  for (int it = 0, iq = lo; iq < n_q_tiles; ++it, ++iq) {
+    const int s = it % STAGES, q0 = iq * BQ;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const unsigned char* Qb = sm + C::Q_OFF + s * C::STAGE;
+    const unsigned char* Ob = Qb + C::NB * C::QBLK;
+    const unsigned char* stats = sm + C::ST_OFF + s * C::ST_BYTES;
+    const float* lb = reinterpret_cast<const float*>(stats);
+    const float2* db = reinterpret_cast<const float2*>(stats + BQ * 4);  // (delta, its bound)
+    const int* eb = reinterpret_cast<const int*>(stats + BQ * 12);        // 0 past nq
+    // every pair visible: the tile's first row sees all of this warpgroup's kv rows
+    const bool full_tile = eb[0] >= k0w + 64 && q0 + BQ <= nq;
+
+    // transposed scores: rows are kv rows rw + (g, g + 8), columns q rows
+    float st[8][4] = {}, dpt[8][4] = {};
+    const uint64_t qd = desc(Qb, 16, 1024), od = desc(Ob, 16, 1024);
+    wg_fence();
+    if constexpr (C::RS) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma_rs_n64<0>(st, kf[kk], qd + kk * 2);  // +32 bytes
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma_rs_n64<0>(dpt, vf[kk], od + kk * 2);
+      wg_commit();
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // +32 bytes a k-step, the next block every 4
+        mma_ss_n64<0, 0>(st, kd + (((kk / 4) * C::KBLK + (kk % 4) * 32) >> 4),
+                         qd + (((kk / 4) * C::QBLK + (kk % 4) * 32) >> 4), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)
+        mma_ss_n64<0, 0>(dpt, vd + (((kk / 4) * C::KBLK + (kk % 4) * 32) >> 4),
+                         od + (((kk / 4) * C::QBLK + (kk % 4) * 32) >> 4), kk > 0);
+      wg_commit();
+    }
+    wg_wait<1>();  // s^T
+    fence_regs(st);
+
+    // the capped logits (scale on the float32 sums, the shared exact
+    // tanh), then per pair p (into the A operand of dV, as a bf16 pair hi
+    // + lo as the tc kernel takes it) and p times the softcap's chain rule
+    // (over st); the mask only on a tile with a masked pair
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[j][c] *= scale;
+    if constexpr (CAP) softcap_tile(flat<32>(st), cap);
+    uint32_t pa[4][4], pl[4][4];
+    auto probs = [&](auto masked) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float pv[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int j = 2 * kk + h, qi = 8 * j + 2 * t + (c & 1), kj = rw + g + 8 * (c >> 1);
+            const float x = st[j][c];
+            // exp2 of a normal result is exact as the tc kernel's exp2f;
+            // below 2^-126 it flushes to 0
+            pv[h][c] = exp2_ftz((x - lb[qi]) * LOG2E);
+            if (decltype(masked)::value && k0w + kj >= eb[qi]) pv[h][c] = 0.f;
+            if constexpr (CAP) {
+              const float th = x * inv_cap;
+              st[j][c] = pv[h][c] * (1.f - th * th);
+            } else {
+              st[j][c] = pv[h][c];
+            }
+          }
+        acc_to_a(pa[kk], pv[0], pv[1]);
+        acc_to_a_residual(pl[kk], pa[kk], pv[0], pv[1]);
+      }
+    };
+    if (full_tile)
+      probs(std::false_type());
+    else
+      probs(std::true_type());
+    // dV += p^T dO: A from registers, dO read MN-major (16 q rows a
+    // k-step: 2048 bytes)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t ob = desc(Ob + VB * C::QBLK + kk * 2048, C::QBLK, 1024);
+      mma_rs_n64<1>(dv, pa[kk], ob);
+      mma_rs_n64<1>(dv, pl[kk], ob);
+    }
+    wg_commit();
+    wg_wait<1>();  // dp^T
+    fence_regs(dpt);
+
+    // dp - delta, over dpt. Where it cancels to within its row's bound,
+    // dp is the plain version's sequential float32 product (tc kernel's
+    // rule): rare, one warp-wide test first, then each lane walks a mask
+    // of its own pairs
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float2 dl = db[8 * j + 2 * t + (c & 1)];
+        dpt[j][c] -= dl.x;
+        any |= fabsf(dpt[j][c]) < dl.y;
+      }
+    if (__any_sync(0xffffffffu, any)) {
+      unsigned mine = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          mine |= unsigned(fabsf(dpt[j][c]) < db[8 * j + 2 * t + (c & 1)].y) << (4 * j + c);
+      while (__any_sync(0xffffffffu, mine != 0u)) {
+        if (mine != 0u) {
+          const int sl = __ffs(mine) - 1, j = sl >> 2, c = sl & 3, qi = 8 * j + 2 * t + (c & 1);
+          mine &= mine - 1u;
+          const float x = dot_fma_swz<DV>(Ob, C::QBLK, qi, Vs, C::KBLK,
+                                          kr + rw + g + 8 * (c >> 1)) - db[qi].x;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+              if (4 * jj + cc == sl) dpt[jj][cc] = x;
+        }
+      }
+    }
+    // ds = p (dp - delta) (1 - (s / cap)^2), over dpt; ds^T to shared
+    // memory (swizzled, as TMA lays a tile) for dQ
+    const int buf = C::SPLIT ? CW : (it & 1);
+    unsigned char* dsb = sm + C::DS_OFF + buf * C::DSB;
+    {
+      const int r = (C::SPLIT ? 0 : kr) + rw + g;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dpt[j][c] *= st[j][c];
+        *reinterpret_cast<uint32_t*>(dsb + swz(r, j) + 4 * t) = pack_bf16(dpt[j][0], dpt[j][1]);
+        *reinterpret_cast<uint32_t*>(dsb + swz(r + 8, j) + 4 * t) =
+            pack_bf16(dpt[j][2], dpt[j][3]);
+      }
+      fence_proxy_async();
+    }
+    // dK += ds^T Q: A from registers, Q read MN-major
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(sa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < NK; ++i)
+        mma_rs_n64<1>(dk[i], sa[kk],
+                      desc(Qb + C::kb(CW, i) * C::QBLK + kk * 2048, C::QBLK, 1024));
+    wg_commit();
+
+    // dQ = ds K, this warpgroup's share (SPLIT: its blocks; else half the
+    // columns): A is ds^T read MN-major, B is K read MN-major; added into
+    // dq_acc
+    constexpr int DQB = C::SPLIT ? NK : 1, DQT = C::SPLIT ? 8 : 4;
+    float dq[DQB][DQT][4];
+    if constexpr (C::SPLIT) {
+      wg_wait<0>();  // free the A registers before dQ's sums
+      fence_regs(dv);
+#pragma unroll
+      for (int i = 0; i < NK; ++i) fence_regs(dk[i]);
+      bar_sync(2 + CW, 128);  // this warpgroup's ds^T complete
+      wg_fence();
+#pragma unroll
+      for (int i = 0; i < NK; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_ss_n64<1, 1>(dq[i], desc(dsb + kk * 2048, C::DSB, 1024),
+                           desc(Ks + C::kb(CW, i) * C::KBLK + kk * 2048, C::KBLK, 1024), kk > 0);
+    } else {
+      bar_sync(1, 256);  // both warpgroups' ds^T rows complete
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BN / 16; ++kk)  // columns 32 CW .. 32 CW + 31 of K
+        mma_ss_n32<1, 1>(dq[0], desc(dsb + kk * 2048, C::DSB, 1024),
+                         desc(Ks + 64 * CW + kk * 2048, C::KBLK, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv);
+#pragma unroll
+    for (int i = 0; i < NK; ++i) fence_regs(dk[i]);
+#pragma unroll
+    for (int i = 0; i < DQB; ++i) fence_regs(dq[i]);
+    mbar_arrive(&empty[s]);  // this stage's Q, dO and statistics are read
+    {
+      const int r = q0 + rw + g;
+      float* row = dq_acc + (size_t(bh) * nq + r) * D + 2 * t;
+#pragma unroll
+      for (int i = 0; i < DQB; ++i)
+#pragma unroll
+        for (int j = 0; j < DQT; ++j) {
+          const int col = (C::SPLIT ? 64 * C::kb(CW, i) : 32 * CW) + 8 * j;
+          if (r < nq) atomic_add2(row + col, dq[i][j][0], dq[i][j][1]);
+          if (r + 8 < nq) atomic_add2(row + 8 * D + col, dq[i][j][2], dq[i][j][3]);
+        }
+    }
+  }
+
+  bf16* dkb = static_cast<bf16*>(P.dk) + size_t(bh) * nkv * D;
+  bf16* dvb = static_cast<bf16*>(P.dv) + size_t(bh) * nkv * DV;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = k0w + rw + g + 8 * half;
+    if (r >= nkv) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < NK; ++i) {
+        const int col = 64 * C::kb(CW, i) + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dkb + size_t(r) * D + col) =
+            pack_bf16(dk[i][j][2 * half] * scale, dk[i][j][2 * half + 1] * scale);
+      }
+      *reinterpret_cast<uint32_t*>(dvb + size_t(r) * DV + 64 * VB + 8 * j + 2 * t) =
+          pack_bf16(dv[j][2 * half], dv[j][2 * half + 1]);
+    }
+  }
+}
+
+// dK and dV of one (b*h, BN-row kv tile), and dQ += ds K of each of its q
+// tiles into dq_acc: warpgroup 0 produces (one warp), 1 and 2 consume.
+template <int D, int DV, bool CAP>
+__global__ void __launch_bounds__(NTH, 1)
+    flash_bwd_dkv_tc(const __grid_constant__ Maps M, const Params P, float* dq_acc, int group) {
+  using C = Cfg<D, DV>;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  // 1024-byte aligned: the swizzle's rows are the address bits 7-9
+  unsigned char* sm = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  // heads in groups of `group`, one group after another; in a group, kv
+  // tile 0 of each head first (the longest walk under causality), then
+  // tile 1, ..: the blocks in flight share a few heads' q, dO and dq rows
+  // in L2
+  const int tiles = (P.nkv + C::BN - 1) / C::BN, BH = gridDim.x / tiles;
+  const int gi = blockIdx.x / (group * tiles), r = blockIdx.x - gi * group * tiles;
+  const int in_group = min(group, BH - gi * group);
+  const int bh = gi * group + r % in_group, bi = bh / P.H;
+  const int k0 = (r / in_group) * C::BN;
+  // the q tiles from the one holding the first row that sees kv column
+  // k0 on (as tc's)
+  const int lo_tok = first_row_seeing(k0 + P.kv_off, P.spans + size_t(bi) * P.m * 3, P.m);
+  const int lo = lo_tok - P.q_off <= 0 ? 0 : (lo_tok - P.q_off) / BQ;
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + s, 32);            // full: the producer warp's lanes (and TMA's bytes)
+      mbar_init(bars + STAGES + s, 256);  // empty: every consumer thread
+    }
+    mbar_init(bars + 2 * STAGES, 1);  // K and V
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) produce<D, DV>(M, P, sm, bh, bi, k0, lo);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    if (wgi == 1)
+      consume<D, DV, 0, CAP>(P, dq_acc, sm, bh, k0, lo);
+    else
+      consume<D, DV, 1, CAP>(P, dq_acc, sm, bh, k0, lo);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda the process has loaded
+// (the library links against the CUDA runtime only)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// map of a head-major [bh][n][w] bf16 tensor in boxes of [rows][64],
+// 128-byte swizzled; rows past n read as zeros
+bool tile_map(CUtensorMap* map, const void* base, int w, int n, size_t bh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(w), cuuint64_t(n), cuuint64_t(bh)};
+  const cuuint64_t strides[2] = {cuuint64_t(w) * 2, cuuint64_t(w) * 2 * cuuint64_t(n)};
+  const cuuint32_t box[3] = {64, cuuint32_t(rows), 1}, unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int DV>
+int launch(const Params& P, int b, float* dq_acc, cudaStream_t stream) {
+  using C = Cfg<D, DV>;
+  const size_t bh = size_t(b) * P.H;
+  const int tiles = (P.nkv + C::BN - 1) / C::BN;
+  const long long blocks = (long long)bh * tiles;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  Maps M;
+  if (!tile_map(&M.q, P.q, D, P.nq, bh, BQ) || !tile_map(&M.dout, P.dout, DV, P.nq, bh, BQ) ||
+      !tile_map(&M.k, P.k, D, P.nkv, bh, C::BN) || !tile_map(&M.v, P.v, DV, P.nkv, bh, C::BN))
+    return int(cudaErrorInvalidValue);
+  // more than half the SM's shared memory: one block an SM, so that the
+  // consumers' setmaxnreg.inc always finds the producer's registers
+  const int smem = std::max(C::BYTES + 1024, 116 * 1024);
+  auto kern = P.softcap > 0.f ? flash_bwd_dkv_tc<D, DV, true> : flash_bwd_dkv_tc<D, DV, false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  // 16 heads a group (measured on an H100 at 700 W: at b8 h16 n4096, q k
+  // 192 / v 128, 20.0 ms with all 128 heads in flight at once and 10.0
+  // ms in groups of 16, whose dq scratch and q, dO rows stay in L2; at b1
+  // h16 n16384 d 64, 7.0 ms in groups of 2 and 6.8 in one of 16)
+  kern<<<unsigned(blocks), NTH, smem, stream>>>(M, P, dq_acc, int(std::min<size_t>(bh, 16)));
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  const size_t pairs = bh * P.nq * (D / 2);
+  const unsigned grid = unsigned(std::min<size_t>((pairs + 255) / 256, 132 * 16));
+  tc::flash_bwd_dq_store<D, false><<<grid, 256, 0, stream>>>(P, dq_acc, pairs);
+  return int(cudaGetLastError());
+}
+
+}  // namespace wg
+
+namespace tc {
+
+// The bf16 backward: the warpgroup kernel for the head-major, RoPE-free
+// calls at (d, d_v) = (64, 64) and (192, 128) (design 2), the mma.sync
+// kernel for the rest (design 1)
+int dispatch(int d, int dv, const Params& P, int b, float* dq_acc, cudaStream_t stream,
+             int* design) {
+  const bool rope = P.cos != nullptr;  // a template flag: no branch in the loads
+  *design = 2;
+  if (!rope && !P.nhd && d == 64 && dv == 64) return wg::launch<64, 64>(P, b, dq_acc, stream);
+  if (!rope && !P.nhd && d == 192 && dv == 128)
+    return wg::launch<192, 128>(P, b, dq_acc, stream);
+  *design = 1;
+  if (dv != d) return int(cudaErrorInvalidValue);
   switch (d) {
     case 32:
       return rope ? launch<32, true>(P, b, dq_acc, stream) : launch<32, false>(P, b, dq_acc, stream);
@@ -1075,7 +1549,8 @@ int dispatch(int d, int dv, const Params& P, int b, float* dq_acc, cudaStream_t 
 // [b,h,nq,d] scratch and a float32 [b*h*(2*nq+1)] one (`cancel_bounds`'s
 // (delta, bound) pairs and the heads' largest |v|), for float32 NULL;
 // ends: an int32 [b,nq] scratch (each q row's visible end, written here
-// first).
+// first); design: where the design of the dK/dV kernel launched is written
+// (0: float32 FMA, 1: bf16 mma.sync, 2: bf16 warpgroups).
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, float* cancel,
@@ -1083,8 +1558,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                          const float* cos, const float* sin, void* dq, void* dk, void* dv,
                          float* dq_acc, int* ends, int b, int h, int nq, int nkv, int d,
                          int d_v, int q_off, int kv_off, int nhd, float scale, float softcap,
-                         int is_bf16, void* stream) {
-  if (m < 0 || nq <= 0 || nkv <= 0 || ends == nullptr) return int(cudaErrorInvalidValue);
+                         int is_bf16, int* design, void* stream) {
+  if (m < 0 || nq <= 0 || nkv <= 0 || ends == nullptr || design == nullptr)
+    return int(cudaErrorInvalidValue);
   if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && nq != nkv))
     return int(cudaErrorInvalidValue);
   if ((dq_acc != nullptr) != (is_bf16 != 0) || (cancel != nullptr) != (is_bf16 != 0))
@@ -1106,7 +1582,8 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
     tc::v_norm_max<<<unsigned(bh * ((nkv + per - 1) / per)), 256, 0, s>>>(P, d_v, vmax);
     tc::cancel_bounds<<<unsigned(bh * ((nq + per - 1) / per)), 256, 0, s>>>(P, d_v, vmax);
     if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-    return tc::dispatch(d, d_v, P, b, dq_acc, s);
+    return tc::dispatch(d, d_v, P, b, dq_acc, s, design);
   }
+  *design = 0;
   return dispatch_d<float>(d, d_v, P, b, s);
 }

@@ -4,7 +4,8 @@ batch packer.
 Each `csrc/<name>.cu` is compiled on its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/transfusion_tpu_torch/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v -o build/transfusion_tpu_torch/<name>-<hash>.so \
+         csrc/<name>.cu -ldl
 
 and each host source `csrc/<name>.cpp` (HOST_SOURCES) with
 
@@ -82,7 +83,7 @@ def _command(name: str, out: Path) -> list[str]:
         "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
         "-Xptxas", "-v",
-        "-o", str(out), str(CSRC / f"{name}.cu"),
+        "-o", str(out), str(CSRC / f"{name}.cu"), "-ldl",
     ]
 
 

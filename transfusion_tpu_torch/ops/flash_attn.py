@@ -17,7 +17,9 @@ CUDA tensors (there is no fallback between the two).
 `flash_attention.launches` and `flash_attention_backward.launches` count
 kernel launches; their `launches_by_row` dicts count the same launches by
 the TPU kernel that the JAX route would have run for the shape (`tpu_row`:
-rows 1-3 of the kernel table for the forward, 7-9 for the backward).
+rows 1-3 of the kernel table for the forward, 7-9 for the backward), and
+`flash_attention_backward.launches_by_design` by the design of the dK/dV
+kernel that ran (`BWD_DESIGNS`).
 
 Mask contract (global coordinates i = q_offset + row, j = kv_offset + col):
 
@@ -58,8 +60,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGTYPES = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 9 + [_F] * 2 + [_I, _P]
 # flash_bwd(q, k, v, dout, lse, delta, cancel, spans, m, cos, sin, dq, dk, dv,
 #           dq_acc, ends, b, h, nq, nkv, d, d_v, q_off, kv_off, nhd, scale,
-#           softcap, is_bf16, stream)
-_BWD_ARGTYPES = [_P] * 8 + [_I] + [_P] * 7 + [_I] * 9 + [_F] * 2 + [_I, _P]
+#           softcap, is_bf16, design, stream)
+_BWD_ARGTYPES = [_P] * 8 + [_I] + [_P] * 7 + [_I] * 9 + [_F] * 2 + [_I, _P, _P]
+# the backward's dK/dV kernel designs, by the number flash_bwd writes to
+# `design`: float32 FMA, bf16 mma.sync, bf16 warpgroups (wgmma + TMA)
+BWD_DESIGNS = ("fma", "mma", "wgmma")
 
 
 def widths_supported(d: int, dv: int) -> bool:
@@ -279,7 +284,7 @@ def launch_fwd(q, k, v, spans, softcap, q_offset, kv_offset, want_lse, *, heads=
 
 
 def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, heads=None,
-               cos=None, sin=None, dq_float32=False):
+               cos=None, sin=None, dq_float32=False, designs=None):
     """Launch csrc/flash_bwd.cu in either layout (see `launch_fwd`): the
     kernel that writes each q row's visible end into a scratch, then for
     bf16 the two that bound each row's cancellation (the heads' largest |v|,
@@ -287,7 +292,10 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
     which adds dq into a zeroed float32 scratch, and the kernel that stores
     dq from it; for float32 the dK/dV and dQ kernels. Returns (dq, dk, dv) like q, k, v; with dq_float32
     (head-major only) dq is the float32 scratch times the scale, before the
-    store rounds it. Callers count the launch."""
+    store rounds it. Callers count the launch; `designs`, a dict keyed by
+    BWD_DESIGNS, counts the design of the dK/dV kernel that ran (the
+    warpgroup kernel takes the head-major, RoPE-free bf16 calls at (d, d_v)
+    = (64, 64) and (192, 128), the mma.sync kernel the other bf16 ones)."""
     nhd = heads is not None
     if nhd:
         b, nq, hd = q.shape
@@ -312,6 +320,7 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
         dq_acc = torch.zeros((b, h, nq, d), dtype=torch.float32, device=q.device)
         cancel = torch.empty(b * h * (2 * nq + 1), dtype=torch.float32, device=q.device)
     ends = torch.empty((b, nq), dtype=torch.int32, device=q.device)  # each q row's visible end
+    design = ctypes.c_int(-1)
     fn = _build.load("flash_bwd", _BWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -321,9 +330,11 @@ def launch_bwd(q, k, v, do, lse, delta, spans, softcap, q_offset, kv_offset, *, 
         None if dq_acc is None else dq_acc.data_ptr(), ends.data_ptr(),
         b, h, nq, nkv, d, d_v, int(q_offset), int(kv_offset), int(nhd),
         float(d**-0.5), float(softcap), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.addressof(design), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_bwd")
+    if designs is not None:
+        designs[BWD_DESIGNS[design.value]] += 1
     if dq_float32:
         if nhd:
             raise ValueError("dq_float32 is taken on the head-major layout only")
@@ -366,7 +377,8 @@ def flash_attention_backward(q, k, v, o, lse, do, spans=None, softcap=50.0, q_of
     if _device_kind("flash_attention backward", q) == "cpu":
         dq, dk, dv = backward_plain_f32(*args)
         return (dq if dq_float32 else dq.to(q.dtype)), dk.to(k.dtype), dv.to(v.dtype)
-    out = launch_bwd(*args, dq_float32=dq_float32)
+    out = launch_bwd(*args, dq_float32=dq_float32,
+                     designs=flash_attention_backward.launches_by_design)
     flash_attention_backward.launches += 1
     b, h, nq, d = q.shape
     flash_attention_backward.launches_by_row[tpu_row(h, nq, k.shape[2], d, bwd=True)] += 1
@@ -416,3 +428,4 @@ flash_attention.launches = 0
 flash_attention.launches_by_row = {1: 0, 2: 0, 3: 0}
 flash_attention_backward.launches = 0
 flash_attention_backward.launches_by_row = {7: 0, 8: 0, 9: 0}
+flash_attention_backward.launches_by_design = dict.fromkeys(BWD_DESIGNS, 0)
