@@ -1,15 +1,18 @@
-"""PyTorch port: the Moonlight (DeepSeek-V3) block, `Transformer(block=
-"moonlight")`, against the benchmark's plain float32 reference
-(`portbench/reference/moonlight.py`) at a tiny size on the CPU: d 64, one
-dense and two expert layers, 16 routed experts of which 8 are held, top 4,
-q k 24 + 8 RoPE dims beside values of 16, on seeded random weights.
+"""PyTorch port: the Moonlight (DeepSeek-V3) block, `MoonlightTransformer`
+(a transformer config's "block": "moonlight"), against the benchmark's
+plain float32 reference (`portbench/reference/moonlight.py`) at a tiny
+size on the CPU: d 64, one dense and two expert layers, 16 routed experts
+of which 8 are held, top 4, q k 24 + 8 RoPE dims beside values of 16, on
+seeded random weights.
 
 The joint loss and every gradient; latent attention with spans through the
 plain flash route at unequal widths; routing by score + bias with weights
 from the score; the selection bias through a Trainer step and a checkpoint;
 the routing of a block rematerialized in the backward; and the expert
 layer's shares: the routed parts of every share, with the shared experts
-once, add up to the uncut layer."""
+once, add up to the uncut layer; the state dict's names and shapes are the
+ones the benchmark's spec loads; and what the stack does not run (a cache,
+pipeline stages, a configuration lacking a key) is refused."""
 
 import copy
 
@@ -26,6 +29,7 @@ from portbench.tests import tiny_moonlight
 from transfusion_tpu_torch.models.moonlight import MLAttention, MoE
 from transfusion_tpu_torch.ops.flash_attn import (backward_plain_f32, flash_attention,
                                                   flash_attention_plain)
+from transfusion_tpu_torch.parallel.pipeline import LocalStages
 from transfusion_tpu_torch.training import Trainer
 
 CFG = tiny_moonlight.CFG
@@ -275,12 +279,24 @@ def test_moonlight_stack_refuses_what_it_does_not_run():
     with pytest.raises(NotImplementedError, match="latent KV cache"):
         model.core.text_forward(torch.zeros((1, 4), dtype=torch.int64),
                                 cache=model._cache(1, 128, False, False), prefill=True)
+    packed, pd, _, _ = batch(model)
+    with pytest.raises(NotImplementedError, match="pipeline stages"):
+        model._loss_impl(None, packed, pd, model.prob_uncond, pipeline=(LocalStages(1), 1))
     bad = copy.deepcopy(tiny_moonlight.CFG)
     del bad["kv_lora_rank"]
     with pytest.raises(ValueError, match="lacks"):
         ARCH.build_model(bad, {}, "cpu")
     assert np.isfinite(float(model.core.text_forward(torch.zeros((1, 4), dtype=torch.int64))[0]
                              .abs().sum()))
+
+
+def test_state_dict_holds_the_names_and_shapes_the_benchmark_loads():
+    """Every parameter and buffer the model saves is one the architecture's
+    spec lists (what `weights.make` draws and `load_weights` copies in),
+    with its shape, and the spec lists nothing the model lacks."""
+    model = ARCH.build_model(CFG, {}, "cpu")
+    got = {k: tuple(t.shape) for k, t in model.core.state_dict().items()}
+    assert got == {name: tuple(shape) for name, shape, _ in ARCH.spec(CFG)}
 
 
 def test_donated_update_matches_the_functional_update():

@@ -1,8 +1,8 @@
 """The DeepSeek-V3 block of Moonlight-16B-A3B (`model_type` deepseek_v3) in
 the port: multi-head latent attention (MLA), a SwiGLU feed-forward and a
-DeepSeekMoE expert layer, chosen by `Transformer(block="moonlight",
-moonlight={...})` (`models/transformer.py`), whose keys are the published
-config.json's.
+DeepSeekMoE expert layer, stacked by `MoonlightTransformer`, which a
+transformer config with "block": "moonlight" builds, its shapes under
+"moonlight" in the published config.json's keys.
 
 Each layer is pre-norm, h = x + MLA(RMSNorm(x)), y = h + FFN(RMSNorm(h)):
 
@@ -32,21 +32,33 @@ sync); the assignments of other ranks' experts sort past the last group
 and are never multiplied. Dispatch and combine are gathers (deterministic:
 a recomputed forward under remat routes exactly as the first). On the CPU
 a loop over the experts computes the same.
+
+The stack has no adaptive wrappers, U-Net skips, value residual or
+hyper-connections; RoPE covers the q k rope dims. Time enters once, at the
+input: the time embedding (`to_time_cond`) through one `time_in` Linear(4
+dim -> dim) is added to each modality token's input vector (the Transfusion
+paper's conditioning of its linear patch encoder, arXiv 2408.11039 section
+3.2). It runs uncached calls only (a latent KV cache is not in the port),
+no dropout and no pipeline stages.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transfusion_tpu_torch.models.layers import CONTEXT_PARALLEL
+from transfusion_tpu_torch.models.transformer import Transformer
 from transfusion_tpu_torch.ops.flash_attn import flash_attention, supported
 from transfusion_tpu_torch.ops.norms import NEG_INF
 from transfusion_tpu_torch.ops.rope import apply_rope
 from transfusion_tpu_torch.ops.spans import span_allowed
 from transfusion_tpu_torch.training.metrics import span
 
-# what `Transformer(moonlight=...)` takes (config.json's names) and
+# what `MoonlightTransformer(moonlight=...)` takes (config.json's names) and
 # `experts_held`, the routed experts this layer holds
 KEYS = ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim",
         "intermediate_size", "moe_intermediate_size", "n_routed_experts", "experts_held",
@@ -303,3 +315,76 @@ class MoonlightBlock(nn.Module):
     def forward(self, x, rope, flash_spec, mask):
         x = x + self.self_attn(self.input_layernorm(x), rope, flash_spec, mask)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+    def float32_modules(self) -> tuple:
+        """The sub-modules that stay float32 in a model of any dtype: an
+        expert layer's router and selection bias (the modeling code's router
+        runs in float32)."""
+        return (self.mlp.gate,) if isinstance(self.mlp, MoE) else ()
+
+
+_NO_PIPELINE = ("block='moonlight' runs no pipeline stages (its layers carry no value residual "
+                "and take other inputs than the Transfusion block's)")
+
+
+class MoonlightTransformer(Transformer):
+    """`Transformer` of `MoonlightBlock` layers. `moonlight=` takes
+    config.json's keys (`KEYS`); of the base's options it reads dim, depth,
+    heads, attn_impl ('flash' or 'dense'), rope_theta, remat and
+    remat_policy, and refuses more than one residual stream and dropout."""
+
+    def __init__(self, dim: int, depth: int, moonlight: Optional[dict] = None, **kw):
+        if moonlight is None:
+            raise ValueError("block='moonlight' takes its shapes as moonlight={...}")
+        super().__init__(dim, depth, **kw)
+        missing = [k for k in KEYS if k not in moonlight]
+        if missing:
+            raise ValueError(f"moonlight= lacks {missing}")
+        if self.streams != 1 or self.dropout > 0 or self.attn_impl in CONTEXT_PARALLEL:
+            raise ValueError("block='moonlight' takes one residual stream, no dropout and "
+                             "attn_impl 'flash' or 'dense'")
+        self.unet_skips = False
+        self.rope_dim = moonlight["qk_rope_head_dim"]
+        self.time_in = nn.Linear(dim * 4, dim)
+        self.blocks = nn.ModuleList(
+            MoonlightBlock(dim, self.heads, moonlight, ind, self.attn_impl)
+            for ind in range(depth))
+        self.final_norm = RMSNorm(dim, moonlight["rms_norm_eps"])
+
+    def _build_blocks(self, *transfusion_options):
+        """Nothing: `__init__` builds the layers from `moonlight=`."""
+
+    def forward(self, x, times=None, times_inst=None, spans=None, is_any_modality=None,
+                rotary_pos=None, cache: Optional[dict] = None, causal: bool = False,
+                prefill: bool = False, dropout=None):
+        """`Transformer.forward`'s uncached call: `trunk_inputs` (rope
+        positions 0..n-1 by default), time added to the modality tokens'
+        inputs, then the blocks (each rematerialized under `remat` when grad
+        is on). Returns (out, None)."""
+        if cache is not None or dropout is not None:
+            raise NotImplementedError(
+                "block='moonlight' runs uncached calls without dropout (its serving needs a "
+                "latent KV cache, which the port does not have)")
+        if rotary_pos is None:
+            rotary_pos = torch.arange(x.shape[1], device=x.device)
+        inputs = self.trunk_inputs(x, times, times_inst, spans, causal, is_any_modality,
+                                   rotary_pos)
+        cond, is_mod = inputs["cond"], inputs["is_any_modality"]
+        if cond is not None and is_mod is not None:
+            t = self.time_in(cond.to(x.dtype))
+            if inputs["cond_index"] is not None:
+                t = torch.gather(t, 1, inputs["cond_index"][..., None].expand(-1, -1, x.shape[-1]))
+            elif t.ndim == 2:
+                t = t[:, None]
+            x = x + torch.where(torch.as_tensor(is_mod, device=x.device)[..., None], t, 0)
+        remat = self.remat and torch.is_grad_enabled()
+        args = (inputs["rope"], inputs["flash_spec"], inputs["mask"])
+        for block in self.blocks:
+            x = self._remat_block(block, x, *args) if remat else block(x, *args)
+        return self.final_norm(x), None
+
+    def value_carry_shape(self, rows: int, n: int, flash_spec) -> tuple:
+        raise NotImplementedError(_NO_PIPELINE)
+
+    def run_stage(self, x, values, layers, params: list, inputs: dict):
+        raise NotImplementedError(_NO_PIPELINE)

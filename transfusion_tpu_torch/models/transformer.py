@@ -32,15 +32,10 @@ With `remat` an uncached call (training) recomputes each block's forward in
 the backward instead of keeping its activations, as `nn.remat` does in the
 JAX `Transformer` (`transformer.py:541-550`).
 
-`block="moonlight"` (with `moonlight=`, config.json's keys,
-`models/moonlight.py`) builds DeepSeek-V3 layers instead: MLA and a SwiGLU
-or DeepSeekMoE feed-forward by layer, pre-norm, no adaptive wrappers, U-Net
-skips, value residual or hyper-connections, RoPE over the q k rope dims.
-Time enters once, at the input: the time embedding (`to_time_cond`) through
-one `time_in` Linear(4 dim -> dim) is added to each modality token's input
-vector (the Transfusion paper's conditioning of its linear patch encoder,
-arXiv 2408.11039 section 3.2). Such a stack runs uncached calls only (a
-latent KV cache is not in the port) and no dropout.
+The layers are the Transfusion block's. A stack of another block family is
+a subclass in its own module that overrides `_build_blocks` and `forward`
+(and refuses what it does not run); `TransfusionCore` maps the transformer
+config's "block" key to the class.
 
 Dropout (`dropout` > 0) is flax's module-level dropout: on the feedforward's
 gated hidden layer and, on the dense attention path of a call without a
@@ -63,7 +58,6 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from transfusion_tpu_torch.models import moonlight as moonlight_block
 from transfusion_tpu_torch.models.layers import (
     CONTEXT_PARALLEL,
     AdaptiveWrapper,
@@ -186,13 +180,17 @@ class TransformerBlock(nn.Module):
                                             **ada))
         return s, attn_values, new_cache
 
+    def float32_modules(self) -> tuple:
+        """The sub-modules that stay float32 in a model of any dtype: the
+        hyper-connections (the JAX module has no dtype)."""
+        return (self.hc_attn, self.hc_ff)
+
 
 # 'dots' keeps the outputs of the unbatched matrix products (the block's
 # projections) and recomputes the rest: the counterpart of
 # `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`
 _DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 REMAT_POLICIES = ("full", "dots")
-BLOCKS = ("transfusion", "moonlight")
 
 
 def _column_parallel(linear, x, out_features: int, tp):
@@ -222,12 +220,8 @@ class Transformer(nn.Module):
                  rope_theta: float = 10000.0, attn_laser: bool = False,
                  num_residual_fracs: int = 4, fuse_projections: bool = False,
                  dropout: float = 0.0, remat: bool = False, remat_policy: str = "full",
-                 mesh=None, block: str = "transfusion", moonlight: Optional[dict] = None):
+                 mesh=None):
         super().__init__()
-        if block not in BLOCKS:
-            raise ValueError(f"block={block!r} (one of {BLOCKS})")
-        if (block == "moonlight") != (moonlight is not None):
-            raise ValueError("block='moonlight' takes its shapes as moonlight={...}, and only it")
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={remat_policy!r} (one of {REMAT_POLICIES})")
         if attn_impl not in ("dense", "flash", *CONTEXT_PARALLEL):
@@ -247,59 +241,29 @@ class Transformer(nn.Module):
         self.rope_theta = rope_theta
         self.remat, self.remat_policy = remat, remat_policy
         self.dropout = dropout
-        self.block = block
-        self.rope_dim = dim_head
+        self.rope_dim = dim_head  # the width the rope angles of `trunk_inputs` cover
         # fixed (non-trainable) frequencies of the time embedding; from_flax
         # carries the JAX model's draw across
         self.register_buffer("fourier_weights", torch.randn(dim // 2))
         self.to_time_cond = nn.Linear(dim + 1, dim * 4)
-        if block == "moonlight":
-            self._init_moonlight(moonlight, num_residual_streams, dropout)
-            return
+        self._build_blocks(ff_expansion_factor, attn_softcap, attn_gate_values, fuse_projections,
+                           num_residual_fracs)
+
+    def _build_blocks(self, ff_expansion_factor, attn_softcap, attn_gate_values,
+                      fuse_projections, num_residual_fracs):
+        """`blocks` and `final_norm`: the Transfusion layers. A stack of
+        another block family overrides it."""
         self.blocks = nn.ModuleList(
             TransformerBlock(
-                dim, dim_head, heads, ff_expansion_factor, attn_softcap,
-                attn_gate_values, attn_impl, attn_laser, fuse_projections,
-                num_residual_streams, num_residual_fracs, ind,
-                is_first=ind == 0, has_skip=unet_skips and ind >= depth / 2, dropout=dropout,
-                mesh=mesh,
+                self.dim, self.dim_head, self.heads, ff_expansion_factor, attn_softcap,
+                attn_gate_values, self.attn_impl, self.attn_laser, fuse_projections,
+                self.streams, num_residual_fracs, ind, is_first=ind == 0,
+                has_skip=self.unet_skips and ind >= self.depth / 2, dropout=self.dropout,
+                mesh=self.mesh,
             )
-            for ind in range(depth)
+            for ind in range(self.depth)
         )
-        self.final_norm = RMSNorm(dim)
-
-    def _init_moonlight(self, cfg: dict, streams: int, dropout: float):
-        missing = [k for k in moonlight_block.KEYS if k not in cfg]
-        if missing:
-            raise ValueError(f"moonlight= lacks {missing}")
-        if streams != 1 or dropout > 0 or self.attn_impl in CONTEXT_PARALLEL:
-            raise ValueError("block='moonlight' takes one residual stream, no dropout and "
-                             "attn_impl 'flash' or 'dense'")
-        self.unet_skips = False
-        self.rope_dim = cfg["qk_rope_head_dim"]
-        self.time_in = nn.Linear(self.dim * 4, self.dim)
-        self.blocks = nn.ModuleList(
-            moonlight_block.MoonlightBlock(self.dim, self.heads, cfg, ind, self.attn_impl)
-            for ind in range(self.depth))
-        self.final_norm = moonlight_block.RMSNorm(self.dim, cfg["rms_norm_eps"])
-
-    def _moonlight_forward(self, x, inputs: dict):
-        """The moonlight stack on x [b, n, dim] with `trunk_inputs`: time
-        added to the modality tokens' inputs, then the blocks (each
-        rematerialized under `remat` when grad is on)."""
-        cond, is_mod = inputs["cond"], inputs["is_any_modality"]
-        if cond is not None and is_mod is not None:
-            t = self.time_in(cond.to(x.dtype))
-            if inputs["cond_index"] is not None:
-                t = torch.gather(t, 1, inputs["cond_index"][..., None].expand(-1, -1, x.shape[-1]))
-            elif t.ndim == 2:
-                t = t[:, None]
-            x = x + torch.where(torch.as_tensor(is_mod, device=x.device)[..., None], t, 0)
-        remat = self.remat and torch.is_grad_enabled()
-        args = (inputs["rope"], inputs["flash_spec"], inputs["mask"])
-        for block in self.blocks:
-            x = self._remat_block(block, x, *args) if remat else block(x, *args)
-        return self.final_norm(x)
+        self.final_norm = RMSNorm(self.dim)
 
     def _use_decode_kernel(self, cache, prefill, spans, causal, n):
         """A cached step goes to the decode kernel when its mask reduces to
@@ -454,6 +418,16 @@ class Transformer(nn.Module):
         return dict(cond=cond, cond_index=cond_index, mask=mask, rope=rope,
                     is_any_modality=is_any_modality, flash_spec=flash_spec)
 
+    def value_carry_shape(self, rows: int, n: int, flash_spec) -> tuple:
+        """The value-residual carry's shape for `rows` rows of n tokens (what
+        a pipeline stage hands the next with its activations): [rows, n,
+        h*d] when the attention takes the token-major route (the route the
+        blocks' attention itself picks), else [rows, h, n, d]."""
+        h, d = self.heads, self.dim_head
+        if self.blocks[0].attn.route(n, flash_spec, None, None, False) == "nhd":
+            return (rows, n, h * d)
+        return (rows, h, n, d)
+
     def run_stage(self, x, values, layers, params: list, inputs: dict):
         """Blocks `layers` (a contiguous range) of a single-stream stack on
         x [b, n, dim]: one pipeline stage (`parallel/pipeline.py`). values:
@@ -491,16 +465,6 @@ class Transformer(nn.Module):
         block, or a torch.Generator to draw them from. Returns (out,
         new_cache)."""
         b, n, _ = x.shape
-        if self.block == "moonlight":
-            if cache is not None or dropout is not None:
-                raise NotImplementedError(
-                    "block='moonlight' runs uncached calls without dropout (its serving needs a "
-                    "latent KV cache, which the port does not have)")
-            if rotary_pos is None:
-                rotary_pos = torch.arange(n, device=x.device)
-            inputs = self.trunk_inputs(x, times, times_inst, spans, causal, is_any_modality,
-                                       rotary_pos)
-            return self._moonlight_forward(x, inputs), None
         if self.attn_impl in CONTEXT_PARALLEL and cache is None:
             if self.mesh is None:
                 raise ValueError(f"attn_impl='{self.attn_impl}' needs a mesh with a 'context' "

@@ -59,6 +59,7 @@ from transfusion_tpu_torch.data.packing import (
     to_user_layout,
 )
 from transfusion_tpu_torch.models import sample_batch as _sample_batch
+from transfusion_tpu_torch.models.moonlight import MoonlightTransformer
 from transfusion_tpu_torch.models.serving import plan_serving
 from transfusion_tpu_torch.models.transformer import (
     Transformer,
@@ -158,6 +159,10 @@ class ModelToLatent(nn.Module):
         return self.proj(x.to(self.proj.weight.dtype))
 
 
+# the transformer config's "block" key: the family of layers the stack is made of
+TRUNKS = {"transfusion": Transformer, "moonlight": MoonlightTransformer}
+
+
 class TransfusionCore(nn.Module):
     """Transformer + embeddings + modality projections + axial pos-emb
     MLPs. `pre_post[i]`, when given, is modality i's (pre, post) module
@@ -178,7 +183,11 @@ class TransfusionCore(nn.Module):
         super().__init__()
         self.model_output_clean = model_output_clean
         self.eps = eps
-        self.transformer = Transformer(dim=dim, **transformer_cfg)
+        transformer_cfg = dict(transformer_cfg)
+        block = transformer_cfg.pop("block", "transfusion")
+        if block not in TRUNKS:
+            raise ValueError(f"block={block!r} (one of {tuple(TRUNKS)})")
+        self.transformer = TRUNKS[block](dim=dim, **transformer_cfg)
         self.text_embed = nn.Embedding(vocab_size, dim)
         self.to_text_logits = nn.Linear(dim, vocab_size, bias=False)
         pre_post = tuple(pre_post) + (None,) * (len(modalities) - len(pre_post))
@@ -516,16 +525,10 @@ class Transfusion:
         for module in (self.core.latent_to_model, self.core.model_to_latent,
                        self.core.pos_emb_mlps):
             module.float()
-        # so do the hyper-connections' weights (the JAX module has no dtype)
-        # and a moonlight stack's routers and selection biases (its router
-        # runs in float32, as the modeling code's)
+        # so do the sub-modules each block names
         for block in self.core.transformer.blocks:
-            if self.core.transformer.block == "moonlight":
-                if hasattr(block.mlp, "gate"):
-                    block.mlp.gate.float()
-                continue
-            block.hc_attn.float()
-            block.hc_ff.float()
+            for module in block.float32_modules():
+                module.float()
         self._param_dtypes = {k: p.dtype for k, p in self.core.named_parameters()}
 
     def _norm_aux(self, x) -> list:

@@ -21,7 +21,8 @@ checkpoints and `shard_params` work as they are.
 
 The value-residual carry is [mb, n, h*d] on the token-major route and
 [mb, h, n, d] otherwise, decided by the attention's own router
-(`Attention.route`, the counterpart of JAX's `attention_uses_nhd`).
+(`Attention.route`, the counterpart of JAX's `attention_uses_nhd`), which
+`Transformer.value_carry_shape` asks.
 
 The backward: JAX differentiates through the schedule (ppermute transposes
 to the reverse rotation). The port keeps each (stage, microbatch) forward
@@ -219,16 +220,6 @@ def stage_layers(depth: int, pipe: int, r: int) -> range:
     return range(r * per, (r + 1) * per)
 
 
-def values_shape(transformer, rows: int, n: int, flash_spec) -> tuple:
-    """The value-residual carry's shape for `rows` rows: [rows, n, h*d] when
-    the attention takes the token-major route (the route the blocks'
-    attention itself picks), else [rows, h, n, d]."""
-    h, d = transformer.heads, transformer.dim_head
-    if transformer.blocks[0].attn.route(n, flash_spec, None, None, False) == "nhd":
-        return (rows, n, h * d)
-    return (rows, h, n, d)
-
-
 def leaves(params: dict, grad: bool) -> dict:
     return {k: p.detach().requires_grad_(grad) for k, p in params.items()}
 
@@ -275,7 +266,7 @@ class _GPipeRun:
         self.x_dtype, self.cond_dtype = x.dtype, None if cond is None else cond.dtype
         self.device = x.device
         specs = [((mb, n, dim), x.dtype, x.device),
-                 (values_shape(self.t, mb, n, self.inputs["flash_spec"]), x.dtype, x.device)]
+                 (self.t.value_carry_shape(mb, n, self.inputs["flash_spec"]), x.dtype, x.device)]
         self.specs = specs
         self.leaves = {r: {i: leaves(self.block_params[i], keep) for i in self.layers[r]}
                        for r in stages.stages}

@@ -57,7 +57,6 @@ from transfusion_tpu_torch.parallel.pipeline import (
     grad_keys,
     leaves,
     stage_layers,
-    values_shape,
 )
 
 
@@ -96,7 +95,7 @@ def pipeline_1f1b_grads(transformer, stages, microbatches: int, x, head_fn, head
     cond = inputs["cond"]
     x_l, c_l = rows.local(x), rows.local(cond)
     layers = {r: stage_layers(transformer.depth, P, r) for r in range(P)}
-    v_shape = values_shape(transformer, mb, n, inputs["flash_spec"])
+    v_shape = transformer.value_carry_shape(mb, n, inputs["flash_spec"])
     fwd_specs = [((mb, n, dim), x.dtype, dev), (v_shape, x.dtype, dev)]
     bwd_specs = [((mb, n, dim), torch.float32, dev), (v_shape, torch.float32, dev)]
     stage_leaves = {r: {i: leaves(block_params[i], True) for i in layers[r]}
